@@ -1,0 +1,127 @@
+"""The port's CUDA kernels against their plain torch versions, on the card.
+
+Marked `cuda`: without a CUDA device every test skips (the decision is
+taken inside the fixture). This file imports no jax, so it runs on a
+machine without it:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from tpu_multigrid_torch.ops import cuda_stencil as cs
+from tpu_multigrid_torch.ops import gauge_stencil as gs
+from tpu_multigrid_torch.ops import smoothers as sm
+from tpu_multigrid_torch.ops.stencil import site_inverse
+
+pytestmark = pytest.mark.cuda
+
+BARS = {torch.complex64: 2e-5, torch.complex128: 1e-12}
+DTYPES = [torch.complex64, torch.complex128]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _c(rng, shape, dtype, dev):
+    a = rng.normal(size=shape) + 1j * rng.normal(size=shape)
+    return torch.from_numpy(a).to(device=dev, dtype=dtype)
+
+
+def _links(rng, L, dtype, dev):
+    return torch.from_numpy(np.exp(0.2j * rng.normal(size=(2, L, L)))).to(
+        device=dev, dtype=dtype)
+
+
+def _dense(rng, B, n, L, dtype, dev):
+    D = 0.25 * _c(rng, (B, 5, n, n, L, L), dtype, dev)
+    D[:, 0] += 4.0 * torch.eye(n, dtype=dtype, device=dev)[:, :, None, None]
+    return D, site_inverse(D[:, 0])
+
+
+def _rel(a, b):
+    torch.cuda.synchronize()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("L", [8, 256])
+def test_links_residual(dev, dtype, L):
+    rng = np.random.default_rng(1)
+    U = _links(rng, L, dtype, dev)
+    phi, r = _c(rng, (2, L, L), dtype, dev), _c(rng, (2, L, L), dtype, dev)
+    n0 = cs.launches["links_residual"]
+    got = cs.wilson_u_residual(U, -0.005, phi, r)
+    assert cs.launches["links_residual"] == n0 + 1
+    want = gs.residual_u("wilson", U, -0.005, phi, r)
+    assert _rel(got, want) < BARS[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind,omega", [("rbgs", 1.0), ("jacobi", 1.0),
+                                        ("rbgs", 0.8), ("jacobi", 0.8)])
+@pytest.mark.parametrize("L", [8, 256])
+def test_links_smooth(dev, dtype, kind, omega, L):
+    rng = np.random.default_rng(2)
+    U = _links(rng, L, dtype, dev)
+    phi, r = _c(rng, (2, L, L), dtype, dev), _c(rng, (2, L, L), dtype, dev)
+    keep = phi.clone()
+    n0 = cs.launches["links_update"]
+    got = cs.wilson_u_smooth(U, -0.005, phi, r, 4, kind, omega)
+    assert cs.launches["links_update"] == n0 + (8 if kind == "rbgs" else 4)
+    assert torch.equal(phi, keep)            # the input is not overwritten
+    want = gs.smooth_u("wilson", U, -0.005, phi, r, 4, kind, omega)
+    assert _rel(got, want) < BARS[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", ["rbgs", "jacobi"])
+@pytest.mark.parametrize("n,B,L,shared", [
+    (4, None, 128, False), (4, None, 64, False), (4, 4, 32, False),
+    (2, 2, 256, True), (4, 2, 128, True), (1, 3, 16, False), (2, None, 8, False),
+])
+def test_dense_smooth(dev, dtype, kind, n, B, L, shared):
+    """The flagship's coarse levels (n=4 at 128 and 64), its NTL copies
+    (batch 4, each its own D) and its setup relaxation (k=2 candidates
+    sharing D, n=2 at 256 and n=4 at 128), plus n=1."""
+    rng = np.random.default_rng(3)
+    nb = 1 if (B is None or shared) else B
+    D, Dinv = _dense(rng, nb, n, L, dtype, dev)
+    if B is None or shared:
+        D, Dinv = D[0], Dinv[0]
+    lead = () if B is None else (B,)
+    phi = _c(rng, lead + (n, L, L), dtype, dev)
+    r = _c(rng, (n, L, L) if shared else lead + (n, L, L), dtype, dev)
+    n0 = cs.launches["dense_update"]
+    got = sm.smooth(D, Dinv, phi, r, 4, kind)
+    assert cs.launches["dense_update"] == n0 + (8 if kind == "rbgs" else 4)
+    want = sm.smooth(D, Dinv, phi, r, 4, kind, pallas="off")
+    assert _rel(got, want) < BARS[dtype]
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    rng = np.random.default_rng(4)
+    L = 8
+    U = _links(rng, L, torch.complex64, dev)
+    phi = _c(rng, (2, L, L), torch.complex64, dev)
+    with pytest.raises(ValueError):
+        cs.wilson_u_residual(U, 0.1, phi.transpose(-1, -2), phi)
+    with pytest.raises(TypeError):
+        cs.wilson_u_residual(U, 0.1, phi, phi.to(torch.complex128))
+    with pytest.raises(ValueError):
+        cs.wilson_u_residual(U, 0.1, phi, phi.cpu())
+    with pytest.raises(ValueError):
+        odd = phi[:, :7, :7].contiguous()
+        cs.wilson_u_smooth(U[:, :7, :7].contiguous(), 0.1, odd, odd, 1, "rbgs")
+    with pytest.raises(TypeError):
+        re = phi.real.contiguous()
+        cs.wilson_u_residual(U.real.contiguous(), 0.1, re, re)
+    D, Dinv = _dense(rng, 1, 3, L, torch.complex64, dev)
+    with pytest.raises(ValueError):
+        cs.dense_smooth(D[0], Dinv[0], _c(rng, (3, L, L), torch.complex64, dev),
+                        _c(rng, (3, L, L), torch.complex64, dev), 1, "rbgs")

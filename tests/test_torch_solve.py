@@ -1,0 +1,160 @@
+"""The port's slice end to end against the JAX package, at
+__graft_entry__._flagship's small size: Wilson NTL (4 copies, min-res),
+L=32, 2 levels, rbgs x4, 16 near-null sweeps, the gauge links carried on
+the hierarchy. JAX's near-null starts (the per-level jax.random.split
+chain of hierarchy.build_hierarchy) are injected into the port.
+
+complex128 (links on and off): the same cycle count to 1e-8, phi within
+1e-9, and the per-cycle NTL weights within 1e-9 (see _weights_bar).
+complex64 (links auto): both converge to 1e-6 within one cycle of each
+other. Plus one ntl_cycle on a JAX-built
+hierarchy carried over by utils.convert.hierarchy_from_numpy.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+
+import torch  # noqa: E402
+
+from torch_port_helpers import (C128_BAR, jax_hierarchy_leaves, np_of,  # noqa: E402
+                                rel_err, t_of)
+
+import tpu_multigrid as mg  # noqa: E402
+from tpu_multigrid.ops.nearnull import random_starts as jax_random_starts  # noqa: E402
+import tpu_multigrid_torch as mgt  # noqa: E402
+from tpu_multigrid_torch.solver.cycles import residual_norm_ratio0  # noqa: E402
+from tpu_multigrid_torch.utils.convert import (config_from_dict,  # noqa: E402
+                                               hierarchy_from_numpy)
+
+SLICE_BAR = 1e-9
+
+
+def _weights_bar(res_in: float) -> float:
+    """Bar for one cycle's NTL weights, given the residual the cycle starts
+    from. The weights solve a 4x4 system built from the prolonged
+    corrections of that residual, and the residual carries an absolute
+    rounding error of ~eps |b|: the weights' relative rounding grows as
+    eps / residual (measured on the JAX package itself: the port on the
+    JAX-built hierarchy gives err * residual <= ~2e-15 in every cycle).
+    So 1e-9 down to residual 1e-4, then growing as 1 / residual."""
+    return SLICE_BAR * max(1.0, 1e-4 / res_in)
+
+
+def _cfgs(dtype, links, res_threshold=1e-8):
+    jcfg = mg.MGConfig(L=32, stencil="wilson", m=-0.005, nlevels=2,
+                       ntl=True, n_copies=4, num_iters=4, null_iters=16,
+                       dtype=dtype, smoother="rbgs",
+                       res_threshold=res_threshold, links=links)
+    return jcfg, config_from_dict(dataclasses.asdict(jcfg))
+
+
+def _jax_starts(cfg):
+    key = jax.random.PRNGKey(cfg.seed)
+    out = []
+    for lvl in range(cfg.nlevels):
+        key, sub = jax.random.split(key)
+        k = cfg.n_dof[lvl + 1] // 2
+        out.append(np.array(jax_random_starts(
+            sub, k, cfg.n_dof[lvl], cfg.sizes[lvl], cfg.cdtype)))
+    return out
+
+
+def _build_both(jcfg, tcfg):
+    rng = np.random.default_rng(jcfg.seed)
+    ph = 0.2 * rng.normal(size=(2, jcfg.L, jcfg.L))
+    jU = mg.models.gauge.gauge_from_phases(ph, jcfg.cdtype)
+    jD = mg.models.operators.assemble(jcfg.stencil, jU, jcfg.m)
+    jhier = mg.build_hierarchy(jD, jcfg, U=jU)
+    tU = mgt.models.gauge.gauge_from_phases(ph, tcfg.cdtype)
+    tD = mgt.models.operators.assemble(tcfg.stencil, tU, tcfg.m)
+    thier = mgt.build_hierarchy(tD, tcfg, U=tU, starts=_jax_starts(jcfg))
+    return jhier, thier
+
+
+def _port_history(hier, b, cfg, max_iters):
+    """Per-cycle residuals and NTL weights of the port (the loop of
+    solve, recorded)."""
+    phis = mgt.zero_fields(cfg)
+    hist, weights = [], []
+    for _ in range(max_iters):
+        phis, a = mgt.cycle(hier, phis, b, cfg)
+        hist.append(float(residual_norm_ratio0(hier, phis[0], b, cfg)))
+        weights.append(np_of(a))
+        if hist[-1] < cfg.res_threshold:
+            break
+    return phis[0], np.asarray(hist), np.asarray(weights)
+
+
+@pytest.fixture(scope="module")
+def c128_pair():
+    jcfg, tcfg = _cfgs("complex128", "on")
+    return jcfg, tcfg, _build_both(jcfg, tcfg)
+
+
+def test_c128_hierarchy_matches(c128_pair):
+    jcfg, _, (jhier, thier) = c128_pair
+    for jl, tl in zip(jhier.levels, thier.levels):
+        assert rel_err(tl.D, jl.D) < SLICE_BAR
+        if jl.phi_null is not None:
+            assert rel_err(tl.phi_null, jl.phi_null) < SLICE_BAR
+    assert rel_err(thier.ntl.D, jhier.ntl.D) < SLICE_BAR
+    assert rel_err(thier.gauge, jhier.gauge) < C128_BAR
+
+
+@pytest.mark.parametrize("links", ["on", "off"])
+def test_c128_solve_matches_jax(c128_pair, links):
+    jcfg, tcfg, (jhier, thier) = c128_pair
+    jcfg, tcfg = jcfg.replace(links=links), tcfg.replace(links=links)
+    b_j = mg.point_source(jcfg)
+    b_t = mgt.point_source(tcfg)
+    ref = mg.solve_with_history(jhier, b_j, jcfg, max_iters=40)
+    assert ref.converged
+    phi, hist, weights = _port_history(thier, b_t, tcfg, 40)
+    assert len(hist) == ref.iters
+    assert hist[-1] < tcfg.res_threshold
+    np.testing.assert_allclose(hist, ref.history, rtol=1e-6)
+    res_in = np.concatenate([[1.0], ref.history[:-1]])
+    for k in range(ref.iters):
+        assert rel_err(weights[k], ref.ntl_weights[k]) < _weights_bar(res_in[k])
+    assert rel_err(weights[:10], ref.ntl_weights[:10]) < SLICE_BAR
+    assert rel_err(phi, ref.phi) < SLICE_BAR
+    out = mgt.solve(thier, b_t, tcfg, max_iters=40)
+    assert out.converged and out.iters == ref.iters
+    assert rel_err(out.phi, ref.phi) < SLICE_BAR
+
+
+def test_c64_links_auto_converges_like_jax():
+    jcfg, tcfg = _cfgs("complex64", "auto", res_threshold=1e-6)
+    jhier, thier = _build_both(jcfg, tcfg)
+    ref = mg.solve(jhier, mg.point_source(jcfg), jcfg, max_iters=40)
+    out = mgt.solve(thier, mgt.point_source(tcfg), tcfg, max_iters=40)
+    assert ref.converged and out.converged
+    assert abs(out.iters - ref.iters) <= 1, (out.iters, ref.iters)
+    assert out.phi.dtype == torch.complex64
+    assert np.isfinite(np_of(out.phi)).all()
+    chunked = mgt.solve_chunked(thier, mgt.point_source(tcfg), tcfg,
+                                max_iters=40, chunk=1)
+    assert chunked.converged and chunked.iters == out.iters
+
+
+@pytest.mark.parametrize("ntl", [True, False])
+def test_cycle_on_jax_hierarchy(c128_pair, ntl):
+    """One cycle of the port (ntl_cycle, or the telescoping v_cycle) on the
+    JAX-built hierarchy carried over as numpy == the JAX cycle, complex128
+    at 1e-12."""
+    jcfg, tcfg, (jhier, _) = c128_pair
+    jcfg, tcfg = jcfg.replace(ntl=ntl), tcfg.replace(ntl=ntl)
+    thier = hierarchy_from_numpy(*jax_hierarchy_leaves(jhier),
+                                 dtype=torch.complex128)
+    b = mg.point_source(jcfg)
+    jphis, ja = mg.cycle(jhier, mg.zero_fields(jcfg), b, jcfg)
+    tphis, ta = mgt.cycle(thier, mgt.zero_fields(tcfg), t_of(b), tcfg)
+    if ntl:
+        assert rel_err(ta, ja) < C128_BAR
+    assert rel_err(tphis[0], jphis[0]) < C128_BAR
+    for tp, jp in zip(tphis, jphis):
+        if np.any(np.asarray(jp)):
+            assert rel_err(tp, jp) < C128_BAR

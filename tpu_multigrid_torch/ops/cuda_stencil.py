@@ -1,0 +1,279 @@
+"""Hand-written CUDA kernels of the smoother path, their wrappers, launch
+counters and the build-and-load code (counterpart of
+tpu_multigrid/ops/pallas_stencil.py).
+
+Kernels (csrc/stencil.cu), each with its plain torch version:
+
+- links_update   <- _u_smooth_vmem_kernel (pallas_stencil.py:669), via
+  `wilson_u_smooth`. Plain version: gauge_stencil.smooth_u.
+- links_residual <- _u_resid_vmem_kernel (pallas_stencil.py:662), via
+  `wilson_u_residual`. Plain version: gauge_stencil.residual_u.
+- dense_update   <- _rbgs_kernel (pallas_stencil.py:125) and
+  _jacobi_kernel (pallas_stencil.py:86), via `dense_smooth`. Plain
+  version: smoothers.smooth_plain.
+
+What bounds them on the H100 is bytes, not flops: ~4.5 complex words per
+site per links sweep and ~26 per dense n=4 sweep (the accounting of
+pallas_stencil.py:669-673). One thread per site reads its neighbours from
+global memory and L2 serves the reuse. The TPU kernels ran all sweeps in
+one launch with the lattice resident in VMEM; here each Jacobi sweep is
+one launch and each red-black sweep two (the launch boundary is the grid-
+wide colour barrier), with red/black half-updates written in place.
+
+A CUDA tensor always goes to its kernel, or the wrapper raises; the plain
+version runs only for CPU tensors (or when the caller passes
+MGConfig.pallas='off' and calls the plain function itself).
+
+The library is built at first use with nvcc from the package's csrc/
+sources into tpu_multigrid_torch/_build/, keyed by a hash of the sources
+and flags, and bound with ctypes (a plain C interface: no PyTorch headers,
+so the build takes seconds).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+from . import gauge_stencil, smoothers
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+# Launch counts per kernel: each wrapper adds one where it launches.
+launches = {"links_update": 0, "links_residual": 0, "dense_update": 0}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    """nvcc under CUDA_HOME if set, else on PATH, else the toolkit's
+    default prefix."""
+    if "CUDA_HOME" in os.environ:
+        nvcc = Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc"
+    else:
+        nvcc = Path(shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc")
+    if not nvcc.exists():
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return str(nvcc)
+
+
+def library_path() -> Path:
+    """Path of the shared library for the current sources and flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libtmg_stencil_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the build directory unless a library for the
+    same sources exists; returns its path."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+_P, _I, _D, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_double,
+                   ctypes.c_longlong)
+_SIGNATURES = {
+    "links_residual": (_P, _P, _P, _P, _I, _D, _P),
+    "links_update": (_P, _P, _P, _P, _I, _D, _D, _I, _P),
+    "dense_update": (_P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _I, _D,
+                     _P),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        for suffix in ("c64", "c128"):
+            fn = getattr(lib, f"tmg_{name}_{suffix}")
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _entry(name: str, dtype: torch.dtype):
+    suffix = {torch.complex64: "c64", torch.complex128: "c128"}.get(dtype)
+    if suffix is None:
+        raise TypeError(f"{name}: kernels take complex64 or complex128, "
+                        f"got {dtype}")
+    return getattr(_library(), f"tmg_{name}_{suffix}")
+
+
+def _launch(name: str, dtype: torch.dtype, device, *args) -> None:
+    fn = _entry(name, dtype)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    launches[name] += 1
+
+
+def _check(name: str, t: torch.Tensor, like: torch.Tensor, shape) -> None:
+    if t.device != like.device:
+        raise ValueError(f"{name} on {t.device}, expected {like.device}")
+    if t.dtype != like.dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {like.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_lattice(L: int, kind: str) -> None:
+    if kind not in smoothers.KINDS:
+        raise NotImplementedError(f"no kernel for smoother {kind!r}")
+    if kind == "rbgs" and L % 2:
+        raise ValueError(f"red-black sweeps need an even lattice, got L={L}")
+
+
+def _sweeps(launch, phi, n_sweeps: int, kind: str):
+    """n_sweeps of launch(src, dst, colour). Red-black: colours 0 then 1,
+    in place on a copy of phi (the caller's phi is left as it was);
+    Jacobi: colour -1, ping-pong between two fresh buffers."""
+    if kind == "rbgs":
+        out = phi.clone()
+        for _ in range(n_sweeps):
+            launch(out, out, 0)
+            launch(out, out, 1)
+        return out
+    src, bufs = phi, (torch.empty_like(phi), torch.empty_like(phi))
+    for i in range(n_sweeps):
+        launch(src, bufs[i % 2], -1)
+        src = bufs[i % 2]
+    return src
+
+
+# --------------------------------------------------------------------------
+# links-only Wilson level 0 (B1, B2)
+# --------------------------------------------------------------------------
+
+def _check_links(U, phi, r):
+    L = phi.shape[-1]
+    _check("phi", phi, phi, (2, L, L))
+    _check("U", U, phi, (2, L, L))
+    _check("r", r, phi, (2, L, L))
+
+
+def wilson_u_residual(U, m: float, phi, r):
+    """r - D_U phi, D_U = (2+m) + links-only Wilson hop.
+
+    Replaces tpu_multigrid/ops/pallas_stencil.py _u_resid_vmem_kernel
+    (via wilson_u_residual_pallas). Bound by bytes: U, phi and r read once,
+    out written once (8 complex words per site)."""
+    if not phi.is_cuda:
+        return gauge_stencil.residual_u("wilson", U, m, phi, r)
+    _check_links(U, phi, r)
+    out = torch.empty_like(phi)
+    _launch("links_residual", phi.dtype, phi.device, U.data_ptr(),
+            phi.data_ptr(), r.data_ptr(), out.data_ptr(), phi.shape[-1],
+            float(m))
+    return out
+
+
+def wilson_u_smooth(U, m: float, phi, r, n_sweeps: int, kind: str = "rbgs",
+                    omega: float = 1.0):
+    """n_sweeps links-only Wilson smoother sweeps (Jacobi or red-black).
+
+    Replaces tpu_multigrid/ops/pallas_stencil.py _u_smooth_vmem_kernel
+    (via wilson_u_smooth_pallas). Bound by bytes (~4.5 complex words per
+    site per sweep); red-black half-sweeps update a copy of phi in place,
+    Jacobi ping-pongs between two buffers."""
+    if not phi.is_cuda:
+        return gauge_stencil.smooth_u("wilson", U, m, phi, r, n_sweeps, kind,
+                                      omega)
+    _check_links(U, phi, r)
+    L = phi.shape[-1]
+    _check_lattice(L, kind)
+
+    def launch(src, dst, colour):
+        _launch("links_update", phi.dtype, phi.device, U.data_ptr(),
+                src.data_ptr(), r.data_ptr(), dst.data_ptr(), L, float(m),
+                float(omega), colour)
+
+    return _sweeps(launch, phi, n_sweeps, kind)
+
+
+# --------------------------------------------------------------------------
+# dense 5-point block stencil (B3, B4)
+# --------------------------------------------------------------------------
+
+def _batch_stride(t: torch.Tensor, unbatched_ndim: int, B: int) -> int:
+    """Element stride between batch entries: 0 for a tensor shared by the
+    batch, else the size of one entry."""
+    if t.dim() == unbatched_ndim:
+        return 0
+    if t.dim() == unbatched_ndim + 1 and t.shape[0] == B:
+        return t[0].numel()
+    raise ValueError(f"batch axis of shape {tuple(t.shape)} does not match "
+                     f"batch {B}")
+
+
+def dense_smooth(D, D0inv, phi, r, n_sweeps: int, kind: str = "rbgs",
+                 omega: float = 1.0):
+    """n_sweeps dense 5-point block-stencil sweeps,
+    phi <- -D0inv (sum_mu D_mu phi(x+mu) - r), red-black or Jacobi.
+
+    Replaces tpu_multigrid/ops/pallas_stencil.py _rbgs_kernel (via
+    rbgs_smooth_pallas) and _jacobi_kernel (via jacobi_smooth_pallas).
+    phi [B?, n, L, L] with an optional batch axis; D [B?, 5, n, n, L, L],
+    D0inv [B?, n, n, L, L] and r [B?, n, L, L] each shared or batched.
+    Bound by bytes: D's 4n^2 hop blocks and D0inv's n^2 dominate
+    (~26 complex words per site per n=4 sweep)."""
+    if not phi.is_cuda:
+        return smoothers.smooth_plain(D, D0inv, phi, r, n_sweeps, kind, omega)
+    batched = phi.dim() == 4
+    B = phi.shape[0] if batched else 1
+    n, L = phi.shape[-3], phi.shape[-1]
+    if n not in (1, 2, 4):
+        raise ValueError(f"dense_update takes n in (1, 2, 4), got {n}")
+    _check_lattice(L, kind)
+    bd = (B,) if batched else ()
+    _check("phi", phi, phi, bd + (n, L, L))
+    d_bs = _batch_stride(D, 5, B)
+    dinv_bs = _batch_stride(D0inv, 4, B)
+    r_bs = _batch_stride(r, 3, B)
+    _check("D", D, phi, ((B,) if d_bs else ()) + (5, n, n, L, L))
+    _check("D0inv", D0inv, phi, ((B,) if dinv_bs else ()) + (n, n, L, L))
+    _check("r", r, phi, ((B,) if r_bs else ()) + (n, L, L))
+
+    def launch(src, dst, colour):
+        _launch("dense_update", phi.dtype, phi.device, D.data_ptr(),
+                D0inv.data_ptr(), src.data_ptr(), r.data_ptr(),
+                dst.data_ptr(), B, n, L, d_bs, dinv_bs, r_bs, colour,
+                float(omega))
+
+    return _sweeps(launch, phi, n_sweeps, kind)

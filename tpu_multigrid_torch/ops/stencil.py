@@ -1,0 +1,82 @@
+"""Gauge-covariant 5-point stencil application (SpMV) and residuals
+(counterpart of tpu_multigrid/ops/stencil.py; reference Level::f_apply_D /
+f_residue, level.h:61-77, 251-265).
+
+Fields are ``v[..., n, L, L]``; stencils ``D[..., 5, n, n, L, L]``. The
+leading ``...`` is an optional batch axis (the NTL coarse copies, the
+near-null candidates); a stencil without it is shared by the batch.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..config import SAME, XP, XM, YP, YM
+
+# Lattice axes: x = -2, y = -1. Site (x+1, y) of field v is roll(v, -1, -2).
+_SHIFTS = {XP: (-1, -2), XM: (1, -2), YP: (-1, -1), YM: (1, -1)}
+
+
+def shift(v: torch.Tensor, d: int) -> torch.Tensor:
+    """Return the field of neighbor values in direction d (d in {1..4})."""
+    s, ax = _SHIFTS[d]
+    return torch.roll(v, s, dims=ax)
+
+
+def _direction(D: torch.Tensor, d: int) -> torch.Tensor:
+    """Block plane D_d[..., n, n, L, L] of a (possibly batched) stencil."""
+    return D[..., d, :, :, :, :]
+
+
+def _site_matvec(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Per-site (n x n) @ (n): M[..., n,n,L,L] v[..., n,L,L] -> [..., n,L,L]."""
+    return (M * v.unsqueeze(-4)).sum(dim=-3)
+
+
+def apply_hop(D: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Off-diagonal part: sum_{mu != 0} D_mu(x) v(x + mu)."""
+    out = _site_matvec(_direction(D, XP), shift(v, XP))
+    out = out + _site_matvec(_direction(D, XM), shift(v, XM))
+    out = out + _site_matvec(_direction(D, YP), shift(v, YP))
+    out = out + _site_matvec(_direction(D, YM), shift(v, YM))
+    return out
+
+
+def apply_D(D: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Full SpMV: (D v)(x) = D0(x) v(x) + sum_mu D_mu(x) v(x+mu)."""
+    return _site_matvec(_direction(D, SAME), v) + apply_hop(D, v)
+
+
+def residual(D: torch.Tensor, phi: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """r - D phi (reference Level::f_residue, level.h:61-77)."""
+    return r - apply_D(D, phi)
+
+
+def _sumsq(x: torch.Tensor) -> torch.Tensor:
+    """Sum of |x|^2, always accumulated in float64 (the JAX package does so
+    whenever x64 is on), so the convergence check stays meaningful in
+    complex64."""
+    return torch.sum(x.abs() ** 2, dtype=torch.float64)
+
+
+def residual_norm_ratio(D, phi, r) -> torch.Tensor:
+    """||r - D phi|| / ||r|| (reference f_get_residue_mag, level.h:79-98)."""
+    num = torch.sqrt(_sumsq(residual(D, phi, r)))
+    den = torch.sqrt(_sumsq(r))
+    return (num / den).to(r.real.dtype)
+
+
+def site_inverse(M: torch.Tensor) -> torch.Tensor:
+    """Per-site inverse of the diagonal block D0: [..., n,n,L,L] -> same."""
+    n = M.shape[-4]
+    if n == 1:
+        return 1.0 / M
+    if n == 2:
+        # closed form, as in the JAX package
+        a, b = M[..., 0, 0, :, :], M[..., 0, 1, :, :]
+        c, d = M[..., 1, 0, :, :], M[..., 1, 1, :, :]
+        det = a * d - b * c
+        inv = torch.stack([torch.stack([d, -b], dim=-3),
+                           torch.stack([-c, a], dim=-3)], dim=-4)
+        return inv / det[..., None, None, :, :]
+    inv = torch.linalg.inv(torch.movedim(M, (-4, -3), (-2, -1)))
+    return torch.movedim(inv, (-2, -1), (-4, -3)).contiguous()

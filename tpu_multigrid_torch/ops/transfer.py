@@ -1,0 +1,118 @@
+"""Aggregation-based transfer operators: restriction / prolongation with
+near-null vectors, block normalization and quadrant blocking (counterpart
+of tpu_multigrid/ops/transfer.py; reference near_null.h:217-264,
+modules_indiv.h:6-14).
+
+Near-null vectors are ``phi_null[nc, nf, L, L]``. Quadrant q offsets the
+block origin by QUAD_OFFSETS[q]; a pair of rolls moves the lattice into
+the "block frame" where blocks are axis-aligned, and a reshape to
+[.., Lc, bx, Lc, by] exposes them.
+"""
+from __future__ import annotations
+
+import torch
+
+QUAD_OFFSETS = {1: (0, 0), 2: (-1, 0), 3: (-1, -1), 4: (0, -1)}
+
+
+def to_block_frame(v: torch.Tensor, quad: int) -> torch.Tensor:
+    """Roll so fine site (base + (a,b)) lands at block position (a,b)."""
+    ox, oy = QUAD_OFFSETS[quad]
+    if ox:
+        v = torch.roll(v, -ox, dims=-2)
+    if oy:
+        v = torch.roll(v, -oy, dims=-1)
+    return v
+
+
+def from_block_frame(v: torch.Tensor, quad: int) -> torch.Tensor:
+    ox, oy = QUAD_OFFSETS[quad]
+    if ox:
+        v = torch.roll(v, ox, dims=-2)
+    if oy:
+        v = torch.roll(v, oy, dims=-1)
+    return v
+
+
+def _blocked(v: torch.Tensor, bx: int, by: int) -> torch.Tensor:
+    """[..., Lx, Ly] -> [..., Lx/bx, bx, Ly/by, by]."""
+    Lx, Ly = v.shape[-2], v.shape[-1]
+    return v.reshape(*v.shape[:-2], Lx // bx, bx, Ly // by, by)
+
+
+def restrict(phi_null: torch.Tensor, vf: torch.Tensor, quad: int,
+             bx: int, by: int) -> torch.Tensor:
+    """vec_c[nc, Lc, Lc] = sum_block Phi vf (reference near_null.h:217-240)."""
+    pb = _blocked(to_block_frame(phi_null, quad), bx, by)
+    vb = _blocked(to_block_frame(vf, quad), bx, by)
+    return torch.einsum("cfXaYb,fXaYb->cXY", pb, vb).contiguous()
+
+
+def prolong(phi_null: torch.Tensor, vc: torch.Tensor, quad: int,
+            bx: int, by: int) -> torch.Tensor:
+    """vec_f[nf, L, L] = Phi^dagger vec_c (reference near_null.h:242-264)."""
+    pb = _blocked(to_block_frame(phi_null, quad), bx, by)
+    vfb = torch.einsum("cfXaYb,cXY->fXaYb", torch.conj(pb), vc)
+    nf, Lx, Ly = phi_null.shape[1], phi_null.shape[-2], phi_null.shape[-1]
+    return from_block_frame(vfb.reshape(nf, Lx, Ly), quad).contiguous()
+
+
+def block_norms(v: torch.Tensor, quad: int, bx: int, by: int) -> torch.Tensor:
+    """Per-block 2-norm over (dof, block sites): [Lc, Lc] real."""
+    vb = _blocked(to_block_frame(v, quad), bx, by)
+    return torch.sqrt(torch.sum(vb.abs() ** 2, dim=(0, 2, 4)))
+
+
+def block_normalize(v: torch.Tensor, quad: int, bx: int, by: int) -> torch.Tensor:
+    """Divide each block by its norm (reference f_block_norm,
+    modules_indiv.h:94-135); NaN / tiny-norm guards are the caller's."""
+    vb = _blocked(to_block_frame(v, quad), bx, by)
+    norms = torch.sqrt(torch.sum(vb.abs() ** 2, dim=(0, 2, 4)))
+    vb = vb / norms[None, :, None, :, None]
+    return from_block_frame(vb.reshape(v.shape), quad)
+
+
+def block_dot(u: torch.Tensor, v: torch.Tensor, quad: int, bx: int, by: int):
+    """Per-block complex dot <u, v> = sum_block conj(u)·v : [Lc, Lc]."""
+    ub = _blocked(to_block_frame(u, quad), bx, by)
+    vb = _blocked(to_block_frame(v, quad), bx, by)
+    return torch.einsum("fXaYb,fXaYb->XY", torch.conj(ub), vb)
+
+
+def ortho_pass(phi_null: torch.Tensor, quad: int, bx: int, by: int):
+    """One block-Gram-Schmidt pass over the near-null rows: row d1 is
+    orthogonalized against rows d2 < d1 per block, then block-normalized
+    (reference Near_null::f_ortho, near_null.h:97-173)."""
+    nc = phi_null.shape[0]
+    rows = [phi_null[d] for d in range(nc)]
+    for d1 in range(nc):
+        cur = rows[d1]
+        for d2 in range(d1):
+            prev = rows[d2]
+            coef = (block_dot(prev, cur, quad, bx, by)
+                    / block_norms(prev, quad, bx, by))
+            cb = _blocked(to_block_frame(cur, quad), bx, by)
+            pb = _blocked(to_block_frame(prev, quad), bx, by)
+            cb = cb - coef[None, :, None, :, None] * pb
+            cur = from_block_frame(cb.reshape(cur.shape), quad)
+        rows[d1] = block_normalize(cur, quad, bx, by)
+    return torch.stack(rows)
+
+
+def normalize_rows(phi_null: torch.Tensor, quad: int, bx: int, by: int):
+    """Block-normalize every near-null row (reference f_norm_nn,
+    near_null.h:24-48)."""
+    return torch.stack([block_normalize(phi_null[d], quad, bx, by)
+                        for d in range(phi_null.shape[0])])
+
+
+def check_ortho(phi_null: torch.Tensor, quad: int, bx: int, by: int):
+    """Max pairwise block-dot magnitude between distinct rows (reference
+    f_check_ortho, near_null.h:175-214). Returns a 0-d tensor."""
+    nc = phi_null.shape[0]
+    worst = torch.zeros((), dtype=phi_null.real.dtype, device=phi_null.device)
+    for d1 in range(nc):
+        for d2 in range(d1):
+            dots = block_dot(phi_null[d1], phi_null[d2], quad, bx, by)
+            worst = torch.maximum(worst, dots.abs().max())
+    return worst
