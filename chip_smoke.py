@@ -5,21 +5,33 @@
 
 From the root of a checkout, with one CUDA card. It builds the port's
 hand-written kernels from csrc/, holds each kernel against its plain torch
-version on the card at the flagship's shapes (timing both with CUDA
-events), then drives the flagship solve through the package's entry points
-(MGConfig, assemble, build_hierarchy(..., U=U), solve_chunked): Wilson,
-L=256, m=-0.005, 3 levels, NTL with 4 quadrant copies and min-res
-weights, red-black GS x4, 100 near-null sweeps, complex64, to 1e-6. It
-checks convergence, that the solve went through every kernel of the path
-(launch counters), and that the kernel path agrees with the plain path on
-a small complex128 problem.
+version on the card at the shapes of the paths below (timing both with
+CUDA events; the x-tiled kernels also beside the global kernel at the same
+shape), then drives two solves through the package's entry points
+(MGConfig, assemble, build_hierarchy(..., U=U), solve_chunked, solve_ir):
+
+- the flagship: Wilson, L=256, m=-0.005, 3 levels, NTL with 4 quadrant
+  copies and min-res weights, red-black GS x4, 100 near-null sweeps,
+  complex64, to 1e-6, on the global kernels, then by solve_ir to 1e-8 and
+  1e-13;
+- the large flagship: the same at L=2048 with 6 levels (coarsest 32), on
+  the x-tiled kernels at levels 0-3, to 1e-6, then by solve_ir (complex64
+  cycles, exact complex128 defect) to 1e-8 and 1e-13.
+
+It checks convergence, that each solve went through every kernel of its
+path (launch counters, set to 0 before the path and read after it), that
+the plain path on the same hierarchy takes the same number of cycles
+(within one), and that the kernel path agrees with the plain path on a
+small complex128 problem.
 
 Any failed check raises, and the exit code is then non-zero. The last
 line of standard output is one JSON object, {"ok": true, "device": ...};
 the line before it is a JSON object with one entry per kernel. Without a
 CUDA device, or outside the repository, it fails and prints no result.
 """
+import functools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -33,7 +45,17 @@ REPLACES = {
     "links_update": "tpu_multigrid/ops/pallas_stencil.py:669",
     "links_residual": "tpu_multigrid/ops/pallas_stencil.py:662",
     "dense_update": "tpu_multigrid/ops/pallas_stencil.py:125",
+    "links_update_tiled": "tpu_multigrid/ops/pallas_stencil.py:711",
+    "links_residual_tiled": "tpu_multigrid/ops/pallas_stencil.py:703",
+    "dense_update_tiled": "tpu_multigrid/ops/pallas_stencil.py:358",
 }
+SOURCES = {k: "tpu_multigrid_torch/csrc/" + ("stencil_tiled.cu" if
+                                             k.endswith("_tiled") else
+                                             "stencil.cu")
+           for k in REPLACES}
+FLAGSHIP_KERNELS = ("links_update", "links_residual", "dense_update")
+LARGE_KERNELS = ("links_update_tiled", "links_residual_tiled",
+                 "dense_update_tiled", "dense_update")
 BARS = {"complex64": 2e-5, "complex128": 1e-12}
 
 
@@ -60,7 +82,9 @@ def cuda_ms(torch, fn, reps=20):
 
 
 def kernel_cases(torch, mgt, dev):
-    """(kernel, label, dtype, kernel_fn, plain_fn) at the path's shapes."""
+    """(kernel, label, dtype, kernel_fn, plain_fn, global_fn or None) at the
+    paths' shapes; global_fn runs the global kernel at a tiled case's
+    shape. The first complex64 case of each kernel is its main shape."""
     cs = mgt.ops.cuda_stencil
     gs = mgt.ops.gauge_stencil
     sm = mgt.ops.smoothers
@@ -81,45 +105,86 @@ def kernel_cases(torch, mgt, dev):
             n, dtype=dtype, device=dev)[:, :, None, None]
         return D, mgt.ops.stencil.site_inverse(D[..., 0, :, :, :, :])
 
+    def links_cases(L, tag, dtype, tiled, tile=None):
+        U, phi, r = links(L, dtype), c((2, L, L), dtype), c((2, L, L), dtype)
+        if tiled:
+            res = functools.partial(cs.wilson_u_residual_tiled, tile=tile)
+            upd = functools.partial(cs.wilson_u_smooth_tiled, tile=tile)
+            kr, ku = "links_residual_tiled", "links_update_tiled"
+            gres, gupd = cs.wilson_u_residual, cs.wilson_u_smooth
+        else:
+            res, upd, gres, gupd = (cs.wilson_u_residual, cs.wilson_u_smooth,
+                                    None, None)
+            kr, ku = "links_residual", "links_update"
+        out = [(kr, f"{'B5b' if tiled else 'B2'} residual {tag}", dtype,
+                lambda: res(U, m, phi, r),
+                lambda: gs.residual_u("wilson", U, m, phi, r),
+                gres and (lambda: gres(U, m, phi, r)))]
+        for kind in ("rbgs", "jacobi"):
+            name = ("B5a" if tiled else "B1") + f" {kind} x4 {tag}"
+            out.append((ku, name, dtype,
+                        lambda k=kind: upd(U, m, phi, r, 4, k),
+                        lambda k=kind: gs.smooth_u("wilson", U, m, phi, r, 4,
+                                                   k),
+                        gupd and (lambda k=kind: gupd(U, m, phi, r, 4, k))))
+        return out
+
+    def dense_cases(B, n, L, shared, tag, kinds, dtype, tiled, tile=None):
+        D, Dinv = dense(None if shared else B, n, L, dtype)
+        lead = (B,) if B else ()
+        phi = c(lead + (n, L, L), dtype)
+        r = c((n, L, L) if shared else lead + (n, L, L), dtype)
+        fn = (functools.partial(cs.dense_smooth_tiled, tile=tile) if tiled
+              else cs.dense_smooth)
+        out = []
+        for kind in kinds:
+            name = ("B6 " if tiled else ("B3 " if kind == "rbgs" else "B4 ")
+                    ) + f"{kind} x4 {tag}"
+            out.append(("dense_update_tiled" if tiled else "dense_update",
+                        name, dtype,
+                        lambda k=kind: fn(D, Dinv, phi, r, 4, k),
+                        lambda k=kind: sm.smooth_plain(D, Dinv, phi, r, 4, k),
+                        (lambda k=kind: cs.dense_smooth(D, Dinv, phi, r, 4, k))
+                        if tiled and tile is None else None))
+        return out
+
     cases = []
     for dtype in (torch.complex64, torch.complex128):
-        L = 256
-        U, phi, r = links(L, dtype), c((2, L, L), dtype), c((2, L, L), dtype)
-        cases.append(("links_residual", "B2 residual L=256", dtype,
-                      lambda U=U, phi=phi, r=r: cs.wilson_u_residual(U, m, phi, r),
-                      lambda U=U, phi=phi, r=r: gs.residual_u("wilson", U, m, phi, r)))
-        for kind, tag in (("rbgs", "B1 rbgs x4 L=256"),
-                          ("jacobi", "B1/B4 jacobi x4 L=256")):
-            cases.append(("links_update", tag, dtype,
-                          lambda U=U, phi=phi, r=r, k=kind:
-                          cs.wilson_u_smooth(U, m, phi, r, 4, k),
-                          lambda U=U, phi=phi, r=r, k=kind:
-                          gs.smooth_u("wilson", U, m, phi, r, 4, k)))
-        # (batch, n, L, D shared by the batch?, label)
-        shapes = [(None, 4, 128, False, "B3 rbgs x4 n=4 L=128 (level 1)"),
-                  (None, 4, 64, False, "B3 rbgs x4 n=4 L=64 (level 2)"),
-                  (4, 4, 32, False, "B3 rbgs x4 n=4 L=32 batch 4 (NTL copies)"),
-                  (2, 2, 256, True, "B3 rbgs x4 n=2 L=256 k=2 shared D (setup)"),
-                  (2, 4, 128, True, "B3 rbgs x4 n=4 L=128 k=2 shared D (setup)")]
-        for B, n, L, shared, tag in shapes:
-            D, Dinv = dense(None if shared else B, n, L, dtype)
-            lead = (B,) if B else ()
-            phi = c(lead + (n, L, L), dtype)
-            r = c((n, L, L) if shared else lead + (n, L, L), dtype)
-            kinds = ("rbgs", "jacobi") if (B is None and L == 128) else ("rbgs",)
-            for kind in kinds:
-                label = tag if kind == "rbgs" else "B4 jacobi x4 n=4 L=128"
-                cases.append(("dense_update", label, dtype,
-                              lambda D=D, Dinv=Dinv, phi=phi, r=r, k=kind:
-                              sm.smooth(D, Dinv, phi, r, 4, k),
-                              lambda D=D, Dinv=Dinv, phi=phi, r=r, k=kind:
-                              sm.smooth(D, Dinv, phi, r, 4, k, pallas="off")))
+        # the flagship (L=256) on the global kernels
+        cases += links_cases(256, "L=256", dtype, tiled=False)
+        # (batch, n, L, D shared by the batch?, label, kinds)
+        for B, n, L, shared, tag, kinds in [
+                (None, 4, 128, False, "n=4 L=128 (level 1)", ("rbgs", "jacobi")),
+                (None, 4, 64, False, "n=4 L=64 (level 2)", ("rbgs",)),
+                (4, 4, 32, False, "n=4 L=32 batch 4 (NTL copies)", ("rbgs",)),
+                (2, 2, 256, True, "n=2 L=256 k=2 shared D (setup)", ("rbgs",)),
+                (2, 4, 128, True, "n=4 L=128 k=2 shared D (setup)", ("rbgs",))]:
+            cases += dense_cases(B, n, L, shared, tag, kinds, dtype,
+                                 tiled=False)
+        # the large flagship (L=2048) on the x-tiled kernels
+        cases += links_cases(2048, "L=2048", dtype, tiled=True)
+        for B, n, L, shared, tag, kinds in [
+                (None, 4, 1024, False, "n=4 L=1024 (level 1)", ("rbgs", "jacobi")),
+                (None, 4, 512, False, "n=4 L=512 (level 2)", ("rbgs",)),
+                (None, 4, 256, False, "n=4 L=256 (level 3)", ("rbgs",)),
+                (2, 2, 2048, True, "n=2 L=2048 k=2 shared D (setup)", ("rbgs",))]:
+            cases += dense_cases(B, n, L, shared, tag, kinds, dtype,
+                                 tiled=True)
+        # tiles forced small: several tiles, the periodic wrap, ragged tiles
+        cases += links_cases(32, "L=32 tile 8x8", dtype, tiled=True,
+                             tile=(8, 8))
+        cases += dense_cases(4, 4, 32, False, "n=4 L=32 batch 4 tile 8x8",
+                             ("rbgs", "jacobi"), dtype, tiled=True,
+                             tile=(8, 8))
+        cases += dense_cases(2, 2, 32, True, "n=2 L=32 k=2 shared tile 6x12",
+                             ("rbgs",), dtype, tiled=True, tile=(6, 12))
     return cases
 
 
 def flagship(torch, mgt, dev, dtype="complex64", L=256, nlevels=3,
              null_iters=100, res_threshold=1e-6):
-    """The config of bench.py's solve256 phase, and its two gauges."""
+    """The config of bench.py's solve256 phase at lattice L with `nlevels`
+    levels, and its two gauges: (cfg, [(phases, U, D), (phases, U, D)])."""
     cfg = mgt.MGConfig(L=L, stencil="wilson", m=-0.005, nlevels=nlevels,
                        ntl=True, num_iters=4, null_iters=null_iters,
                        dtype=dtype, res_threshold=res_threshold,
@@ -127,10 +192,166 @@ def flagship(torch, mgt, dev, dtype="complex64", L=256, nlevels=3,
     rng = np.random.default_rng(cfg.seed)
     gauges = []
     for _ in range(2):
-        U = mgt.models.gauge.gauge_from_phases(
-            0.2 * rng.normal(size=(2, L, L)), cfg.cdtype, dev)
-        gauges.append((U, mgt.models.operators.assemble(cfg.stencil, U, cfg.m)))
+        ph = 0.2 * rng.normal(size=(2, L, L))
+        U = mgt.models.gauge.gauge_from_phases(ph, cfg.cdtype, dev)
+        gauges.append((ph, U,
+                       mgt.models.operators.assemble(cfg.stencil, U, cfg.m)))
     return cfg, gauges
+
+
+def timed(torch, fn):
+    """(fn(), host seconds), synchronized before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def run_kernel_cases(torch, mgt, dev):
+    """Each kernel against its plain version (and a tiled kernel beside the
+    global one) at the paths' shapes. Returns the per-kernel entries of the
+    kernels line (complex64) and the tiled-vs-global times."""
+    per_kernel = {k: {"max_abs_err": 0.0, "ms": None, "plain_ms": None}
+                  for k in REPLACES}
+    vs_global = []
+    for kern, label, dtype, fk, fp, fg in kernel_cases(torch, mgt, dev):
+        got, want = fk(), fp()
+        torch.cuda.synchronize()
+        abs_err = float((got - want).abs().max())
+        rel = abs_err / float(want.abs().max())
+        ms, plain_ms = cuda_ms(torch, fk), cuda_ms(torch, fp)
+        dt = str(dtype).replace("torch.", "")
+        line = (f"  {kern:20s} {label:42s} {dt:10s} rel_err {rel:.3e} "
+                f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
+        check(rel < BARS[dt], f"{kern} {label} {dt}: rel err {rel:.3e} "
+              f">= {BARS[dt]}")
+        if fg is not None:
+            g_rel = float((fg() - want).abs().max()) / float(want.abs().max())
+            g_ms = cuda_ms(torch, fg)
+            line += f"  global {g_ms:.4f} ms (rel_err {g_rel:.3e})"
+            check(g_rel < BARS[dt], f"global kernel at {label} {dt}: rel err "
+                  f"{g_rel:.3e}")
+            vs_global.append({"kernel": kern, "case": label, "dtype": dt,
+                              "ms": ms, "global_ms": g_ms,
+                              "plain_ms": plain_ms})
+        print(line)
+        if dt == "complex64":
+            e = per_kernel[kern]
+            e["max_abs_err"] = max(e["max_abs_err"], abs_err)
+            if e["ms"] is None:          # the first case is the path's main shape
+                e["ms"], e["plain_ms"] = ms, plain_ms
+    return per_kernel, vs_global
+
+
+def solve_phase(torch, mgt, dev, cfg, gauges, kernels, max_cycles, n_cyc,
+                reps, warm_check):
+    """Setup (first gauge, with the host checks) and solve_chunked(chunk=1)
+    through the entry points, with the launch counters set to 0 before the
+    setup; then a warm setup on the second gauge (freed at once), ms per
+    cycle on the kernels and on the plain versions, and the plain path's
+    cycle count on the same hierarchy. Returns (hier, summary, launches)."""
+    cs = mgt.ops.cuda_stencil
+    (_, U, D), (_, Ub, Db) = gauges
+    b = mgt.point_source(cfg, device=dev)
+    tag = f"L={cfg.L} nlevels={cfg.nlevels}"
+    cs.reset_launches()
+    hier, t_setup = timed(torch, lambda: mgt.build_hierarchy(D, cfg, U=U))
+    setup_launches = dict(cs.launches)
+    out, t_solve = timed(torch, lambda: mgt.solve_chunked(
+        hier, b, cfg, max_iters=max_cycles, chunk=1))
+    launches = dict(cs.launches)
+    solve_launches = {k: launches[k] - setup_launches[k] for k in launches}
+    print(f"flagship {tag} NTL x{cfg.n_copies} {cfg.dtype}: setup "
+          f"{t_setup:.3f} s (first gauge, with the host checks); "
+          f"{out.iters} cycles to {out.resmag:.3e} in {t_solve:.3f} s")
+    print(f"  launches in setup {setup_launches}; in solve {solve_launches}")
+    check(math.isfinite(out.resmag), f"{tag}: residual {out.resmag}")
+    check(out.converged and out.iters <= max_cycles,
+          f"{tag} did not reach {cfg.res_threshold} in {max_cycles} cycles "
+          f"({out.iters}, {out.resmag:.3e})")
+    check(tuple(out.phi.shape) == (2, cfg.L, cfg.L)
+          and out.phi.dtype == torch.complex64, f"{tag}: solution shape")
+    check(bool(torch.isfinite(torch.view_as_real(out.phi)).all()),
+          f"{tag}: solution not finite")
+    for k in kernels:
+        check(solve_launches[k] > 0, f"{tag}: solve never launched {k}")
+
+    _, t_warm = timed(torch, lambda: mgt.build_hierarchy(
+        Db, cfg, U=Ub, check=warm_check))
+
+    def cycles(c):
+        phis = mgt.zero_fields(c, dev)
+        for _ in range(n_cyc):
+            phis, _ = mgt.cycle(hier, phis, b, c)
+
+    plain_cfg = cfg.replace(pallas="off")
+    ms_cycle = cuda_ms(torch, lambda: cycles(cfg), reps=reps) / n_cyc
+    ms_plain = cuda_ms(torch, lambda: cycles(plain_cfg), reps=reps) / n_cyc
+    plain = mgt.solve_chunked(hier, b, plain_cfg, max_iters=max_cycles,
+                              chunk=1)
+    print(f"  setup warm (second gauge{'' if warm_check else ', check=False'})"
+          f" {t_warm:.3f} s; per cycle {ms_cycle:.3f} ms on the kernels, "
+          f"{ms_plain:.3f} ms on the plain versions (CUDA events, median of "
+          f"{reps} x {n_cyc} cycles)")
+    print(f"  plain path on the same hierarchy: {plain.iters} cycles to "
+          f"{plain.resmag:.3e}")
+    check(plain.converged and abs(plain.iters - out.iters) <= 1,
+          f"{tag}: kernel path {out.iters} cycles vs plain path {plain.iters}")
+    summary = {"L": cfg.L, "nlevels": cfg.nlevels, "cycles": out.iters,
+               "res": out.resmag, "setup_s": t_setup, "setup_warm_s": t_warm,
+               "solve_s": t_solve, "ms_per_cycle": ms_cycle,
+               "ms_per_cycle_plain": ms_plain, "plain_cycles": plain.iters,
+               "launches_setup": setup_launches,
+               "launches_solve": solve_launches}
+    return hier, summary, launches
+
+
+def ir_phase(torch, mgt, dev, cfg, phases, hier):
+    """solve_ir on the complex64 hierarchy with the exact complex128
+    level-0 operator (assembled from the same phases) to 1e-8 and 1e-13,
+    two inner cycles per outer step."""
+    cfg128 = cfg.replace(dtype="complex128")
+    U128 = mgt.models.gauge.gauge_from_phases(phases, cfg128.cdtype, dev)
+    D_outer = mgt.models.operators.assemble(cfg.stencil, U128, cfg.m)
+    del U128
+    b = mgt.point_source(cfg128, device=dev)
+    summary = {}
+    for thr in (1e-8, 1e-13):
+        out, sec = timed(torch, lambda: mgt.solve_ir(
+            hier, b, cfg128.replace(res_threshold=thr), inner_cycles=2,
+            max_iters=200, D_outer=D_outer))
+        print(f"  solve_ir to {thr:g}: {len(out.history)} outer steps, "
+              f"{out.iters} cycles, res {out.resmag:.3e}, {sec:.3f} s")
+        check(out.converged, f"solve_ir did not reach {thr:g} "
+              f"({out.iters} cycles, {out.resmag:.3e})")
+        check(out.phi.dtype == torch.complex128
+              and bool(torch.isfinite(torch.view_as_real(out.phi)).all()),
+              "solve_ir solution not finite complex128")
+        summary[f"{thr:g}"] = {"outer_steps": len(out.history),
+                               "cycles": out.iters, "res": out.resmag,
+                               "seconds": sec}
+    return summary
+
+
+def small_check(torch, mgt, dev):
+    """Kernel path == plain path on a small complex128 problem."""
+    small, ((_, Us, Ds), _) = flagship(torch, mgt, dev, dtype="complex128",
+                                       L=32, nlevels=2, null_iters=16,
+                                       res_threshold=1e-8)
+    small = small.replace(links="on")
+    bs = mgt.point_source(small, device=dev)
+    res = {}
+    for mode in ("auto", "off"):
+        c = small.replace(pallas=mode)
+        h = mgt.build_hierarchy(Ds, c, U=Us)
+        res[mode] = mgt.solve(h, bs, c, max_iters=60)
+    rel = float((res["auto"].phi - res["off"].phi).abs().max()
+                / res["off"].phi.abs().max())
+    print(f"small c128 L=32: kernels {res['auto'].iters} cycles, plain "
+          f"{res['off'].iters} cycles, phi rel diff {rel:.3e}")
+    check(res["auto"].converged and res["auto"].iters == res["off"].iters
+          and rel < 1e-9, "kernel path disagrees with the plain path")
 
 
 def main():
@@ -150,118 +371,50 @@ def main():
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; {name}")
+    t_start = time.perf_counter()
 
-    t0 = time.perf_counter()
-    built = cs.build()
-    cs._library()
-    print(f"kernel build + load: {time.perf_counter() - t0:.2f} s ({built.name})")
+    built, t_build = timed(torch, lambda: (cs.build(), cs._library())[0])
+    print(f"kernel build + load: {t_build:.2f} s ({built.name})")
 
-    # ---- each kernel against its plain version at the path's shapes ----
-    per_kernel = {k: {"max_abs_err": 0.0, "ms": None, "plain_ms": None}
-                  for k in REPLACES}
-    for kern, label, dtype, fk, fp in kernel_cases(torch, mgt, dev):
-        got, want = fk(), fp()
-        torch.cuda.synchronize()
-        abs_err = float((got - want).abs().max())
-        rel = abs_err / float(want.abs().max())
-        ms, plain_ms = cuda_ms(torch, fk), cuda_ms(torch, fp)
-        torch.cuda.synchronize()
-        dt = str(dtype).replace("torch.", "")
-        print(f"  {kern:15s} {label:44s} {dt:10s} rel_err {rel:.3e} "
-              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
-        check(rel < BARS[dt], f"{kern} {label} {dt}: rel err {rel:.3e} "
-              f">= {BARS[dt]}")
-        if dt == "complex64":
-            e = per_kernel[kern]
-            e["max_abs_err"] = max(e["max_abs_err"], abs_err)
-            if e["ms"] is None:          # the first case is the path's main shape
-                e["ms"], e["plain_ms"] = ms, plain_ms
+    per_kernel, vs_global = run_kernel_cases(torch, mgt, dev)
+    print(f"kernel cases done at {time.perf_counter() - t_start:.1f} s")
 
-    # ---- the flagship solve through the entry points ----
+    # ---- the flagship (L=256) on the global kernels ----
     cfg, gauges = flagship(torch, mgt, dev)
-    (U, D), (Ub, Db) = gauges
-    b = mgt.point_source(cfg, device=dev)
-    cs.reset_launches()
+    hier, flag, flag_launches = solve_phase(
+        torch, mgt, dev, cfg, gauges, FLAGSHIP_KERNELS, max_cycles=30,
+        n_cyc=10, reps=5, warm_check=True)
+    flag["solve_ir"] = ir_phase(torch, mgt, dev, cfg, gauges[0][0], hier)
+    del gauges, hier
+    print(f"flagship done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- the large flagship (L=2048) on the x-tiled kernels ----
+    cfg, gauges = flagship(torch, mgt, dev, L=2048, nlevels=6)
+    hier, large, large_launches = solve_phase(
+        torch, mgt, dev, cfg, gauges, LARGE_KERNELS, max_cycles=100,
+        n_cyc=4, reps=3, warm_check=False)
+    phases0 = gauges[0][0]
+    del gauges
+    large["solve_ir"] = ir_phase(torch, mgt, dev, cfg, phases0, hier)
+    del hier
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    hier = mgt.build_hierarchy(D, cfg, U=U)
-    torch.cuda.synchronize()
-    t_setup = time.perf_counter() - t0
-    setup_launches = dict(cs.launches)
-    t0 = time.perf_counter()
-    out = mgt.solve_chunked(hier, b, cfg, max_iters=30, chunk=1)
-    torch.cuda.synchronize()
-    t_solve = time.perf_counter() - t0
-    launches = dict(cs.launches)
-    solve_launches = {k: launches[k] - setup_launches[k] for k in launches}
+    large["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"large flagship done at {time.perf_counter() - t_start:.1f} s; "
+          f"peak device memory {large['peak_mem_gb']:.2f} GiB")
 
-    print(f"flagship L={cfg.L} nlevels={cfg.nlevels} NTL x{cfg.n_copies} "
-          f"{cfg.dtype}: setup {t_setup:.3f} s (first, incl. checks); "
-          f"{out.iters} cycles to {out.resmag:.3e} in {t_solve:.3f} s")
-    print(f"  launches in setup {setup_launches}; in solve {solve_launches}")
-    check(out.converged and out.iters <= 30,
-          f"flagship did not reach {cfg.res_threshold} in 30 cycles "
-          f"({out.iters}, {out.resmag:.3e})")
-    check(tuple(out.phi.shape) == (2, cfg.L, cfg.L)
-          and out.phi.dtype == torch.complex64, "solution shape / dtype")
-    check(bool(torch.isfinite(torch.view_as_real(out.phi)).all()),
-          "solution not finite")
-    for k in REPLACES:
-        check(solve_launches[k] > 0, f"solve never launched {k}")
+    small_check(torch, mgt, dev)
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    mgt.build_hierarchy(Db, cfg, U=Ub)
-    torch.cuda.synchronize()
-    t_setup_warm = time.perf_counter() - t0
-
-    def cycles(hier, cfg, n):
-        phis = mgt.zero_fields(cfg, dev)
-        for _ in range(n):
-            phis, _ = mgt.cycle(hier, phis, b, cfg)
-
-    n_cyc = 10
-    ms_cycle = cuda_ms(torch, lambda: cycles(hier, cfg, n_cyc), reps=5) / n_cyc
-    plain_cfg = cfg.replace(pallas="off")
-    ms_cycle_plain = cuda_ms(torch, lambda: cycles(hier, plain_cfg, n_cyc),
-                             reps=5) / n_cyc
-    plain = mgt.solve_chunked(hier, b, plain_cfg, max_iters=30, chunk=1)
-    print(f"  setup warm (second gauge) {t_setup_warm:.3f} s; per cycle "
-          f"{ms_cycle:.3f} ms on the kernels, {ms_cycle_plain:.3f} ms on the "
-          f"plain versions (CUDA events, median of 5 x {n_cyc} cycles)")
-    print(f"  plain path on the same hierarchy: {plain.iters} cycles to "
-          f"{plain.resmag:.3e}")
-    check(plain.converged and abs(plain.iters - out.iters) <= 1,
-          f"kernel path {out.iters} cycles vs plain path {plain.iters}")
-
-    # ---- kernel path == plain path on a small complex128 problem ----
-    small, ((Us, Ds), _) = flagship(torch, mgt, dev, dtype="complex128", L=32,
-                                    nlevels=2, null_iters=16,
-                                    res_threshold=1e-8)
-    small = small.replace(links="on")
-    bs = mgt.point_source(small, device=dev)
-    res = {}
-    for mode in ("auto", "off"):
-        c = small.replace(pallas=mode)
-        h = mgt.build_hierarchy(Ds, c, U=Us)
-        res[mode] = mgt.solve(h, bs, c, max_iters=60)
-    rel = float((res["auto"].phi - res["off"].phi).abs().max()
-                / res["off"].phi.abs().max())
-    print(f"small c128 L=32: kernels {res['auto'].iters} cycles, plain "
-          f"{res['off'].iters} cycles, phi rel diff {rel:.3e}")
-    check(res["auto"].converged and res["auto"].iters == res["off"].iters
-          and rel < 1e-9, "kernel path disagrees with the plain path")
-
-    kernels = [{"name": k, "route": "cuda",
-                "source": "tpu_multigrid_torch/csrc/stencil.cu",
-                "replaces": REPLACES[k], "launches": launches[k],
+    kernels = [{"name": k, "route": "cuda", "source": SOURCES[k],
+                "replaces": REPLACES[k],
+                "launches": (large_launches if k.endswith("_tiled")
+                             else flag_launches)[k],
                 "max_abs_err": per_kernel[k]["max_abs_err"],
                 "ms": per_kernel[k]["ms"], "plain_ms": per_kernel[k]["plain_ms"]}
                for k in REPLACES]
-    summary = {"cycles": out.iters, "res": out.resmag, "setup_s": t_setup,
-               "setup_warm_s": t_setup_warm, "ms_per_cycle": ms_cycle,
-               "ms_per_cycle_plain": ms_cycle_plain, "card": card}
-    print(json.dumps({"flagship": summary}))
+    print(json.dumps({"flagship": flag, "card": card}))
+    print(json.dumps({"large_flagship": large, "card": card}))
+    print(json.dumps({"tiled_vs_global": vs_global, "card": card}))
+    print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

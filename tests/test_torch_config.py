@@ -1,6 +1,6 @@
-"""The port's package boundary: MGConfig agrees field for field with the
-JAX package's, and no module of tpu_multigrid_torch (nor chip_smoke.py)
-imports jax or tpu_multigrid."""
+"""The port's package boundary: MGConfig and SolveResult agree field for
+field with the JAX package's, and no module of tpu_multigrid_torch (nor
+chip_smoke.py) imports jax or tpu_multigrid."""
 import ast
 import dataclasses
 from pathlib import Path
@@ -32,6 +32,12 @@ def _fields(cls):
 def test_mgconfig_fields_match_jax():
     assert _fields(mgt.MGConfig) == _fields(mg.MGConfig)
     assert list(_fields(mgt.MGConfig)) == list(_fields(mg.MGConfig))
+
+
+def test_solveresult_fields_match_jax():
+    from tpu_multigrid.solver.driver import SolveResult
+    assert _fields(mgt.SolveResult) == _fields(SolveResult)
+    assert list(_fields(mgt.SolveResult)) == list(_fields(SolveResult))
 
 
 @pytest.mark.parametrize("kw", [

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain torch versions, on the card.
+"""The port's CUDA kernels (global and x-tiled) against their plain torch
+versions, on the card.
 
 Marked `cuda`: without a CUDA device every test skips (the decision is
 taken inside the fixture). This file imports no jax, so it runs on a
@@ -125,3 +126,123 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         cs.dense_smooth(D[0], Dinv[0], _c(rng, (3, L, L), torch.complex64, dev),
                         _c(rng, (3, L, L), torch.complex64, dev), 1, "rbgs")
+
+
+# ---- x-tiled kernels (csrc/stencil_tiled.cu)
+
+# (L, tile): several tiles with the periodic wrap, ragged tiles that do not
+# divide L, a tile larger than the lattice, and the default tile.
+TILES = [(8, (4, 4)), (32, (8, 8)), (32, (6, 12)), (8, (16, 32)),
+         (32, None)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("L,tile", TILES + [(2048, None)])
+def test_links_residual_tiled(dev, dtype, L, tile):
+    rng = np.random.default_rng(5)
+    U = _links(rng, L, dtype, dev)
+    phi, r = _c(rng, (2, L, L), dtype, dev), _c(rng, (2, L, L), dtype, dev)
+    n0 = cs.launches["links_residual_tiled"]
+    got = cs.wilson_u_residual_tiled(U, -0.005, phi, r, tile=tile)
+    assert cs.launches["links_residual_tiled"] == n0 + 1
+    want = gs.residual_u("wilson", U, -0.005, phi, r)
+    assert _rel(got, want) < BARS[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind,omega", [("rbgs", 1.0), ("jacobi", 1.0),
+                                        ("rbgs", 0.8), ("jacobi", 0.8)])
+@pytest.mark.parametrize("L,tile", TILES + [(2048, None)])
+def test_links_smooth_tiled(dev, dtype, kind, omega, L, tile):
+    rng = np.random.default_rng(6)
+    U = _links(rng, L, dtype, dev)
+    phi, r = _c(rng, (2, L, L), dtype, dev), _c(rng, (2, L, L), dtype, dev)
+    keep = phi.clone()
+    n0 = cs.launches["links_update_tiled"]
+    got = cs.wilson_u_smooth_tiled(U, -0.005, phi, r, 4, kind, omega,
+                                   tile=tile)
+    assert cs.launches["links_update_tiled"] == n0 + (8 if kind == "rbgs"
+                                                      else 4)
+    assert torch.equal(phi, keep)
+    want = gs.smooth_u("wilson", U, -0.005, phi, r, 4, kind, omega)
+    assert _rel(got, want) < BARS[dtype]
+    if tile is None:            # the global kernel computes the same
+        glob = cs.wilson_u_smooth(U, -0.005, phi, r, 4, kind, omega)
+        assert _rel(got, glob) < BARS[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind,omega", [("rbgs", 1.0), ("jacobi", 1.0),
+                                        ("rbgs", 0.8)])
+@pytest.mark.parametrize("n,B,L,shared,tile", [
+    (4, None, 1024, False, None),            # level 1 of the large flagship
+    (2, 2, 2048, True, None),                # setup at level 0, k=2
+    (4, 3, 32, False, (8, 8)),               # batched D, several tiles
+    (4, 2, 32, True, (6, 12)),               # shared D, ragged tiles
+    (1, 3, 8, False, (4, 4)),
+    (2, None, 8, False, (16, 32)),           # one tile past the lattice
+])
+def test_dense_smooth_tiled(dev, dtype, kind, omega, n, B, L, shared, tile):
+    """Batch strides 0 (D, D0inv and r shared by the batch) and full."""
+    rng = np.random.default_rng(7)
+    nb = 1 if (B is None or shared) else B
+    D, Dinv = _dense(rng, nb, n, L, dtype, dev)
+    if B is None or shared:
+        D, Dinv = D[0], Dinv[0]
+    lead = () if B is None else (B,)
+    phi = _c(rng, lead + (n, L, L), dtype, dev)
+    r = _c(rng, (n, L, L) if shared else lead + (n, L, L), dtype, dev)
+    keep = phi.clone()
+    n0 = cs.launches["dense_update_tiled"]
+    got = cs.dense_smooth_tiled(D, Dinv, phi, r, 4, kind, omega, tile=tile)
+    assert cs.launches["dense_update_tiled"] == n0 + (8 if kind == "rbgs"
+                                                      else 4)
+    assert torch.equal(phi, keep)
+    want = sm.smooth_plain(D, Dinv, phi, r, 4, kind, omega)
+    assert _rel(got, want) < BARS[dtype]
+
+
+def test_smooth_dispatches_tiled_past_the_l2(dev):
+    """smooth() on a level past the L2 (n=4, L=256) launches the tiled
+    kernel only; on one within it (n=4, L=128) the global kernel only."""
+    rng = np.random.default_rng(8)
+    for L, kernel in ((256, "dense_update_tiled"), (128, "dense_update")):
+        D, Dinv = _dense(rng, 1, 4, L, torch.complex64, dev)
+        phi = _c(rng, (4, L, L), torch.complex64, dev)
+        before = dict(cs.launches)
+        sm.smooth(D[0], Dinv[0], phi, phi, 1, "rbgs")
+        moved = {k: v - before[k] for k, v in cs.launches.items()
+                 if v != before[k]}
+        assert moved == {kernel: 2}
+
+
+def test_tiled_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    rng = np.random.default_rng(9)
+    L = 8
+    U = _links(rng, L, torch.complex64, dev)
+    phi = _c(rng, (2, L, L), torch.complex64, dev)
+    n0 = dict(cs.launches)
+    with pytest.raises(ValueError):
+        cs.wilson_u_residual_tiled(U, 0.1, phi, phi, tile=(0, 8))
+    with pytest.raises(ValueError):
+        cs.wilson_u_residual_tiled(U, 0.1, phi.transpose(-1, -2), phi)
+    with pytest.raises(TypeError):
+        cs.wilson_u_smooth_tiled(U, 0.1, phi, phi.to(torch.complex128), 1)
+    for tile in ((17, 32), (16, 33)):       # past the kernel's 16 x 32
+        with pytest.raises(ValueError):
+            cs.wilson_u_smooth_tiled(U, 0.1, phi, phi, 1, tile=tile)
+    with pytest.raises(ValueError):
+        odd = phi[:, :7, :7].contiguous()
+        cs.wilson_u_smooth_tiled(U[:, :7, :7].contiguous(), 0.1, odd, odd, 1,
+                                 "rbgs")
+    D, Dinv = _dense(rng, 1, 3, L, torch.complex64, dev)
+    with pytest.raises(ValueError):
+        cs.dense_smooth_tiled(D[0], Dinv[0],
+                              _c(rng, (3, L, L), torch.complex64, dev),
+                              _c(rng, (3, L, L), torch.complex64, dev), 1)
+    D, Dinv = _dense(rng, 2, 2, L, torch.complex64, dev)
+    with pytest.raises(ValueError):         # batch of D does not match phi
+        cs.dense_smooth_tiled(D, Dinv, _c(rng, (3, 2, L, L),
+                                          torch.complex64, dev),
+                              _c(rng, (2, L, L), torch.complex64, dev), 1)
+    assert cs.launches == n0

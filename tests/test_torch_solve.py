@@ -5,7 +5,8 @@ the hierarchy. JAX's near-null starts (the per-level jax.random.split
 chain of hierarchy.build_hierarchy) are injected into the port.
 
 complex128 (links on and off): the same cycle count to 1e-8, phi within
-1e-9, and the per-cycle NTL weights within 1e-9 (see _weights_bar).
+1e-9, and the per-cycle NTL weights within 1e-9 (see
+torch_port_helpers.weights_bar).
 complex64 (links auto): both converge to 1e-6 within one cycle of each
 other. Plus one ntl_cycle on a JAX-built
 hierarchy carried over by utils.convert.hierarchy_from_numpy.
@@ -20,7 +21,7 @@ jax = pytest.importorskip("jax")
 import torch  # noqa: E402
 
 from torch_port_helpers import (C128_BAR, jax_hierarchy_leaves, np_of,  # noqa: E402
-                                rel_err, t_of)
+                                rel_err, t_of, weights_bar)
 
 import tpu_multigrid as mg  # noqa: E402
 from tpu_multigrid.ops.nearnull import random_starts as jax_random_starts  # noqa: E402
@@ -30,17 +31,6 @@ from tpu_multigrid_torch.utils.convert import (config_from_dict,  # noqa: E402
                                                hierarchy_from_numpy)
 
 SLICE_BAR = 1e-9
-
-
-def _weights_bar(res_in: float) -> float:
-    """Bar for one cycle's NTL weights, given the residual the cycle starts
-    from. The weights solve a 4x4 system built from the prolonged
-    corrections of that residual, and the residual carries an absolute
-    rounding error of ~eps |b|: the weights' relative rounding grows as
-    eps / residual (measured on the JAX package itself: the port on the
-    JAX-built hierarchy gives err * residual <= ~2e-15 in every cycle).
-    So 1e-9 down to residual 1e-4, then growing as 1 / residual."""
-    return SLICE_BAR * max(1.0, 1e-4 / res_in)
 
 
 def _cfgs(dtype, links, res_threshold=1e-8):
@@ -118,7 +108,8 @@ def test_c128_solve_matches_jax(c128_pair, links):
     np.testing.assert_allclose(hist, ref.history, rtol=1e-6)
     res_in = np.concatenate([[1.0], ref.history[:-1]])
     for k in range(ref.iters):
-        assert rel_err(weights[k], ref.ntl_weights[k]) < _weights_bar(res_in[k])
+        assert (rel_err(weights[k], ref.ntl_weights[k])
+                < weights_bar(res_in[k], SLICE_BAR))
     assert rel_err(weights[:10], ref.ntl_weights[:10]) < SLICE_BAR
     assert rel_err(phi, ref.phi) < SLICE_BAR
     out = mgt.solve(thier, b_t, tcfg, max_iters=40)

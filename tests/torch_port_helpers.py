@@ -37,6 +37,17 @@ def rel_err(port, ref) -> float:
     return float(np.max(np.abs(p - r)) / np.max(np.abs(r)))
 
 
+def weights_bar(res_in: float, bar: float = 1e-9) -> float:
+    """Bar for one cycle's NTL weights, given the residual the cycle starts
+    from. The weights solve a 4x4 system built from the prolonged
+    corrections of that residual, and the residual carries an absolute
+    rounding error of ~eps |b|: the weights' relative rounding grows as
+    eps / residual (measured on the JAX package itself: the port on the
+    JAX-built hierarchy gives err * residual <= ~2e-15 in every cycle).
+    So `bar` down to residual 1e-4, then growing as 1 / residual."""
+    return bar * max(1.0, 1e-4 / res_in)
+
+
 def crandn(rng, shape, dtype=np.complex128) -> np.ndarray:
     return (rng.normal(size=shape) + 1j * rng.normal(size=shape)).astype(dtype)
 

@@ -27,6 +27,7 @@ from .solver.hierarchy import (Hierarchy, LevelOps, NTLOps, build_hierarchy,
                                build_ntl, zero_fields, point_source,
                                cast_hierarchy)
 from .solver.cycles import v_cycle, ntl_cycle, cycle, min_res_weights
-from .solver.driver import solve, solve_chunked, SolveResult
+from .solver.driver import (solve, solve_chunked, solve_ir,
+                            solve_with_history, SolveResult)
 
 __version__ = "0.1.0"

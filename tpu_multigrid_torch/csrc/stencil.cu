@@ -12,7 +12,8 @@
 // A batch stride of 0 shares D, D0inv or r across the batch.
 //
 // Complex numbers are interleaved (re, im) pairs, i.e. torch's complex64 /
-// complex128 storage; every kernel is a template on the real type.
+// complex128 storage (csrc/cplx.cuh); every kernel is a template on the real
+// type.
 //
 // What bounds them on the H100: bytes. One thread per lattice site; the four
 // periodic neighbours are read straight from global memory and the reuse is
@@ -21,7 +22,9 @@
 // each half-sweep touching half the sites) and a dense n=4 sweep ~26
 // (D 16 + D0inv 4 per site on top of the fields) — the same accounting as
 // the TPU kernels' docstrings. Correctness first: no shared-memory tiling,
-// TMA or wgmma here.
+// TMA or wgmma here. Levels whose sweep streams more than the L2 holds take
+// the x-tiled kernels of stencil_tiled.cu instead (ops/cuda_stencil.u_mode,
+// smoother_mode).
 //
 // Red/black half-updates are written IN PLACE in phi. That is safe: on the
 // 5-point stencil with even L, a site of one colour reads only sites of the
@@ -29,49 +32,15 @@
 // own colour write, each to its own site. The colour barrier across the
 // whole grid is the launch boundary, so each RB sweep is two launches.
 
-#include <cuda_runtime.h>
-#include <cstddef>
+#include "cplx.cuh"
 
 namespace {
 
-template <typename T>
-struct alignas(2 * sizeof(T)) cplx {
-  T re, im;
-};
-
-template <typename T>
-__device__ __forceinline__ cplx<T> mk(T re, T im) {
-  cplx<T> z;
-  z.re = re;
-  z.im = im;
-  return z;
-}
-template <typename T>
-__device__ __forceinline__ cplx<T> operator+(cplx<T> a, cplx<T> b) {
-  return mk<T>(a.re + b.re, a.im + b.im);
-}
-template <typename T>
-__device__ __forceinline__ cplx<T> operator-(cplx<T> a, cplx<T> b) {
-  return mk<T>(a.re - b.re, a.im - b.im);
-}
-template <typename T>
-__device__ __forceinline__ cplx<T> operator*(cplx<T> a, cplx<T> b) {
-  return mk<T>(a.re * b.re - a.im * b.im, a.re * b.im + a.im * b.re);
-}
-template <typename T>
-__device__ __forceinline__ cplx<T> scale(T s, cplx<T> a) {
-  return mk<T>(s * a.re, s * a.im);
-}
-// conj(a) * b
-template <typename T>
-__device__ __forceinline__ cplx<T> conj_mul(cplx<T> a, cplx<T> b) {
-  return mk<T>(a.re * b.re + a.im * b.im, a.re * b.im - a.im * b.re);
-}
-// i * a
-template <typename T>
-__device__ __forceinline__ cplx<T> times_i(cplx<T> a) {
-  return mk<T>(-a.im, a.re);
-}
+using tmg::conj_mul;
+using tmg::cplx;
+using tmg::mk;
+using tmg::scale;
+using tmg::times_i;
 
 struct Nbrs {
   size_t s, xp, xm, yp, ym;
@@ -105,21 +74,16 @@ __device__ __forceinline__ void site_of(size_t t, int L, int colour, int& x,
   }
 }
 
-// Spin-projected Wilson hop from the links (ops/gauge_stencil.wilson_hop_u):
-//   ha = ux(x) (v0 - v1)(x+1)          hb = ux(x-1)^* (v0 + v1)(x-1)
-//   hc = uy(x) (v0 + i v1)(y+1)        hd = uy(y-1)^* (v0 - i v1)(y-1)
-//   h0 = 1/2 (ha + hb + hc + hd),      h1 = 1/2 (-ha + hb - i hc + i hd)
+// The links-only Wilson hop (tmg::wilson_hop_core) at site n, reading the
+// links and the neighbour spinors from global memory.
 template <typename T>
 __device__ __forceinline__ void wilson_hop(const cplx<T>* __restrict__ U,
                                            const cplx<T>* v, size_t LL,
                                            const Nbrs& n, cplx<T>& h0,
                                            cplx<T>& h1) {
-  const cplx<T> ha = U[n.s] * (v[n.xp] - v[LL + n.xp]);
-  const cplx<T> hb = conj_mul(U[n.xm], v[n.xm] + v[LL + n.xm]);
-  const cplx<T> hc = U[LL + n.s] * (v[n.yp] + times_i(v[LL + n.yp]));
-  const cplx<T> hd = conj_mul(U[LL + n.ym], v[n.ym] - times_i(v[LL + n.ym]));
-  h0 = scale(T(0.5), ha + hb + hc + hd);
-  h1 = scale(T(0.5), (hb - ha) + times_i(hd - hc));
+  tmg::wilson_hop_core(U[n.s], U[n.xm], U[LL + n.s], U[LL + n.ym], v[n.xp],
+                       v[LL + n.xp], v[n.xm], v[LL + n.xm], v[n.yp],
+                       v[LL + n.yp], v[n.ym], v[LL + n.ym], h0, h1);
 }
 
 // out = r - (2+m) phi - hop(phi)

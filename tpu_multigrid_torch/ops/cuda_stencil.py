@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels of the smoother path, their wrappers, launch
-counters and the build-and-load code (counterpart of
+counters, their dispatch and the build-and-load code (counterpart of
 tpu_multigrid/ops/pallas_stencil.py).
 
-Kernels (csrc/stencil.cu), each with its plain torch version:
+Kernels, each with its plain torch version. Global kernels
+(csrc/stencil.cu), for levels whose sweep fits the L2:
 
 - links_update   <- _u_smooth_vmem_kernel (pallas_stencil.py:669), via
   `wilson_u_smooth`. Plain version: gauge_stencil.smooth_u.
@@ -12,22 +13,38 @@ Kernels (csrc/stencil.cu), each with its plain torch version:
   _jacobi_kernel (pallas_stencil.py:86), via `dense_smooth`. Plain
   version: smoothers.smooth_plain.
 
+x-tiled kernels (csrc/stencil_tiled.cu), for levels past it; a block
+stages a tile of phi and its halo in shared memory:
+
+- links_update_tiled   <- _u_update_tile_kernel (pallas_stencil.py:711),
+  via `wilson_u_smooth_tiled`. Plain version: gauge_stencil.smooth_u.
+- links_residual_tiled <- _u_resid_tile_kernel (pallas_stencil.py:703),
+  via `wilson_u_residual_tiled`. Plain version: gauge_stencil.residual_u.
+- dense_update_tiled   <- _tiled_update_kernel (pallas_stencil.py:358),
+  via `dense_smooth_tiled`. Plain version: smoothers.smooth_plain.
+
+`u_mode` / `smoother_mode` choose between the two from the bytes a level
+streams per sweep against the H100's L2.
+
 What bounds them on the H100 is bytes, not flops: ~4.5 complex words per
 site per links sweep and ~26 per dense n=4 sweep (the accounting of
-pallas_stencil.py:669-673). One thread per site reads its neighbours from
-global memory and L2 serves the reuse. The TPU kernels ran all sweeps in
-one launch with the lattice resident in VMEM; here each Jacobi sweep is
-one launch and each red-black sweep two (the launch boundary is the grid-
-wide colour barrier), with red/black half-updates written in place.
+pallas_stencil.py:669-673). In the global kernels one thread per site
+reads its neighbours from global memory and L2 serves the reuse; in the
+tiled ones a thread owns two sites of a tile whose phi sits in shared
+memory. The TPU kernels ran all sweeps in one launch with the lattice
+resident in VMEM; here each Jacobi sweep is one launch and each red-black
+sweep two (the launch boundary is the grid-wide colour barrier), with
+red/black half-updates written in place.
 
 A CUDA tensor always goes to its kernel, or the wrapper raises; the plain
 version runs only for CPU tensors (or when the caller passes
 MGConfig.pallas='off' and calls the plain function itself).
 
-The library is built at first use with nvcc from the package's csrc/
-sources into tpu_multigrid_torch/_build/, keyed by a hash of the sources
-and flags, and bound with ctypes (a plain C interface: no PyTorch headers,
-so the build takes seconds).
+The library is built at first use from the package's csrc/ sources into
+tpu_multigrid_torch/_build/, keyed by a hash of the sources and flags:
+one nvcc per .cu file, all started together, then one link. It is bound
+with ctypes (a plain C interface: no PyTorch headers, so the build takes
+seconds).
 """
 from __future__ import annotations
 
@@ -47,11 +64,13 @@ from . import gauge_stencil, smoothers
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 # Launch counts per kernel: each wrapper adds one where it launches.
-launches = {"links_update": 0, "links_residual": 0, "dense_update": 0}
+launches = {"links_update": 0, "links_residual": 0, "dense_update": 0,
+            "links_update_tiled": 0, "links_residual_tiled": 0,
+            "dense_update_tiled": 0}
 
 
 def reset_launches() -> None:
@@ -78,28 +97,44 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Path of the shared library for the current sources and flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libtmg_stencil_{h.hexdigest()[:16]}.so"
 
 
+def _check_run(cmd, proc, stdout: str, stderr: str) -> None:
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{stdout}{stderr}")
+
+
 def build() -> Path:
     """Compile csrc/*.cu into the build directory unless a library for the
-    same sources exists; returns its path."""
+    same sources exists; returns its path. One nvcc per source, started
+    together, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in _sources():
+            obj = Path(tmp) / f"{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        done = [(cmd, proc, *proc.communicate()) for cmd, _, proc in jobs]
+        for cmd, proc, stdout, stderr in done:
+            _check_run(cmd, proc, stdout, stderr)
+        lib = Path(tmp) / "lib.so"
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(lib),
+               *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        _check_run(cmd, proc, proc.stdout, proc.stderr)
+        os.replace(lib, out)
     return out
 
 
@@ -110,6 +145,10 @@ _SIGNATURES = {
     "links_update": (_P, _P, _P, _P, _I, _D, _D, _I, _P),
     "dense_update": (_P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _I, _D,
                      _P),
+    "links_residual_tiled": (_P, _P, _P, _P, _I, _D, _I, _I, _P),
+    "links_update_tiled": (_P, _P, _P, _P, _I, _D, _D, _I, _I, _I, _P),
+    "dense_update_tiled": (_P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _LL,
+                           _I, _D, _I, _I, _P),
 }
 
 
@@ -178,7 +217,55 @@ def _sweeps(launch, phi, n_sweeps: int, kind: str):
 
 
 # --------------------------------------------------------------------------
-# links-only Wilson level 0 (B1, B2)
+# dispatch: global kernels while a level's sweep fits the L2, else x-tiled
+# --------------------------------------------------------------------------
+
+# The H100's L2 holds 50 MB. While a level's sweep streams less than that,
+# what one launch reads (the neighbour rows, the other colour's sites of a
+# red/black half-sweep) is still in L2 for the next, and the global kernels
+# need no staging. Past it every such re-read goes to HBM, and the x-tiled
+# kernels, which stage a tile and its halo in shared memory, take over.
+L2_BYTES = 50 * 2**20
+
+
+def u_mode(L: int, dtype=torch.complex64) -> str:
+    """'global' or 'tiled' for the level-0 links kernels (counterpart of
+    pallas_stencil.u_mode). A links sweep streams U, r and phi in and phi
+    out: 8 complex words per site."""
+    return "tiled" if 8 * L * L * dtype.itemsize > L2_BYTES else "global"
+
+
+def smoother_mode(n: int, L: int, dtype=torch.complex64) -> str:
+    """'global' or 'tiled' for the dense n-dof smoother kernels
+    (counterpart of pallas_stencil.smoother_mode). A sweep streams D
+    (5 n^2 complex words per site), D0inv (n^2), and phi in, r and phi out
+    (n each)."""
+    words = 6 * n * n + 3 * n
+    return "tiled" if words * L * L * dtype.itemsize > L2_BYTES else "global"
+
+
+# Largest tile of the tiled kernels: a block of 32 x 8 threads, two sites a
+# thread along x (csrc/stencil_tiled.cu).
+MAX_TILE = (16, 32)
+
+
+def default_tile(L: int):
+    """(TX, TY) of the tiled kernels: the largest tile, 16 x-rows by 32
+    y-columns; 8 rows below L=1024, so that a level of 256^2 still spreads
+    over 256 blocks."""
+    return (16 if L >= 1024 else 8), 32
+
+
+def _tile(tile, L: int):
+    TX, TY = default_tile(L) if tile is None else map(int, tile)
+    if not (1 <= TX <= MAX_TILE[0] and 1 <= TY <= MAX_TILE[1]):
+        raise ValueError(f"tile {tile} outside 1..{MAX_TILE[0]} x "
+                         f"1..{MAX_TILE[1]}")
+    return TX, TY
+
+
+# --------------------------------------------------------------------------
+# links-only Wilson level 0 (B1, B2; x-tiled B5a, B5b)
 # --------------------------------------------------------------------------
 
 def _check_links(U, phi, r):
@@ -204,14 +291,25 @@ def wilson_u_residual(U, m: float, phi, r):
     return out
 
 
-def wilson_u_smooth(U, m: float, phi, r, n_sweeps: int, kind: str = "rbgs",
-                    omega: float = 1.0):
-    """n_sweeps links-only Wilson smoother sweeps (Jacobi or red-black).
+def wilson_u_residual_tiled(U, m: float, phi, r, tile=None):
+    """r - D_U phi on (TX, TY) tiles (default: default_tile(L)).
 
-    Replaces tpu_multigrid/ops/pallas_stencil.py _u_smooth_vmem_kernel
-    (via wilson_u_smooth_pallas). Bound by bytes (~4.5 complex words per
-    site per sweep); red-black half-sweeps update a copy of phi in place,
-    Jacobi ping-pongs between two buffers."""
+    Replaces tpu_multigrid/ops/pallas_stencil.py _u_resid_tile_kernel (via
+    wilson_u_residual_pallas(mode='tiled')). Same bytes as
+    wilson_u_residual, each word read once per pass from HBM."""
+    L = phi.shape[-1]
+    TX, TY = _tile(tile, L)
+    if not phi.is_cuda:
+        return gauge_stencil.residual_u("wilson", U, m, phi, r)
+    _check_links(U, phi, r)
+    out = torch.empty_like(phi)
+    _launch("links_residual_tiled", phi.dtype, phi.device, U.data_ptr(),
+            phi.data_ptr(), r.data_ptr(), out.data_ptr(), L, float(m), TX,
+            TY)
+    return out
+
+
+def _links_smooth(name, U, m, phi, r, n_sweeps, kind, omega, *tile):
     if not phi.is_cuda:
         return gauge_stencil.smooth_u("wilson", U, m, phi, r, n_sweeps, kind,
                                       omega)
@@ -220,15 +318,37 @@ def wilson_u_smooth(U, m: float, phi, r, n_sweeps: int, kind: str = "rbgs",
     _check_lattice(L, kind)
 
     def launch(src, dst, colour):
-        _launch("links_update", phi.dtype, phi.device, U.data_ptr(),
-                src.data_ptr(), r.data_ptr(), dst.data_ptr(), L, float(m),
-                float(omega), colour)
+        _launch(name, phi.dtype, phi.device, U.data_ptr(), src.data_ptr(),
+                r.data_ptr(), dst.data_ptr(), L, float(m), float(omega),
+                colour, *tile)
 
     return _sweeps(launch, phi, n_sweeps, kind)
 
 
+def wilson_u_smooth(U, m: float, phi, r, n_sweeps: int, kind: str = "rbgs",
+                    omega: float = 1.0):
+    """n_sweeps links-only Wilson smoother sweeps (Jacobi or red-black).
+
+    Replaces tpu_multigrid/ops/pallas_stencil.py _u_smooth_vmem_kernel
+    (via wilson_u_smooth_pallas). Bound by bytes (~4.5 complex words per
+    site per sweep); red-black half-sweeps update a copy of phi in place,
+    Jacobi ping-pongs between two buffers."""
+    return _links_smooth("links_update", U, m, phi, r, n_sweeps, kind, omega)
+
+
+def wilson_u_smooth_tiled(U, m: float, phi, r, n_sweeps: int,
+                          kind: str = "rbgs", omega: float = 1.0, tile=None):
+    """wilson_u_smooth on (TX, TY) tiles (default: default_tile(L)).
+
+    Replaces tpu_multigrid/ops/pallas_stencil.py _u_update_tile_kernel
+    (via wilson_u_smooth_pallas_tiled): one launch per Jacobi sweep or
+    red/black half-sweep, as there."""
+    return _links_smooth("links_update_tiled", U, m, phi, r, n_sweeps, kind,
+                         omega, *_tile(tile, phi.shape[-1]))
+
+
 # --------------------------------------------------------------------------
-# dense 5-point block stencil (B3, B4)
+# dense 5-point block stencil (B3, B4; x-tiled B6)
 # --------------------------------------------------------------------------
 
 def _batch_stride(t: torch.Tensor, unbatched_ndim: int, B: int) -> int:
@@ -242,24 +362,14 @@ def _batch_stride(t: torch.Tensor, unbatched_ndim: int, B: int) -> int:
                      f"batch {B}")
 
 
-def dense_smooth(D, D0inv, phi, r, n_sweeps: int, kind: str = "rbgs",
-                 omega: float = 1.0):
-    """n_sweeps dense 5-point block-stencil sweeps,
-    phi <- -D0inv (sum_mu D_mu phi(x+mu) - r), red-black or Jacobi.
-
-    Replaces tpu_multigrid/ops/pallas_stencil.py _rbgs_kernel (via
-    rbgs_smooth_pallas) and _jacobi_kernel (via jacobi_smooth_pallas).
-    phi [B?, n, L, L] with an optional batch axis; D [B?, 5, n, n, L, L],
-    D0inv [B?, n, n, L, L] and r [B?, n, L, L] each shared or batched.
-    Bound by bytes: D's 4n^2 hop blocks and D0inv's n^2 dominate
-    (~26 complex words per site per n=4 sweep)."""
+def _dense_smooth(name, D, D0inv, phi, r, n_sweeps, kind, omega, *tile):
     if not phi.is_cuda:
         return smoothers.smooth_plain(D, D0inv, phi, r, n_sweeps, kind, omega)
     batched = phi.dim() == 4
     B = phi.shape[0] if batched else 1
     n, L = phi.shape[-3], phi.shape[-1]
     if n not in (1, 2, 4):
-        raise ValueError(f"dense_update takes n in (1, 2, 4), got {n}")
+        raise ValueError(f"{name} takes n in (1, 2, 4), got {n}")
     _check_lattice(L, kind)
     bd = (B,) if batched else ()
     _check("phi", phi, phi, bd + (n, L, L))
@@ -271,9 +381,34 @@ def dense_smooth(D, D0inv, phi, r, n_sweeps: int, kind: str = "rbgs",
     _check("r", r, phi, ((B,) if r_bs else ()) + (n, L, L))
 
     def launch(src, dst, colour):
-        _launch("dense_update", phi.dtype, phi.device, D.data_ptr(),
-                D0inv.data_ptr(), src.data_ptr(), r.data_ptr(),
-                dst.data_ptr(), B, n, L, d_bs, dinv_bs, r_bs, colour,
-                float(omega))
+        _launch(name, phi.dtype, phi.device, D.data_ptr(), D0inv.data_ptr(),
+                src.data_ptr(), r.data_ptr(), dst.data_ptr(), B, n, L, d_bs,
+                dinv_bs, r_bs, colour, float(omega), *tile)
 
     return _sweeps(launch, phi, n_sweeps, kind)
+
+
+def dense_smooth(D, D0inv, phi, r, n_sweeps: int, kind: str = "rbgs",
+                 omega: float = 1.0):
+    """n_sweeps dense 5-point block-stencil sweeps,
+    phi <- -D0inv (sum_mu D_mu phi(x+mu) - r), red-black or Jacobi.
+
+    Replaces tpu_multigrid/ops/pallas_stencil.py _rbgs_kernel (via
+    rbgs_smooth_pallas) and _jacobi_kernel (via jacobi_smooth_pallas).
+    phi [B?, n, L, L] with an optional batch axis; D [B?, 5, n, n, L, L],
+    D0inv [B?, n, n, L, L] and r [B?, n, L, L] each shared or batched.
+    Bound by bytes: D's 4n^2 hop blocks and D0inv's n^2 dominate
+    (~26 complex words per site per n=4 sweep)."""
+    return _dense_smooth("dense_update", D, D0inv, phi, r, n_sweeps, kind,
+                         omega)
+
+
+def dense_smooth_tiled(D, D0inv, phi, r, n_sweeps: int, kind: str = "rbgs",
+                       omega: float = 1.0, tile=None):
+    """dense_smooth on (TX, TY) tiles (default: default_tile(L)), with the
+    same batch axis and per-operand batch strides.
+
+    Replaces tpu_multigrid/ops/pallas_stencil.py _tiled_update_kernel (via
+    _tiled_update_call / smooth_pallas_tiled)."""
+    return _dense_smooth("dense_update_tiled", D, D0inv, phi, r, n_sweeps,
+                         kind, omega, *_tile(tile, phi.shape[-1]))

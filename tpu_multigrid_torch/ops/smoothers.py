@@ -7,8 +7,8 @@ Update rule (reference Level::f_relax, level.h:100-128):
 
 `phi` and `r` may carry a leading batch axis; `D` and `D0inv` may be
 shared by the batch or batched with it. The sweeps here are the plain
-torch versions of the dense_update kernel (ops/cuda_stencil.py), which
-`smooth` runs for CUDA tensors.
+torch versions of the dense_update and dense_update_tiled kernels
+(ops/cuda_stencil.py), which `smooth` runs for CUDA tensors.
 """
 from __future__ import annotations
 
@@ -60,10 +60,15 @@ def smooth(D, D0inv, phi, r, n_sweeps: int, kind: str = "rbgs",
            omega: float = 1.0, pallas: str = "auto"):
     """Run n_sweeps smoother sweeps (reference f_relax's num_iter loop).
 
-    pallas='auto' (MGConfig.pallas) runs the dense_update CUDA kernel on
-    CUDA tensors; 'off' runs the plain torch sweeps everywhere.
+    pallas='auto' (MGConfig.pallas) runs the CUDA kernels on CUDA tensors:
+    dense_update, or dense_update_tiled where cuda_stencil.smoother_mode
+    says the level is past the L2; 'off' runs the plain torch sweeps
+    everywhere.
     """
     if pallas == "off":
         return smooth_plain(D, D0inv, phi, r, n_sweeps, kind, omega)
-    from . import cuda_stencil
-    return cuda_stencil.dense_smooth(D, D0inv, phi, r, n_sweeps, kind, omega)
+    from . import cuda_stencil as cs
+    n, L = phi.shape[-3], phi.shape[-1]
+    fn = (cs.dense_smooth_tiled if cs.smoother_mode(n, L, phi.dtype) == "tiled"
+          else cs.dense_smooth)
+    return fn(D, D0inv, phi, r, n_sweeps, kind, omega)

@@ -32,15 +32,21 @@ def links_active(cfg: MGConfig, gauge, lvl: int) -> bool:
     return cfg.dtype == "complex64"
 
 
+def _tiled0(phi) -> bool:
+    """Whether level 0's links kernels are the x-tiled ones (u_mode)."""
+    return cuda_stencil.u_mode(phi.shape[-1], phi.dtype) == "tiled"
+
+
 def _relax(lev, phi, r, cfg: MGConfig, lvl: int = 0, gauge=None):
     if links_active(cfg, gauge, lvl):
         if cfg.pallas == "off":
             return gauge_stencil.smooth_u(cfg.stencil, gauge, cfg.m, phi, r,
                                           cfg.num_iters, cfg.smoother,
                                           cfg.omega)
-        return cuda_stencil.wilson_u_smooth(gauge, cfg.m, phi, r,
-                                            cfg.num_iters, cfg.smoother,
-                                            cfg.omega)
+        fn = (cuda_stencil.wilson_u_smooth_tiled if _tiled0(phi)
+              else cuda_stencil.wilson_u_smooth)
+        return fn(gauge, cfg.m, phi, r, cfg.num_iters, cfg.smoother,
+                  cfg.omega)
     return smooth(lev.D, lev.D0inv, phi, r, cfg.num_iters, cfg.smoother,
                   cfg.omega, pallas=cfg.pallas)
 
@@ -50,7 +56,9 @@ def _residual0(lev, phi, r, cfg: MGConfig, lvl: int = 0, gauge=None):
     if links_active(cfg, gauge, lvl):
         if cfg.pallas == "off":
             return gauge_stencil.residual_u(cfg.stencil, gauge, cfg.m, phi, r)
-        return cuda_stencil.wilson_u_residual(gauge, cfg.m, phi, r)
+        fn = (cuda_stencil.wilson_u_residual_tiled if _tiled0(phi)
+              else cuda_stencil.wilson_u_residual)
+        return fn(gauge, cfg.m, phi, r)
     return residual(lev.D, phi, r)
 
 
