@@ -18,6 +18,20 @@ shape), then drives two solves through the package's entry points
   the x-tiled kernels at levels 0-3, to 1e-6, then by solve_ir (complex64
   cycles, exact complex128 defect) to 1e-8 and 1e-13.
 
+Then the SpMV path:
+
+- spmv: profiling.roofline_table on Wilson L=2048 complex64 (gauge phases
+  0.2 N(0,1) from default_rng(7), m=-0.07: bench.py's stencil-stream
+  phase), plus the links-apply rows at L=256, 2048 and 4096, with achieved
+  bytes/s and the fraction of the card's HBM peak;
+- krylov, through mr_solve, solve_chunked, eo_mr_solve, cgnr_solve_ir and
+  fgmres_solve: MR and MG (complex128) on the flagship operator to 1e-8,
+  even-odd MR to 1e-8, CGNR with complex128 defect correction on Wilson
+  m=-0.07 on a beta=32 native heat-bath ensemble at L=128 and 256 to 1e-8
+  (true residual recomputed with the plain apply_D), and MG-preconditioned
+  FGMRES on the flagship hierarchy to 1e-6; one profiled CGNR chunk gives
+  the device's busy share and its largest device kernels.
+
 It checks convergence, that each solve went through every kernel of its
 path (launch counters, set to 0 before the path and read after it), that
 the plain path on the same hierarchy takes the same number of cycles
@@ -29,12 +43,14 @@ line of standard output is one JSON object, {"ok": true, "device": ...};
 the line before it is a JSON object with one entry per kernel. Without a
 CUDA device, or outside the repository, it fails and prints no result.
 """
+import collections
 import functools
 import json
 import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -48,6 +64,10 @@ REPLACES = {
     "links_update_tiled": "tpu_multigrid/ops/pallas_stencil.py:711",
     "links_residual_tiled": "tpu_multigrid/ops/pallas_stencil.py:703",
     "dense_update_tiled": "tpu_multigrid/ops/pallas_stencil.py:358",
+    "links_apply": "tpu_multigrid/ops/pallas_stencil.py:656",
+    "dense_apply": "tpu_multigrid/ops/pallas_stencil.py:64",
+    "links_apply_tiled": "tpu_multigrid/ops/pallas_stencil.py:695",
+    "dense_apply_tiled": "tpu_multigrid/ops/pallas_stencil.py:236",
 }
 SOURCES = {k: "tpu_multigrid_torch/csrc/" + ("stencil_tiled.cu" if
                                              k.endswith("_tiled") else
@@ -56,6 +76,9 @@ SOURCES = {k: "tpu_multigrid_torch/csrc/" + ("stencil_tiled.cu" if
 FLAGSHIP_KERNELS = ("links_update", "links_residual", "dense_update")
 LARGE_KERNELS = ("links_update_tiled", "links_residual_tiled",
                  "dense_update_tiled", "dense_update")
+SPMV_KERNELS = ("dense_apply_tiled", "links_apply", "links_apply_tiled")
+KRYLOV_KERNELS = ("dense_apply",)
+L2_BYTES = 50 * 2**20
 BARS = {"complex64": 2e-5, "complex128": 1e-12}
 
 
@@ -99,10 +122,14 @@ def kernel_cases(torch, mgt, dev):
                                dtype=torch.float64)
         return torch.polar(torch.ones_like(ph), ph).to(dtype)
 
-    def dense(B, n, L, dtype):
+    def stencil(B, n, L, dtype):
         D = 0.25 * c(((B,) if B else ()) + (5, n, n, L, L), dtype)
         D[..., 0, :, :, :, :] += 4.0 * torch.eye(
             n, dtype=dtype, device=dev)[:, :, None, None]
+        return D
+
+    def dense(B, n, L, dtype):
+        D = stencil(B, n, L, dtype)
         return D, mgt.ops.stencil.site_inverse(D[..., 0, :, :, :, :])
 
     def links_cases(L, tag, dtype, tiled, tile=None):
@@ -128,6 +155,30 @@ def kernel_cases(torch, mgt, dev):
                                                    k),
                         gupd and (lambda k=kind: gupd(U, m, phi, r, 4, k))))
         return out
+
+    def apply_cases(B, n, L, tag, dtype, tiled, tile=None):
+        """The dense SpMV: B7a (global) or B7b (x-tiled), D and v batched
+        by B when B is given."""
+        D, v = stencil(B, n, L, dtype), c(((B,) if B else ()) + (n, L, L),
+                                          dtype)
+        fn = (functools.partial(cs.dense_apply_tiled, tile=tile) if tiled
+              else cs.dense_apply)
+        return [("dense_apply_tiled" if tiled else "dense_apply",
+                 f"{'B7b' if tiled else 'B7a'} apply {tag}", dtype,
+                 lambda: fn(D, v), lambda: mgt.ops.stencil.apply_D(D, v),
+                 (lambda: cs.dense_apply(D, v)) if tiled and tile is None
+                 else None)]
+
+    def links_apply_cases(L, tag, dtype, tiled, tile=None):
+        """The links SpMV D_U v: B8 (global) or B5c (x-tiled)."""
+        U, v = links(L, dtype), c((2, L, L), dtype)
+        fn = (functools.partial(cs.wilson_u_apply_tiled, tile=tile) if tiled
+              else cs.wilson_u_apply)
+        return [("links_apply_tiled" if tiled else "links_apply",
+                 f"{'B5c' if tiled else 'B8'} apply {tag}", dtype,
+                 lambda: fn(U, m, v), lambda: gs.apply_wilson_u(U, m, v),
+                 (lambda: cs.wilson_u_apply(U, m, v)) if tiled and tile is None
+                 else None)]
 
     def dense_cases(B, n, L, shared, tag, kinds, dtype, tiled, tile=None):
         D, Dinv = dense(None if shared else B, n, L, dtype)
@@ -178,6 +229,27 @@ def kernel_cases(torch, mgt, dev):
                              tile=(8, 8))
         cases += dense_cases(2, 2, 32, True, "n=2 L=32 k=2 shared tile 6x12",
                              ("rbgs",), dtype, tiled=True, tile=(6, 12))
+        # the SpMV path: the first case of each kernel is its main shape
+        cases += apply_cases(None, 2, 256, "n=2 L=256 (MR, CGNR)", dtype,
+                             tiled=False)
+        cases += apply_cases(4, 4, 32, "n=4 L=32 batch 4", dtype,
+                             tiled=False)
+        cases += links_apply_cases(256, "L=256", dtype, tiled=False)
+        cases += apply_cases(None, 2, 2048, "n=2 L=2048 (stencil stream)",
+                             dtype, tiled=True)
+        cases += apply_cases(None, 4, 1024, "n=4 L=1024", dtype, tiled=True)
+        cases += links_apply_cases(2048, "L=2048", dtype, tiled=True)
+        if dtype == torch.complex64:
+            cases += apply_cases(None, 2, 4096, "n=2 L=4096", dtype,
+                                 tiled=True)
+            cases += links_apply_cases(4096, "L=4096", dtype, tiled=True)
+        for tile in ((8, 8), (6, 12)):
+            tag = f"L=32 tile {tile[0]}x{tile[1]}"
+            cases += apply_cases(4, 4, 32, "n=4 batch 4 " + tag, dtype,
+                                 tiled=True, tile=tile)
+            cases += apply_cases(None, 2, 32, "n=2 " + tag, dtype,
+                                 tiled=True, tile=tile)
+            cases += links_apply_cases(32, tag, dtype, tiled=True, tile=tile)
     return cases
 
 
@@ -354,6 +426,191 @@ def small_check(torch, mgt, dev):
           and rel < 1e-9, "kernel path disagrees with the plain path")
 
 
+def spmv_phase(torch, mgt, dev, card):
+    """profiling.roofline_table on Wilson L=2048 complex64 (bench.py's
+    stencil-stream inputs) plus links-apply rows through
+    wilson_u_apply_auto at L=256, 2048 and 4096, each beside the plain
+    links apply. Returns (summary, launches)."""
+    cs, prof = mgt.ops.cuda_stencil, mgt.profiling
+    L, m = 2048, -0.07
+    cfg = mgt.MGConfig(L=L, stencil="wilson", m=m, nlevels=1,
+                       dtype="complex64")
+    rng = np.random.default_rng(7)
+    U = mgt.models.gauge.gauge_from_phases(
+        0.2 * rng.normal(size=(2, L, L)), cfg.cdtype, dev)
+    D = mgt.models.operators.assemble(cfg.stencil, U, cfg.m)
+    v = torch.from_numpy(rng.normal(size=(2, L, L))
+                         + 1j * rng.normal(size=(2, L, L))).to(dev, cfg.cdtype)
+    peak = prof.peak_bandwidth()
+    cs.reset_launches()
+    tab = prof.roofline_table(cfg, D, v, reps=20)
+    rows = [dict(r, L=L, n=2) for r in tab["rows"]]
+    del D
+    for Lu in (256, 2048, 4096):
+        Uu = mgt.models.gauge.gauge_from_phases(
+            0.2 * rng.normal(size=(2, Lu, Lu)), cfg.cdtype, dev)
+        vu = torch.randn((2, Lu, Lu), dtype=cfg.cdtype, device=dev)
+        nbytes = 6 * Lu * Lu * vu.element_size()
+        tiled = cs.apply_mode(2, Lu, vu.dtype, links=True) == "tiled"
+        for name, fn in (
+                ("apply_wilson_u", mgt.ops.gauge_stencil.apply_wilson_u),
+                ("links_apply_cuda_tiled" if tiled else "links_apply_cuda",
+                 cs.wilson_u_apply_auto)):
+            sec = prof.time_op(lambda U_, x, f=fn: f(U_, m, x), Uu, vu,
+                               reps=20)
+            rows.append(dict(vars(prof.RooflineRow(name, sec, nbytes)
+                                  .finish(peak)), L=Lu, n=2))
+    launches = dict(cs.launches)
+    print(f"spmv: {tab['device']}, HBM peak {peak:.3e} B/s")
+    for r in rows:
+        r["bytes_per_s"] = r["bytes"] / r["sec"]
+        r["streaming"] = r["bytes"] > 2 * L2_BYTES
+        print(f"  {r['name']:24s} L={r['L']:5d} {r['sec'] * 1e3:9.4f} ms  "
+              f"{r['bytes_per_s']:.3e} B/s  {r['bw_frac']:.3f} of peak"
+              f"{'' if r['streaming'] else ' (in L2)'}")
+        check(not r["streaming"] or r["bw_frac"] <= 1.05,
+              f"spmv row {r['name']} L={r['L']} reads {r['bw_frac']:.3f} of "
+              "the HBM peak on a streaming set")
+    print(f"  launches {launches}")
+    for k in SPMV_KERNELS:
+        check(launches[k] > 0, f"spmv phase never launched {k}")
+    print(json.dumps({"spmv": {"peak_bytes_per_s": peak, "rows": rows},
+                      "card": card}))
+    return {"rows": rows}, launches
+
+
+def device_time_by_name(prof_obj):
+    """Microseconds of device time (kernels, copies) by event name in a
+    torch.profiler run; one stream, so the events do not overlap."""
+    from torch.autograd import DeviceType
+    us = collections.Counter()
+    for e in prof_obj.events():
+        if e.device_type == DeviceType.CUDA:
+            us[e.name] += (getattr(e, "device_time_total", None)
+                           or getattr(e, "cuda_time_total", 0.0))
+    return us
+
+
+def krylov_phase(torch, mgt, dev, flag_cfg, flag_hier):
+    """MR, MG, EO-MR, CGNR with complex128 defect correction, and FGMRES
+    through the package's entry points, each with the dense_apply launches
+    it made. Returns (summary, launches over the phase)."""
+    cs, native = mgt.ops.cuda_stencil, mgt.utils.native
+    out = {}
+    cs.reset_launches()
+
+    def solve(tag, fn):
+        before = cs.launches["dense_apply"]
+        res, sec = timed(torch, fn)
+        n = cs.launches["dense_apply"] - before
+        check(n > 0, f"krylov {tag}: dense_apply never launched")
+        return res, sec, n
+
+    # 1. MR and MG on the flagship operator, complex128, to 1e-8
+    cfg = flag_cfg.replace(dtype="complex128", res_threshold=1e-8)
+    rng = np.random.default_rng(cfg.seed)
+    U = mgt.models.gauge.gauge_from_phases(
+        0.2 * rng.normal(size=(2, cfg.L, cfg.L)), cfg.cdtype, dev)
+    D = mgt.models.operators.assemble(cfg.stencil, U, cfg.m)
+    b = mgt.point_source(cfg, device=dev)
+    (x, it, rel), sec, n = solve("mr", lambda: mgt.mr_solve(
+        D, b, tol=1e-8, max_iters=300000, chunk=100))
+    print(f"krylov mr_solve L={cfg.L} c128: {it} iterations to {rel:.3e} "
+          f"in {sec:.3f} s ({n} dense_apply launches)")
+    check(rel < 1e-8 and abs(it - 1200) <= 100,
+          f"mr_solve took {it} iterations to {rel:.3e} (JAX: 1200)")
+    out["mr"] = {"iters": it, "rel": rel, "seconds": sec, "launches": n}
+    hier, t_setup = timed(torch, lambda: mgt.build_hierarchy(D, cfg,
+                                                             check=False))
+    mgo, t_mg = timed(torch, lambda: mgt.solve_chunked(
+        hier, b, cfg, max_iters=500, chunk=5))
+    del hier
+    print(f"  MG solve_chunked(chunk=5) c128: {mgo.iters} cycles to "
+          f"{mgo.resmag:.3e} in {t_mg:.3f} s (setup {t_setup:.3f} s); "
+          f"cycle_reduction {it / mgo.iters:.1f} (JAX: 15 cycles, 80x)")
+    check(mgo.converged, f"MG c128 did not reach 1e-8 ({mgo.resmag:.3e})")
+    out["mg"] = {"cycles": mgo.iters, "res": mgo.resmag, "seconds": t_mg,
+                 "setup_s": t_setup, "cycle_reduction": it / mgo.iters}
+
+    # 2. even-odd MR on the same operator
+    (x, it_eo, rel), sec, n = solve("eo_mr", lambda: mgt.eo_mr_solve(
+        D, b, tol=1e-8, max_iters=300000, chunk=100))
+    print(f"  eo_mr_solve: {it_eo} Schur iterations to {rel:.3e} in "
+          f"{sec:.3f} s ({n} dense_apply launches)")
+    check(rel < 1e-8, f"eo_mr_solve reached {rel:.3e}")
+    out["eo_mr"] = {"iters": it_eo, "rel": rel, "seconds": sec,
+                    "launches": n}
+    del U, D, x
+
+    # 3. CGNR + complex128 defect correction, indefinite Wilson m=-0.07 on
+    #    beta=32 (scripts/wilson_m007.py part B), native heat-bath
+    check(native.available(), "the native heat-bath did not build")
+    print("  heat-bath generator: native (tpu_multigrid_torch/utils/native.py)")
+    for L in (128, 256):
+        theta, t_hb = timed(torch, lambda: native.heatbath_run(
+            np.zeros((2, L, L)), 32.0, 100, 4302529))
+        U128 = mgt.models.gauge.gauge_from_phases(theta, torch.complex128,
+                                                  dev)
+        D128 = mgt.models.operators.assemble("wilson", U128, -0.07)
+        D64 = mgt.models.operators.assemble("wilson",
+                                            U128.to(torch.complex64), -0.07)
+        b = torch.zeros((2, L, L), dtype=torch.complex128, device=dev)
+        b[0, 2, 2] = 5.0
+        res, sec, n = solve(f"cgnr_ir L={L}", lambda: mgt.cgnr_solve_ir(
+            D64, D128, b, tol=1e-8, inner_tol=1e-5, inner_max=6000,
+            max_outer=8))
+        phi = torch.complex(*res["phi_planes"])
+        true = float(torch.linalg.vector_norm(
+            b - mgt.ops.stencil.apply_D(D128, phi))
+            / torch.linalg.vector_norm(b))
+        print(f"  cgnr_solve_ir L={L} beta=32 m=-0.07: {res['outer']} outer "
+              f"steps, {res['inner_iters']} inner iterations, rel "
+              f"{res['rel']:.3e}, true c128 residual {true:.3e}, {sec:.3f} s "
+              f"(heat-bath {t_hb:.2f} s; {n} dense_apply launches)")
+        check(true < 1e-8 and res["rel"] < 1e-8,
+              f"cgnr_solve_ir L={L}: rel {res['rel']:.3e}, true {true:.3e}")
+        out[f"cgnr_ir_L{L}"] = {
+            "outer": res["outer"], "inner_iters": res["inner_iters"],
+            "rel": res["rel"], "true_rel": true, "seconds": sec,
+            "heatbath_s": t_hb, "launches": n,
+            "plaquette": float(mgt.models.gauge.plaquette(U128).real)}
+
+    # one profiled chunk of 500 inner CGNR iterations at L=256 (complex64)
+    b64 = (b / torch.linalg.vector_norm(b)).to(torch.complex64)
+    Ddag = mgt.ops.stencil.adjoint_stencil(D64)
+    mgt.cgnr_solve(D64, b64, tol=0.0, max_iters=20, chunk=20, Ddag=Ddag)
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp, \
+            mgt.profiling.trace(tmp) as p:
+        _, wall = timed(torch, lambda: mgt.cgnr_solve(
+            D64, b64, tol=0.0, max_iters=500, chunk=500, Ddag=Ddag))
+    by_name = device_time_by_name(p)
+    busy = sum(by_name.values()) / 1e6 / wall
+    _, wall_bare = timed(torch, lambda: mgt.cgnr_solve(
+        D64, b64, tol=0.0, max_iters=500, chunk=500, Ddag=Ddag))
+    print(f"  profiled CGNR chunk (500 iterations, L=256 c64): "
+          f"{wall * 1e3:.1f} ms profiled, {wall_bare * 1e3:.1f} ms bare; "
+          f"device busy share {busy:.3f}, idle {1 - busy:.3f}")
+    for name, us in by_name.most_common(5):
+        print(f"    {us / 500:7.2f} us per iteration  {name[:70]}")
+    out["cgnr_profile"] = {"ms_per_iter": wall_bare * 1e3 / 500,
+                           "ms_per_iter_profiled": wall * 1e3 / 500,
+                           "busy_share": busy}
+    del U128, D128, D64, b, b64, Ddag, phi
+
+    # 4. FGMRES preconditioned by the flagship hierarchy (complex64)
+    bf = mgt.point_source(flag_cfg, device=dev)
+    (x, it, rel), sec, n = solve("fgmres", lambda: mgt.fgmres_solve(
+        flag_hier, bf, flag_cfg, tol=1e-6))
+    print(f"  fgmres_solve on the flagship hierarchy: {it} iterations to "
+          f"{rel:.3e} in {sec:.3f} s ({n} dense_apply launches)")
+    check(rel < 1e-6, f"fgmres_solve reached {rel:.3e}")
+    out["fgmres"] = {"iters": it, "rel": rel, "seconds": sec, "launches": n}
+    launches = dict(cs.launches)
+    for k in KRYLOV_KERNELS:
+        check(launches[k] > 0, f"krylov phase never launched {k}")
+    return out, launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -385,6 +642,7 @@ def main():
         torch, mgt, dev, cfg, gauges, FLAGSHIP_KERNELS, max_cycles=30,
         n_cyc=10, reps=5, warm_check=True)
     flag["solve_ir"] = ir_phase(torch, mgt, dev, cfg, gauges[0][0], hier)
+    flag_cfg, flag_hier = cfg, hier
     del gauges, hier
     print(f"flagship done at {time.perf_counter() - t_start:.1f} s")
 
@@ -404,16 +662,29 @@ def main():
 
     small_check(torch, mgt, dev)
 
+    # ---- the SpMV path: the stencil stream, then the Krylov solvers ----
+    spmv, spmv_launches = spmv_phase(torch, mgt, dev, card)
+    print(f"spmv done at {time.perf_counter() - t_start:.1f} s")
+    krylov, krylov_launches = krylov_phase(torch, mgt, dev, flag_cfg,
+                                           flag_hier)
+    del flag_hier
+    print(f"krylov done at {time.perf_counter() - t_start:.1f} s")
+    phase_launches = {k: spmv_launches for k in SPMV_KERNELS}
+    phase_launches.update({k: krylov_launches for k in KRYLOV_KERNELS})
+    phase_launches.update({k: large_launches for k in LARGE_KERNELS
+                           if k.endswith("_tiled")})
+    phase_launches.update({k: flag_launches for k in FLAGSHIP_KERNELS})
+
     kernels = [{"name": k, "route": "cuda", "source": SOURCES[k],
                 "replaces": REPLACES[k],
-                "launches": (large_launches if k.endswith("_tiled")
-                             else flag_launches)[k],
+                "launches": phase_launches[k][k],
                 "max_abs_err": per_kernel[k]["max_abs_err"],
                 "ms": per_kernel[k]["ms"], "plain_ms": per_kernel[k]["plain_ms"]}
                for k in REPLACES]
     print(json.dumps({"flagship": flag, "card": card}))
     print(json.dumps({"large_flagship": large, "card": card}))
     print(json.dumps({"tiled_vs_global": vs_global, "card": card}))
+    print(json.dumps({"krylov": krylov, "card": card}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

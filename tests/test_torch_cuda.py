@@ -246,3 +246,132 @@ def test_tiled_wrappers_refuse_what_the_kernels_do_not_take(dev):
                                           torch.complex64, dev),
                               _c(rng, (2, L, L), torch.complex64, dev), 1)
     assert cs.launches == n0
+
+
+# ---- the SpMV kernels: B7a/B7b (dense apply), B8/B5c (links apply)
+
+from tpu_multigrid_torch.models.operators import assemble_wilson  # noqa: E402
+from tpu_multigrid_torch.ops import stencil as st  # noqa: E402
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,L,bd,bv,tile", [
+    (2, 256, None, None, None),              # the flagship's level 0
+    (4, 32, 4, 4, None),                     # the NTL copies, batched D
+    (4, 16, None, 4, None),                  # shared D, batched v (min-res)
+    (2, 8, 3, None, None),                   # batched D, shared v
+    (1, 8, None, None, None),
+    (2, 2048, None, None, "tiled"),          # past the L2
+    (4, 1024, None, None, "tiled"),
+    (4, 32, 3, 3, (8, 8)),                   # several tiles, periodic wrap
+    (2, 32, None, 2, (6, 12)),               # ragged tiles
+    (2, 8, 2, None, (16, 32)),               # one tile past the lattice
+])
+def test_dense_apply(dev, dtype, n, L, bd, bv, tile):
+    rng = np.random.default_rng(10)
+    D, _ = _dense(rng, bd or 1, n, L, dtype, dev)
+    D = D if bd else D[0]
+    v = _c(rng, ((bv,) if bv else ()) + (n, L, L), dtype, dev)
+    keep = v.clone()
+    name = "dense_apply" if tile is None else "dense_apply_tiled"
+    n0 = cs.launches[name]
+    if tile is None:
+        got = cs.dense_apply(D, v)
+    else:
+        got = cs.dense_apply_tiled(D, v, tile=None if tile == "tiled"
+                                   else tile)
+    assert cs.launches[name] == n0 + 1
+    assert torch.equal(v, keep)
+    want = st.apply_D(D, v)
+    assert got.shape == want.shape
+    assert _rel(got, want) < BARS[dtype]
+    if tile == "tiled":                      # the global kernel, same shape
+        assert _rel(cs.dense_apply(D, v), want) < BARS[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("L,tile", [(256, None), (8, None)] + [
+    (L, tile or "tiled") for L, tile in TILES + [(2048, None)]])
+def test_links_apply(dev, dtype, L, tile):
+    """Against the plain links apply and the dense apply of the assembled
+    Wilson stencil."""
+    rng = np.random.default_rng(11)
+    U = _links(rng, L, dtype, dev)
+    v = _c(rng, (2, L, L), dtype, dev)
+    name = "links_apply" if tile is None else "links_apply_tiled"
+    n0 = cs.launches[name]
+    if tile is None:
+        got = cs.wilson_u_apply(U, -0.07, v)
+    else:
+        got = cs.wilson_u_apply_tiled(U, -0.07, v, tile=None if tile ==
+                                      "tiled" else tile)
+    assert cs.launches[name] == n0 + 1
+    assert _rel(got, gs.apply_wilson_u(U, -0.07, v)) < BARS[dtype]
+    assert _rel(got, st.apply_D(assemble_wilson(U, -0.07), v)) < BARS[dtype]
+
+
+def test_apply_dispatches_by_apply_mode(dev):
+    """apply_D launches the tiled kernel past the L2 (n=2, L=2048) and the
+    global one within it (n=2, L=256); so does the links apply (L=2048 and
+    L=1024)."""
+    rng = np.random.default_rng(12)
+    cases = [(lambda D, v: cs.apply_D(D, v), 2048, "dense_apply_tiled"),
+             (lambda D, v: cs.apply_D(D, v), 256, "dense_apply")]
+    for fn, L, kernel in cases:
+        D, _ = _dense(rng, 1, 2, L, torch.complex64, dev)
+        v = _c(rng, (2, L, L), torch.complex64, dev)
+        before = dict(cs.launches)
+        fn(D[0], v)
+        moved = {k: c - before[k] for k, c in cs.launches.items()
+                 if c != before[k]}
+        assert moved == {kernel: 1}
+    for L, kernel in ((2048, "links_apply_tiled"), (1024, "links_apply")):
+        U = _links(rng, L, torch.complex64, dev)
+        before = dict(cs.launches)
+        cs.wilson_u_apply_auto(U, 0.1, _c(rng, (2, L, L), torch.complex64,
+                                          dev))
+        moved = {k: c - before[k] for k, c in cs.launches.items()
+                 if c != before[k]}
+        assert moved == {kernel: 1}
+
+
+def test_apply_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    """A wrong dtype, shape, device or layout raises and launches
+    nothing."""
+    rng = np.random.default_rng(13)
+    L = 8
+    c64 = torch.complex64
+    U = _links(rng, L, c64, dev)
+    v = _c(rng, (2, L, L), c64, dev)
+    D, _ = _dense(rng, 1, 2, L, c64, dev)
+    D = D[0]
+    n0 = dict(cs.launches)
+    for fn in (cs.wilson_u_apply, cs.wilson_u_apply_tiled):
+        with pytest.raises(TypeError):
+            fn(U, 0.1, v.to(torch.complex128))
+        with pytest.raises(TypeError):
+            fn(U.real.contiguous(), 0.1, v.real.contiguous())
+        with pytest.raises(ValueError):
+            fn(U[:, :4].contiguous(), 0.1, v)
+        with pytest.raises(ValueError):
+            fn(U.cpu(), 0.1, v)
+        with pytest.raises(ValueError):
+            fn(U, 0.1, v.transpose(-1, -2))
+    for fn in (cs.dense_apply, cs.dense_apply_tiled):
+        with pytest.raises(TypeError):
+            fn(D, v.to(torch.complex128))
+        with pytest.raises(ValueError):
+            fn(D.cpu(), v)
+        with pytest.raises(ValueError):
+            fn(D[:, :, :, :4], v)
+        with pytest.raises(ValueError):
+            fn(D, v.transpose(-1, -2))
+        with pytest.raises(ValueError):              # n=3 has no kernel
+            fn(_dense(rng, 1, 3, L, c64, dev)[0][0], _c(rng, (3, L, L), c64,
+                                                        dev))
+        with pytest.raises(ValueError):              # batches disagree
+            fn(_dense(rng, 2, 2, L, c64, dev)[0], _c(rng, (3, 2, L, L), c64,
+                                                     dev))
+    with pytest.raises(ValueError):
+        cs.dense_apply_tiled(D, v, tile=(17, 32))
+    assert cs.launches == n0

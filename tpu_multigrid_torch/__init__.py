@@ -2,8 +2,10 @@
 adaptive multigrid solver for 2D lattice operators (gauged Laplace and
 Wilson-Dirac). The JAX package is the reference; this package mirrors its
 module layout, function names and tensor layouts, and runs the smoother
-path through hand-written CUDA kernels (ops/cuda_stencil.py) on CUDA
-tensors. It never imports jax.
+path and the SpMV path (the operator application inside `mr_solve`,
+`eo_mr_solve`, `cgnr_solve`, `cgnr_solve_ir` and `fgmres_solve`) through
+hand-written CUDA kernels (ops/cuda_stencil.py) on CUDA tensors. It never
+imports jax.
 
 Quick start::
 
@@ -19,8 +21,18 @@ Quick start::
     hier = mgt.build_hierarchy(D, cfg, U=U)
     out = mgt.solve_chunked(hier, mgt.point_source(cfg, device="cuda"),
                             cfg, chunk=1)
+
+Indefinite Wilson (m=-0.07 on a beta=32 heat-bath ensemble) by CGNR with
+complex128 defect correction::
+
+    th = mgt.models.gauge.heatbath_ensemble(128, 32.0, 100, seed=4302529)
+    U = mgt.models.gauge.gauge_from_phases(th, torch.complex128, "cuda")
+    D128 = mgt.models.operators.assemble("wilson", U, -0.07)
+    b = torch.zeros((2, 128, 128), dtype=torch.complex128, device="cuda")
+    b[0, 2, 2] = 5.0
+    out = mgt.cgnr_solve_ir(D128.to(torch.complex64), D128, b, tol=1e-8)
 """
-from . import config, models, ops, solver, utils  # noqa: F401
+from . import config, models, ops, profiling, solver, utils  # noqa: F401
 from .config import MGConfig
 from .ops import cuda_stencil  # noqa: F401
 from .solver.hierarchy import (Hierarchy, LevelOps, NTLOps, build_hierarchy,
@@ -28,6 +40,8 @@ from .solver.hierarchy import (Hierarchy, LevelOps, NTLOps, build_hierarchy,
                                cast_hierarchy)
 from .solver.cycles import v_cycle, ntl_cycle, cycle, min_res_weights
 from .solver.driver import (solve, solve_chunked, solve_ir,
-                            solve_with_history, SolveResult)
+                            solve_with_history, mr_solve, SolveResult)
+from .solver.eo import eo_mr_solve
+from .solver.krylov import fgmres_solve, cgnr_solve, cgnr_solve_ir
 
 __version__ = "0.1.0"

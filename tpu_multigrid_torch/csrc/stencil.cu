@@ -1,15 +1,18 @@
 // Hand-written Hopper (sm_90a) kernels for the multigrid smoother path.
 //
 // Ports of the Pallas TPU kernels in tpu_multigrid/ops/pallas_stencil.py:
-//   links_residual_kernel  <- _u_resid_vmem_kernel   (B2)
+//   links_out_kernel<T, false> <- _u_resid_vmem_kernel  (B2, :662)
+//   links_out_kernel<T, true>  <- _u_apply_vmem_kernel  (B8, :656)
 //   links_update_kernel    <- _u_smooth_vmem_kernel  (B1; one launch per
 //                             Jacobi sweep or per red/black half-sweep)
 //   dense_update_kernel    <- _rbgs_kernel (B3) and _jacobi_kernel (B4)
+//   dense_apply_kernel     <- _apply_d_kernel        (B7a, :64)
 //
 // Layouts are the JAX package's, row-major and contiguous:
-//   U[2][L][L], phi/r/out[B][n][L][L], D[B][5][n][n][L][L], D0inv[B][n][n][L][L]
+//   U[2][L][L], phi/r/v/out[B][n][L][L], D[B][5][n][n][L][L],
+//   D0inv[B][n][n][L][L]
 // with site (x, y) at x*L + y and directions 0=same, 1=+x, 2=-x, 3=+y, 4=-y.
-// A batch stride of 0 shares D, D0inv or r across the batch.
+// A batch stride of 0 shares D, D0inv, r or v across the batch.
 //
 // Complex numbers are interleaved (re, im) pairs, i.e. torch's complex64 /
 // complex128 storage (csrc/cplx.cuh); every kernel is a template on the real
@@ -86,13 +89,15 @@ __device__ __forceinline__ void wilson_hop(const cplx<T>* __restrict__ U,
                        v[LL + n.yp], v[n.ym], v[LL + n.ym], h0, h1);
 }
 
-// out = r - (2+m) phi - hop(phi)
-template <typename T>
-__global__ void links_residual_kernel(const cplx<T>* __restrict__ U,
-                                      const cplx<T>* __restrict__ phi,
-                                      const cplx<T>* __restrict__ r,
-                                      cplx<T>* __restrict__ out, int L,
-                                      T diag) {
+// APPLY (B8): out = (2+m) v + hop(v), the links-only D_U v (r is not
+// read). Else (B2) the residual out = r - (2+m) v - hop(v). One thread per
+// site; 6 complex words a site for the apply (U 2, v 2, out 2), the
+// neighbour reads of v served by L2.
+template <typename T, bool APPLY>
+__global__ void links_out_kernel(const cplx<T>* __restrict__ U,
+                                 const cplx<T>* __restrict__ phi,
+                                 const cplx<T>* __restrict__ r,
+                                 cplx<T>* __restrict__ out, int L, T diag) {
   const size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const size_t LL = (size_t)L * L;
   if (t >= LL) return;
@@ -101,8 +106,13 @@ __global__ void links_residual_kernel(const cplx<T>* __restrict__ U,
   const Nbrs n = neighbours(x, y, L);
   cplx<T> h0, h1;
   wilson_hop(U, phi, LL, n, h0, h1);
-  out[n.s] = r[n.s] - scale(diag, phi[n.s]) - h0;
-  out[LL + n.s] = r[LL + n.s] - scale(diag, phi[LL + n.s]) - h1;
+  if constexpr (APPLY) {
+    out[n.s] = scale(diag, phi[n.s]) + h0;
+    out[LL + n.s] = scale(diag, phi[LL + n.s]) + h1;
+  } else {
+    out[n.s] = r[n.s] - scale(diag, phi[n.s]) - h0;
+    out[LL + n.s] = r[LL + n.s] - scale(diag, phi[LL + n.s]) - h1;
+  }
 }
 
 // upd = (r - hop(phi)) / (2+m);  out = upd (omega == 1) or
@@ -189,18 +199,60 @@ __global__ void dense_update_kernel(const cplx<T>* __restrict__ D,
   }
 }
 
+// Dense 5-point block SpMV for one (batch, site) (B7a):
+//   out = sum_{mu = 0..4} D_mu v(x + mu)
+// D and v each shared by the batch (stride 0) or batched; out is batched.
+// One thread per site: D's 5 n^2 words of the site are read once,
+// coalesced along y; the neighbour reads of v come from L2.
+template <typename T, int N>
+__global__ void dense_apply_kernel(const cplx<T>* __restrict__ D,
+                                   const cplx<T>* __restrict__ v,
+                                   cplx<T>* __restrict__ out, int B, int L,
+                                   long long d_bstride,
+                                   long long v_bstride) {
+  const size_t LL = (size_t)L * L;
+  const size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= (size_t)B * LL) return;
+  const size_t b = t / LL;
+  int x, y;
+  site_of(t - b * LL, L, -1, x, y);
+  const Nbrs n = neighbours(x, y, L);
+
+  const cplx<T>* Db = D + b * (size_t)d_bstride;
+  const cplx<T>* vb = v + b * (size_t)v_bstride;
+  cplx<T>* ob = out + b * (N * LL);
+
+  const size_t nb[5] = {n.s, n.xp, n.xm, n.yp, n.ym};
+  cplx<T> a[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) a[i] = mk<T>(T(0), T(0));
+#pragma unroll
+  for (int d = 0; d < 5; ++d) {
+    cplx<T> w[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) w[j] = vb[j * LL + nb[d]];
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int j = 0; j < N; ++j)
+        a[i] = a[i] + Db[((size_t)(d * N + i) * N + j) * LL + n.s] * w[j];
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) ob[i * LL + n.s] = a[i];
+}
+
 constexpr int kThreads = 256;
 
 inline unsigned blocks_for(size_t work) {
   return (unsigned)((work + kThreads - 1) / kThreads);
 }
 
-template <typename T>
-int links_residual(const void* U, const void* phi, const void* r, void* out,
-                   int L, double m, void* stream) {
+template <typename T, bool APPLY>
+int links_out(const void* U, const void* phi, const void* r, void* out,
+              int L, double m, void* stream) {
   const size_t LL = (size_t)L * L;
-  links_residual_kernel<T><<<blocks_for(LL), kThreads, 0,
-                             (cudaStream_t)stream>>>(
+  links_out_kernel<T, APPLY><<<blocks_for(LL), kThreads, 0,
+                               (cudaStream_t)stream>>>(
       (const cplx<T>*)U, (const cplx<T>*)phi, (const cplx<T>*)r,
       (cplx<T>*)out, L, T(2.0 + m));
   return (int)cudaGetLastError();
@@ -252,6 +304,31 @@ int dense_update(const void* D, const void* Dinv, const void* phi,
   }
 }
 
+template <typename T, int N>
+int dense_apply_n(const void* D, const void* v, void* out, int B, int L,
+                  long long d_bs, long long v_bs, void* stream) {
+  const size_t work = (size_t)B * L * L;
+  dense_apply_kernel<T, N><<<blocks_for(work), kThreads, 0,
+                             (cudaStream_t)stream>>>(
+      (const cplx<T>*)D, (const cplx<T>*)v, (cplx<T>*)out, B, L, d_bs, v_bs);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dense_apply(const void* D, const void* v, void* out, int B, int n, int L,
+                long long d_bs, long long v_bs, void* stream) {
+  switch (n) {
+    case 1:
+      return dense_apply_n<T, 1>(D, v, out, B, L, d_bs, v_bs, stream);
+    case 2:
+      return dense_apply_n<T, 2>(D, v, out, B, L, d_bs, v_bs, stream);
+    case 4:
+      return dense_apply_n<T, 4>(D, v, out, B, L, d_bs, v_bs, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // Plain C interface, loaded with ctypes (ops/cuda_stencil.py). Each entry
@@ -261,11 +338,20 @@ extern "C" {
 
 int tmg_links_residual_c64(const void* U, const void* phi, const void* r,
                            void* out, int L, double m, void* stream) {
-  return links_residual<float>(U, phi, r, out, L, m, stream);
+  return links_out<float, false>(U, phi, r, out, L, m, stream);
 }
 int tmg_links_residual_c128(const void* U, const void* phi, const void* r,
                             void* out, int L, double m, void* stream) {
-  return links_residual<double>(U, phi, r, out, L, m, stream);
+  return links_out<double, false>(U, phi, r, out, L, m, stream);
+}
+
+int tmg_links_apply_c64(const void* U, const void* v, void* out, int L,
+                        double m, void* stream) {
+  return links_out<float, true>(U, v, nullptr, out, L, m, stream);
+}
+int tmg_links_apply_c128(const void* U, const void* v, void* out, int L,
+                         double m, void* stream) {
+  return links_out<double, true>(U, v, nullptr, out, L, m, stream);
 }
 
 int tmg_links_update_c64(const void* U, const void* phi, const void* r,
@@ -292,6 +378,17 @@ int tmg_dense_update_c128(const void* D, const void* Dinv, const void* phi,
                           int colour, double omega, void* stream) {
   return dense_update<double>(D, Dinv, phi, r, out, B, n, L, d_bs, dinv_bs,
                               r_bs, colour, omega, stream);
+}
+
+int tmg_dense_apply_c64(const void* D, const void* v, void* out, int B,
+                        int n, int L, long long d_bs, long long v_bs,
+                        void* stream) {
+  return dense_apply<float>(D, v, out, B, n, L, d_bs, v_bs, stream);
+}
+int tmg_dense_apply_c128(const void* D, const void* v, void* out, int B,
+                         int n, int L, long long d_bs, long long v_bs,
+                         void* stream) {
+  return dense_apply<double>(D, v, out, B, n, L, d_bs, v_bs, stream);
 }
 
 }  // extern "C"

@@ -1,12 +1,16 @@
 // Hand-written Hopper (sm_90a) x-tiled kernels for lattices past the L2.
 //
 // Ports of the x-tiled Pallas TPU kernels in tpu_multigrid/ops/pallas_stencil.py:
-//   links_update_tiled_kernel   <- _u_update_tile_kernel  (B5a; Jacobi, or one
-//                                  red/black half-sweep in place)
-//   links_residual_tiled_kernel <- _u_resid_tile_kernel   (B5b)
-//   dense_update_tiled_kernel   <- _tiled_update_kernel   (B6; n in {1,2,4},
-//                                  batch axis with per-operand batch strides)
-// Layouts are stencil.cu's: U[2][L][L], phi/r/out[B][n][L][L],
+//   links_tiled_kernel<T, kUpdate> <- _u_update_tile_kernel (B5a, :711;
+//                                     Jacobi, or one red/black half-sweep
+//                                     in place)
+//   links_tiled_kernel<T, kResid>  <- _u_resid_tile_kernel  (B5b, :703)
+//   links_tiled_kernel<T, kApply>  <- _u_apply_tile_kernel  (B5c, :695)
+//   dense_tiled_kernel<T, N>       <- _tiled_update_kernel  (B6, :358; n in
+//                                     {1,2,4}, batch axis with per-operand
+//                                     batch strides)
+//   dense_apply_tiled_kernel<T, N> <- _tiled_apply_kernel   (B7b, :236)
+// Layouts are stencil.cu's: U[2][L][L], phi/r/v/out[B][n][L][L],
 // D[B][5][n][n][L][L], D0inv[B][n][n][L][L], site (x, y) at x*L + y.
 //
 // What bounds them on the H100: bytes. At L=2048 the level-0 links set is
@@ -14,7 +18,9 @@
 // what one launch reads is gone before the next: every word of U, r, phi, D
 // and D0inv comes from HBM once per pass (a red/black half-sweep reads the
 // whole of U and phi and half of r, D and D0inv, whose sectors it still
-// fetches whole).
+// fetches whole). The SpMVs move 5n^2 + 2n words a site (B7b: D, v in,
+// out) and 6 (B5c: U, v in, out); their neighbour reads of v come from
+// the staged tile, so each word of v crosses HBM once.
 //
 // Design: each block of 32 x 8 threads owns a TX x TY tile of sites
 // (TX <= 16, TY <= 32). It stages that tile of phi, plus a one-site periodic
@@ -117,8 +123,12 @@ __device__ __forceinline__ void stage_phi(cplx<T>* sm, int plane, int pitch,
   }
 }
 
-// Links-only Wilson on one tile. RESID: out = r - (2+m) phi - hop(phi) at
-// every site. Else the smoother update (r - hop(phi)) / (2+m), relaxed by
+// What the links kernel writes at a site.
+enum LinksMode { kUpdate, kResid, kApply };
+
+// Links-only Wilson on one tile. kResid: out = r - (2+m) phi - hop(phi) at
+// every site; kApply: out = (2+m) phi + hop(phi) at every site (r is not
+// read). kUpdate: the smoother update (r - hop(phi)) / (2+m), relaxed by
 // omega: colour < 0 Jacobi into a separate out, colour 0/1 that colour's
 // sites in place (out == phi).
 //
@@ -126,7 +136,7 @@ __device__ __forceinline__ void stage_phi(cplx<T>* sm, int plane, int pitch,
 // loads their links (U_x at x and x-1, U_y at y and y-1: the -x and -y hops
 // read the neighbour's link) and r into registers before the barrier, so
 // those loads are in flight with the staging of phi [2][TX+2][TY+2].
-template <typename T, bool RESID>
+template <typename T, int MODE>
 __global__ void __launch_bounds__(kThreads)
     links_tiled_kernel(const cplx<T>* __restrict__ U, const cplx<T>* phi,
                        const cplx<T>* __restrict__ r, cplx<T>* out, int L,
@@ -153,8 +163,10 @@ __global__ void __launch_bounds__(kThreads)
       uxm[u] = U[(size_t)wrap(x - 1, L) * L + y];
       uy[u] = U[LL + s];
       uym[u] = U[LL + (size_t)x * L + wrap(y - 1, L)];
-      rv[u][0] = r[s];
-      rv[u][1] = r[LL + s];
+      if constexpr (MODE != kApply) {
+        rv[u][0] = r[s];
+        rv[u][1] = r[LL + s];
+      }
     }
   }
   stage_phi<T, 2>(sv, vpl, vp, phi, LL, L, t);
@@ -174,8 +186,10 @@ __global__ void __launch_bounds__(kThreads)
     const cplx<T> v[2] = {*c0, *c1};
 #pragma unroll
     for (int k = 0; k < 2; ++k) {
-      if (RESID) {
+      if constexpr (MODE == kResid) {
         out[k * LL + s] = rv[u][k] - scale(diag, v[k]) - h[k];
+      } else if constexpr (MODE == kApply) {
+        out[k * LL + s] = scale(diag, v[k]) + h[k];
       } else {
         const cplx<T> d = rv[u][k] - h[k];
         cplx<T> upd = mk<T>(d.re / diag, d.im / diag);
@@ -256,6 +270,59 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Dense 5-point block SpMV on one tile of batch entry blockIdx.z (B7b):
+//   out = sum_{mu = 0..4} D_mu v(x + mu).
+// Sites per thread as in links_tiled_kernel; v [N][TX+2][TY+2] staged with
+// its periodic halo (every neighbour is read, not one colour's), D read
+// once per site straight from global memory. D and v each shared by the
+// batch (stride 0) or batched; out is batched and must not alias v.
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads)
+    dense_apply_tiled_kernel(const cplx<T>* __restrict__ D,
+                             const cplx<T>* __restrict__ v,
+                             cplx<T>* __restrict__ out, int L,
+                             long long d_bstride, long long v_bstride, int TX,
+                             int TY) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Tile t = tile_of(TX, TY, L);
+  const size_t LL = (size_t)L * L;
+  const size_t b = blockIdx.z;
+  const cplx<T>* Db = D + b * (size_t)d_bstride;
+  cplx<T>* ob = out + b * (N * LL);
+  const int vp = TY + 2;
+  const int vpl = (TX + 2) * vp;
+  cplx<T>* sv = reinterpret_cast<cplx<T>*>(smem);
+  stage_phi<T, N>(sv, vpl, vp, v + b * (size_t)v_bstride, LL, L, t);
+  __syncthreads();
+
+  const int j = threadIdx.x;
+  const int y = t.y0 + j;
+#pragma unroll
+  for (int u = 0; u < kRows; ++u) {
+    const int i = threadIdx.y + u * kThreadsX;
+    if (i >= t.tx || j >= t.ty) continue;
+    const cplx<T>* c = sv + (i + 1) * vp + (j + 1);
+    const size_t s = (size_t)(t.x0 + i) * L + y;
+    cplx<T> a[N];
+#pragma unroll
+    for (int p = 0; p < N; ++p) a[p] = mk<T>(T(0), T(0));
+#pragma unroll
+    for (int d = 0; d < 5; ++d) {  // same, +x, -x, +y, -y
+      const int o = d == 0 ? 0 : d == 1 ? vp : d == 2 ? -vp : d == 3 ? 1 : -1;
+      cplx<T> w[N];
+#pragma unroll
+      for (int q = 0; q < N; ++q) w[q] = c[q * vpl + o];
+#pragma unroll
+      for (int p = 0; p < N; ++p)
+#pragma unroll
+        for (int q = 0; q < N; ++q)
+          a[p] = a[p] + Db[((size_t)(d * N + p) * N + q) * LL + s] * w[q];
+    }
+#pragma unroll
+    for (int p = 0; p < N; ++p) ob[p * LL + s] = a[p];
+  }
+}
+
 // Grid over (y tiles, x tiles, batch), or cudaErrorInvalidValue for a tile
 // or batch the kernels do not take.
 inline int grid_of(int L, int TX, int TY, int B, dim3& grid) {
@@ -267,7 +334,7 @@ inline int grid_of(int L, int TX, int TY, int B, dim3& grid) {
   return 0;
 }
 
-template <typename T, bool RESID>
+template <typename T, int MODE>
 int links_tiled(const void* U, const void* phi, const void* r, void* out,
                 int L, double m, double omega, int colour, int TX, int TY,
                 void* stream) {
@@ -275,7 +342,7 @@ int links_tiled(const void* U, const void* phi, const void* r, void* out,
   dim3 grid;
   const int err = grid_of(L, TX, TY, 1, grid);
   if (err) return err;
-  links_tiled_kernel<T, RESID>
+  links_tiled_kernel<T, MODE>
       <<<grid, dim3(kThreadsY, kThreadsX), smem, (cudaStream_t)stream>>>(
           (const cplx<T>*)U, (const cplx<T>*)phi, (const cplx<T>*)r,
           (cplx<T>*)out, L, T(2.0 + m), T(omega), colour, TX, TY);
@@ -319,6 +386,40 @@ int dense_tiled(const void* D, const void* Dinv, const void* phi,
   }
 }
 
+template <typename T, int N>
+int dense_apply_tiled_n(const void* D, const void* v, void* out, int B, int L,
+                        long long d_bs, long long v_bs, int TX, int TY,
+                        void* stream) {
+  const size_t smem = sizeof(cplx<T>) * N * (size_t)(TX + 2) * (TY + 2);
+  dim3 grid;
+  const int err = grid_of(L, TX, TY, B, grid);
+  if (err) return err;
+  dense_apply_tiled_kernel<T, N>
+      <<<grid, dim3(kThreadsY, kThreadsX), smem, (cudaStream_t)stream>>>(
+          (const cplx<T>*)D, (const cplx<T>*)v, (cplx<T>*)out, L, d_bs, v_bs,
+          TX, TY);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dense_apply_tiled(const void* D, const void* v, void* out, int B, int n,
+                      int L, long long d_bs, long long v_bs, int TX, int TY,
+                      void* stream) {
+  switch (n) {
+    case 1:
+      return dense_apply_tiled_n<T, 1>(D, v, out, B, L, d_bs, v_bs, TX, TY,
+                                       stream);
+    case 2:
+      return dense_apply_tiled_n<T, 2>(D, v, out, B, L, d_bs, v_bs, TX, TY,
+                                       stream);
+    case 4:
+      return dense_apply_tiled_n<T, 4>(D, v, out, B, L, d_bs, v_bs, TX, TY,
+                                       stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // Plain C interface, loaded with ctypes (ops/cuda_stencil.py). Each entry
@@ -330,27 +431,27 @@ extern "C" {
 int tmg_links_residual_tiled_c64(const void* U, const void* phi,
                                  const void* r, void* out, int L, double m,
                                  int TX, int TY, void* stream) {
-  return links_tiled<float, true>(U, phi, r, out, L, m, 1.0, -1, TX, TY,
-                                  stream);
+  return links_tiled<float, kResid>(U, phi, r, out, L, m, 1.0, -1, TX, TY,
+                                    stream);
 }
 int tmg_links_residual_tiled_c128(const void* U, const void* phi,
                                   const void* r, void* out, int L, double m,
                                   int TX, int TY, void* stream) {
-  return links_tiled<double, true>(U, phi, r, out, L, m, 1.0, -1, TX, TY,
-                                   stream);
+  return links_tiled<double, kResid>(U, phi, r, out, L, m, 1.0, -1, TX, TY,
+                                     stream);
 }
 
 int tmg_links_update_tiled_c64(const void* U, const void* phi, const void* r,
                                void* out, int L, double m, double omega,
                                int colour, int TX, int TY, void* stream) {
-  return links_tiled<float, false>(U, phi, r, out, L, m, omega, colour, TX,
-                                   TY, stream);
+  return links_tiled<float, kUpdate>(U, phi, r, out, L, m, omega, colour, TX,
+                                     TY, stream);
 }
 int tmg_links_update_tiled_c128(const void* U, const void* phi, const void* r,
                                 void* out, int L, double m, double omega,
                                 int colour, int TX, int TY, void* stream) {
-  return links_tiled<double, false>(U, phi, r, out, L, m, omega, colour, TX,
-                                    TY, stream);
+  return links_tiled<double, kUpdate>(U, phi, r, out, L, m, omega, colour, TX,
+                                      TY, stream);
 }
 
 int tmg_dense_update_tiled_c64(const void* D, const void* Dinv,
@@ -369,6 +470,32 @@ int tmg_dense_update_tiled_c128(const void* D, const void* Dinv,
                                 void* stream) {
   return dense_tiled<double>(D, Dinv, phi, r, out, B, n, L, d_bs, dinv_bs,
                              r_bs, colour, omega, TX, TY, stream);
+}
+
+int tmg_links_apply_tiled_c64(const void* U, const void* v, void* out, int L,
+                              double m, int TX, int TY, void* stream) {
+  return links_tiled<float, kApply>(U, v, nullptr, out, L, m, 1.0, -1, TX,
+                                    TY, stream);
+}
+int tmg_links_apply_tiled_c128(const void* U, const void* v, void* out,
+                               int L, double m, int TX, int TY,
+                               void* stream) {
+  return links_tiled<double, kApply>(U, v, nullptr, out, L, m, 1.0, -1, TX,
+                                     TY, stream);
+}
+
+int tmg_dense_apply_tiled_c64(const void* D, const void* v, void* out, int B,
+                              int n, int L, long long d_bs, long long v_bs,
+                              int TX, int TY, void* stream) {
+  return dense_apply_tiled<float>(D, v, out, B, n, L, d_bs, v_bs, TX, TY,
+                                  stream);
+}
+int tmg_dense_apply_tiled_c128(const void* D, const void* v, void* out,
+                               int B, int n, int L, long long d_bs,
+                               long long v_bs, int TX, int TY,
+                               void* stream) {
+  return dense_apply_tiled<double>(D, v, out, B, n, L, d_bs, v_bs, TX, TY,
+                                   stream);
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
-"""Hand-written CUDA kernels of the smoother path, their wrappers, launch
-counters, their dispatch and the build-and-load code (counterpart of
-tpu_multigrid/ops/pallas_stencil.py).
+"""Hand-written CUDA kernels of the smoother and SpMV paths, their
+wrappers, launch counters, their dispatch and the build-and-load code
+(counterpart of tpu_multigrid/ops/pallas_stencil.py).
 
 Kernels, each with its plain torch version. Global kernels
 (csrc/stencil.cu), for levels whose sweep fits the L2:
@@ -12,6 +12,10 @@ Kernels, each with its plain torch version. Global kernels
 - dense_update   <- _rbgs_kernel (pallas_stencil.py:125) and
   _jacobi_kernel (pallas_stencil.py:86), via `dense_smooth`. Plain
   version: smoothers.smooth_plain.
+- links_apply    <- _u_apply_vmem_kernel (pallas_stencil.py:656), via
+  `wilson_u_apply`. Plain version: gauge_stencil.apply_wilson_u.
+- dense_apply    <- _apply_d_kernel (pallas_stencil.py:64), via
+  `dense_apply`. Plain version: stencil.apply_D.
 
 x-tiled kernels (csrc/stencil_tiled.cu), for levels past it; a block
 stages a tile of phi and its halo in shared memory:
@@ -22,9 +26,15 @@ stages a tile of phi and its halo in shared memory:
   via `wilson_u_residual_tiled`. Plain version: gauge_stencil.residual_u.
 - dense_update_tiled   <- _tiled_update_kernel (pallas_stencil.py:358),
   via `dense_smooth_tiled`. Plain version: smoothers.smooth_plain.
+- links_apply_tiled    <- _u_apply_tile_kernel (pallas_stencil.py:695),
+  via `wilson_u_apply_tiled`. Plain version: gauge_stencil.apply_wilson_u.
+- dense_apply_tiled    <- _tiled_apply_kernel (pallas_stencil.py:236), via
+  `dense_apply_tiled`. Plain version: stencil.apply_D.
 
-`u_mode` / `smoother_mode` choose between the two from the bytes a level
-streams per sweep against the H100's L2.
+`u_mode` / `smoother_mode` / `apply_mode` choose between the two from the
+bytes a level streams per sweep or apply against the H100's L2;
+`apply_D` and `wilson_u_apply_auto` (counterpart of
+pallas_stencil.apply_D_pallas_auto) dispatch the SpMV by `apply_mode`.
 
 What bounds them on the H100 is bytes, not flops: ~4.5 complex words per
 site per links sweep and ~26 per dense n=4 sweep (the accounting of
@@ -34,7 +44,8 @@ tiled ones a thread owns two sites of a tile whose phi sits in shared
 memory. The TPU kernels ran all sweeps in one launch with the lattice
 resident in VMEM; here each Jacobi sweep is one launch and each red-black
 sweep two (the launch boundary is the grid-wide colour barrier), with
-red/black half-updates written in place.
+red/black half-updates written in place. An SpMV moves 5n^2 + 2n words a
+site (dense) or 6 (links), once each.
 
 A CUDA tensor always goes to its kernel, or the wrapper raises; the plain
 version runs only for CPU tensors (or when the caller passes
@@ -59,7 +70,7 @@ from pathlib import Path
 
 import torch
 
-from . import gauge_stencil, smoothers
+from . import gauge_stencil, smoothers, stencil
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -70,7 +81,8 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 # Launch counts per kernel: each wrapper adds one where it launches.
 launches = {"links_update": 0, "links_residual": 0, "dense_update": 0,
             "links_update_tiled": 0, "links_residual_tiled": 0,
-            "dense_update_tiled": 0}
+            "dense_update_tiled": 0, "links_apply": 0, "dense_apply": 0,
+            "links_apply_tiled": 0, "dense_apply_tiled": 0}
 
 
 def reset_launches() -> None:
@@ -149,6 +161,10 @@ _SIGNATURES = {
     "links_update_tiled": (_P, _P, _P, _P, _I, _D, _D, _I, _I, _I, _P),
     "dense_update_tiled": (_P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _LL,
                            _I, _D, _I, _I, _P),
+    "links_apply": (_P, _P, _P, _I, _D, _P),
+    "dense_apply": (_P, _P, _P, _I, _I, _I, _LL, _LL, _P),
+    "links_apply_tiled": (_P, _P, _P, _I, _D, _I, _I, _P),
+    "dense_apply_tiled": (_P, _P, _P, _I, _I, _I, _LL, _LL, _I, _I, _P),
 }
 
 
@@ -241,6 +257,16 @@ def smoother_mode(n: int, L: int, dtype=torch.complex64) -> str:
     (5 n^2 complex words per site), D0inv (n^2), and phi in, r and phi out
     (n each)."""
     words = 6 * n * n + 3 * n
+    return "tiled" if words * L * L * dtype.itemsize > L2_BYTES else "global"
+
+
+def apply_mode(n: int, L: int, dtype=torch.complex64,
+               links: bool = False) -> str:
+    """'global' or 'tiled' for the SpMV kernels, by the rule of
+    smoother_mode. A dense apply streams D (5 n^2 complex words per site),
+    v in and out (n each); the links apply (links=True; n is then 2) U, v
+    and out, 6 words."""
+    words = 6 if links else 5 * n * n + 2 * n
     return "tiled" if words * L * L * dtype.itemsize > L2_BYTES else "global"
 
 
@@ -347,8 +373,49 @@ def wilson_u_smooth_tiled(U, m: float, phi, r, n_sweeps: int,
                          omega, *_tile(tile, phi.shape[-1]))
 
 
+def wilson_u_apply(U, m: float, v):
+    """D_U v = (2+m) v + links-only Wilson hop (v).
+
+    Replaces tpu_multigrid/ops/pallas_stencil.py _u_apply_vmem_kernel (via
+    apply_wilson_u_pallas_vmem). Bound by bytes: U, v in and out, 6
+    complex words per site. Plain version: gauge_stencil.apply_wilson_u."""
+    if not v.is_cuda:
+        return gauge_stencil.apply_wilson_u(U, m, v)
+    _check_links(U, v, v)
+    out = torch.empty_like(v)
+    _launch("links_apply", v.dtype, v.device, U.data_ptr(), v.data_ptr(),
+            out.data_ptr(), v.shape[-1], float(m))
+    return out
+
+
+def wilson_u_apply_tiled(U, m: float, v, tile=None):
+    """D_U v on (TX, TY) tiles (default: default_tile(L)).
+
+    Replaces tpu_multigrid/ops/pallas_stencil.py _u_apply_tile_kernel (via
+    apply_wilson_u_pallas). Same bytes as wilson_u_apply, each word of v
+    read once per pass from HBM (the halo from the staged tile)."""
+    L = v.shape[-1]
+    TX, TY = _tile(tile, L)
+    if not v.is_cuda:
+        return gauge_stencil.apply_wilson_u(U, m, v)
+    _check_links(U, v, v)
+    out = torch.empty_like(v)
+    _launch("links_apply_tiled", v.dtype, v.device, U.data_ptr(),
+            v.data_ptr(), out.data_ptr(), L, float(m), TX, TY)
+    return out
+
+
+def wilson_u_apply_auto(U, m: float, v):
+    """D_U v by the global or the x-tiled links wrapper, as
+    apply_mode(links=True) says (each takes the plain version for a CPU
+    tensor)."""
+    if apply_mode(2, v.shape[-1], v.dtype, links=True) == "tiled":
+        return wilson_u_apply_tiled(U, m, v)
+    return wilson_u_apply(U, m, v)
+
+
 # --------------------------------------------------------------------------
-# dense 5-point block stencil (B3, B4; x-tiled B6)
+# dense 5-point block stencil (B3, B4; x-tiled B6; SpMV B7a, x-tiled B7b)
 # --------------------------------------------------------------------------
 
 def _batch_stride(t: torch.Tensor, unbatched_ndim: int, B: int) -> int:
@@ -412,3 +479,60 @@ def dense_smooth_tiled(D, D0inv, phi, r, n_sweeps: int, kind: str = "rbgs",
     _tiled_update_call / smooth_pallas_tiled)."""
     return _dense_smooth("dense_update_tiled", D, D0inv, phi, r, n_sweeps,
                          kind, omega, *_tile(tile, phi.shape[-1]))
+
+
+def _dense_apply(name, D, v, *tile):
+    """out = D v with an optional batch axis on D and on v (each shared by
+    the batch or batched); out is allocated here and never aliases v."""
+    if not v.is_cuda:
+        return stencil.apply_D(D, v)
+    n, L = v.shape[-3], v.shape[-1]
+    if n not in (1, 2, 4):
+        raise ValueError(f"{name} takes n in (1, 2, 4), got {n}")
+    bd = D.shape[:-5] if D.dim() == 6 else ()
+    bv = v.shape[:-3] if v.dim() == 4 else ()
+    if D.dim() not in (5, 6) or v.dim() not in (3, 4) or (
+            bd and bv and bd != bv):
+        raise ValueError(f"{name}: D {tuple(D.shape)} and v {tuple(v.shape)} "
+                         "are not [B?, 5, n, n, L, L] and [B?, n, L, L]")
+    lead = bd or bv
+    B = lead[0] if lead else 1
+    d_bs, v_bs = _batch_stride(D, 5, B), _batch_stride(v, 3, B)
+    _check("v", v, v, bv + (n, L, L))
+    _check("D", D, v, bd + (5, n, n, L, L))
+    out = torch.empty(lead + (n, L, L), dtype=v.dtype, device=v.device)
+    _launch(name, v.dtype, v.device, D.data_ptr(), v.data_ptr(),
+            out.data_ptr(), B, n, L, d_bs, v_bs, *tile)
+    return out
+
+
+def dense_apply(D, v):
+    """Dense 5-point block SpMV out = D v, (D v)(x) = sum_mu D_mu(x) v(x+mu).
+
+    Replaces tpu_multigrid/ops/pallas_stencil.py _apply_d_kernel (via
+    apply_D_pallas). D [B?, 5, n, n, L, L] and v [B?, n, L, L], each
+    shared by the batch or batched, n in {1, 2, 4}. Bound by bytes: D's
+    5 n^2 blocks, v in and out (5n^2 + 2n complex words per site).
+    Plain version: stencil.apply_D."""
+    return _dense_apply("dense_apply", D, v)
+
+
+def dense_apply_tiled(D, v, tile=None):
+    """dense_apply on (TX, TY) tiles (default: default_tile(L)), with the
+    same batch axes.
+
+    Replaces tpu_multigrid/ops/pallas_stencil.py _tiled_apply_kernel (via
+    apply_D_pallas_tiled): v's tile and its periodic halo are staged in
+    shared memory, so each word of v crosses HBM once per pass."""
+    return _dense_apply("dense_apply_tiled", D, v,
+                        *_tile(tile, v.shape[-1]))
+
+
+def apply_D(D, v):
+    """D v by dense_apply or dense_apply_tiled, as apply_mode says
+    (counterpart of pallas_stencil.apply_D_pallas_auto): the plain
+    stencil.apply_D for a CPU tensor; on a CUDA tensor the kernel runs or
+    the wrapper raises."""
+    if apply_mode(v.shape[-3], v.shape[-1], v.dtype) == "tiled":
+        return dense_apply_tiled(D, v)
+    return dense_apply(D, v)

@@ -46,6 +46,23 @@ def apply_D(D: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return _site_matvec(_direction(D, SAME), v) + apply_hop(D, v)
 
 
+def apply_D_unrolled(D: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """apply_D with the dof contractions unrolled into elementwise
+    multiply-adds over [L, L] planes (the JAX package's variant for XLA's
+    fusion; identical math). `profiling` times it as a plain row."""
+    n = v.shape[-3]
+    vs = (v, shift(v, XP), shift(v, XM), shift(v, YP), shift(v, YM))
+    rows = []
+    for i in range(n):
+        acc = None
+        for d in range(5):
+            for j in range(n):
+                t = D[..., d, i, j, :, :] * vs[d][..., j, :, :]
+                acc = t if acc is None else acc + t
+        rows.append(acc)
+    return torch.stack(rows, dim=-3)
+
+
 def residual(D: torch.Tensor, phi: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """r - D phi (reference Level::f_residue, level.h:61-77)."""
     return r - apply_D(D, phi)
@@ -65,6 +82,25 @@ def residual_norm_ratio(D, phi, r) -> torch.Tensor:
     return (num / den).to(r.real.dtype)
 
 
+def adjoint_stencil(D: torch.Tensor) -> torch.Tensor:
+    """Stencil of the adjoint: apply_D(adjoint_stencil(D), v) == D^H v.
+
+    (D^H v)(x) = sum_y D(y, x)^H v(y): the same-site block conjugate-
+    transposes in place; the +mu block of D^H at x is the -mu block stored
+    at x+mu, conjugate-transposed (and vice versa). Valid for any 5-point
+    block stencil, with an optional batch axis."""
+    def ct(M):
+        return torch.conj(M.transpose(-4, -3))
+
+    return torch.stack([
+        ct(_direction(D, SAME)),
+        ct(shift(_direction(D, XM), XP)),
+        ct(shift(_direction(D, XP), XM)),
+        ct(shift(_direction(D, YM), YP)),
+        ct(shift(_direction(D, YP), YM)),
+    ], dim=-5).resolve_conj().contiguous()
+
+
 def site_inverse(M: torch.Tensor) -> torch.Tensor:
     """Per-site inverse of the diagonal block D0: [..., n,n,L,L] -> same."""
     n = M.shape[-4]
@@ -80,3 +116,8 @@ def site_inverse(M: torch.Tensor) -> torch.Tensor:
         return inv / det[..., None, None, :, :]
     inv = torch.linalg.inv(torch.movedim(M, (-4, -3), (-2, -1)))
     return torch.movedim(inv, (-2, -1), (-4, -3)).contiguous()
+
+
+def nnz_per_site(n: int) -> int:
+    """Nonzeros of the 5-point block stencil per lattice site."""
+    return 5 * n * n

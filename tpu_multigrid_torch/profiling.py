@@ -1,0 +1,162 @@
+"""Performance observability on the card: per-kernel timing with CUDA
+events, bandwidth/roofline accounting against the card's HBM peak, and
+torch.profiler trace capture (counterpart of tpu_multigrid/profiling.py).
+
+A time from CPU tensors is a host-clock time of the plain versions and is
+reported without a roofline fraction: it says nothing of a device.
+"""
+from __future__ import annotations
+
+import contextlib
+import time
+from dataclasses import dataclass, asdict
+from pathlib import Path
+from typing import Callable, Dict, Optional
+
+import torch
+
+from .config import MGConfig
+
+# Peak HBM bandwidth (bytes/s) by card, from NVIDIA's data sheets; the
+# first entry whose every word is in torch.cuda.get_device_name() wins.
+HBM_PEAK = (
+    (("H200",), 4.8e12),
+    (("H100", "PCIe"), 2.0e12),
+    (("H100", "HBM3"), 3.35e12),
+    (("H100", "SXM"), 3.35e12),
+)
+
+
+def peak_bandwidth(device=None) -> float:
+    """HBM peak of the CUDA card `device` (default: the current one).
+    Raises for a card not in HBM_PEAK."""
+    name = torch.cuda.get_device_name(device)
+    for words, peak in HBM_PEAK:
+        if all(w in name for w in words):
+            return peak
+    raise ValueError(f"no HBM peak known for {name!r}")
+
+
+def stencil_bytes(n: int, L: int, dtype_bytes: int = 8) -> int:
+    """Minimum HBM traffic of one apply_D: read D + read v + write out."""
+    return (5 * n * n + 2 * n) * L * L * dtype_bytes
+
+
+def stencil_nnz(n: int, L: int) -> int:
+    return 5 * n * n * L * L
+
+
+def time_op(fn: Callable, *args, reps: int = 100, warmup: bool = True,
+            passes: int = 3) -> float:
+    """Best-of-passes seconds per call of fn(*args[:-1], x), chained `reps`
+    times with x = args[-1] fed forward (the JAX package's fori_loop).
+
+    CUDA arguments are timed with CUDA events around the reps; CPU ones
+    with the host clock. The values may overflow over many reps of an
+    indefinite operator; only the time is kept."""
+    *head, x0 = args
+    cuda = isinstance(x0, torch.Tensor) and x0.is_cuda
+
+    def run():
+        x = x0
+        for _ in range(reps):
+            x = fn(*head, x)
+        return x
+
+    if warmup:
+        run()
+        if cuda:
+            torch.cuda.synchronize(x0.device)
+    best = float("inf")
+    for _ in range(passes):
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run()
+            end.record()
+            end.synchronize()
+            sec = start.elapsed_time(end) / 1e3
+        else:
+            t0 = time.perf_counter()
+            run()
+            sec = time.perf_counter() - t0
+        best = min(best, sec)
+    return max(best / reps, 1e-12)
+
+
+@dataclass
+class RooflineRow:
+    name: str
+    sec: float
+    bytes: int
+    flops: int = 0
+    bw_frac: Optional[float] = None
+
+    def finish(self, peak: Optional[float]):
+        """bw_frac = achieved bytes/s over `peak` (None: not a device
+        measurement, no fraction)."""
+        if peak is not None:
+            self.bw_frac = self.bytes / self.sec / peak
+        return self
+
+
+def roofline_table(cfg: MGConfig, D, v, r=None, reps: int = 100) -> Dict:
+    """Time the hot operations of one level and set them against the HBM
+    roofline: the plain versions (rows apply_D, jacobi_sweep, rbgs_sweep)
+    and, for CUDA tensors, the kernels that apply_mode / smoother_mode
+    pick (apply_D_cuda or apply_D_cuda_tiled, jacobi_cuda or
+    jacobi_cuda_tiled)."""
+    from .ops import cuda_stencil as cs
+    from .ops.stencil import apply_D, site_inverse
+    from .ops.smoothers import jacobi_sweep, rbgs_sweep
+
+    n, L = v.shape[0], v.shape[-1]
+    dbytes = v.element_size()
+    peak = peak_bandwidth(v.device) if v.is_cuda else None
+    Dinv = site_inverse(D[0])
+    if r is None:
+        r = torch.zeros_like(v)
+    sweep_bytes = ((4 * n * n + n * n) + 3 * n) * L * L * dbytes
+    rows = [
+        RooflineRow("apply_D", time_op(apply_D, D, v, reps=reps),
+                    stencil_bytes(n, L, dbytes)),
+        RooflineRow("jacobi_sweep",
+                    time_op(lambda D, x: jacobi_sweep(D, Dinv, x, r), D, v,
+                            reps=reps), sweep_bytes),
+        RooflineRow("rbgs_sweep",
+                    time_op(lambda D, x: rbgs_sweep(D, Dinv, x, r), D, v,
+                            reps=reps), 2 * sweep_bytes),
+    ]
+    if v.is_cuda:
+        tiled = cs.apply_mode(n, L, v.dtype) == "tiled"
+        rows.append(RooflineRow(
+            "apply_D_cuda_tiled" if tiled else "apply_D_cuda",
+            time_op(cs.dense_apply_tiled if tiled else cs.dense_apply, D, v,
+                    reps=reps), stencil_bytes(n, L, dbytes)))
+        tiled = cs.smoother_mode(n, L, v.dtype) == "tiled"
+        smooth = cs.dense_smooth_tiled if tiled else cs.dense_smooth
+        rows.append(RooflineRow(
+            "jacobi_cuda_tiled" if tiled else "jacobi_cuda",
+            time_op(lambda D, x: smooth(D, Dinv, x, r, 1, "jacobi"), D, v,
+                    reps=reps), sweep_bytes))
+    return {"device": (torch.cuda.get_device_name(v.device) if v.is_cuda
+                       else "cpu"),
+            "peak_bytes_per_s": peak,
+            "rows": [asdict(row.finish(peak)) for row in rows]}
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """torch.profiler over the block (CPU and, with a card, CUDA
+    activity); writes a Chrome trace to log_dir/trace.json on exit and
+    yields the profiler (key_averages() for sums by kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    Path(log_dir).mkdir(parents=True, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(str(Path(log_dir) / "trace.json"))

@@ -1,1 +1,1 @@
-from . import cycles, driver, hierarchy  # noqa: F401
+from . import cycles, driver, eo, hierarchy, krylov  # noqa: F401

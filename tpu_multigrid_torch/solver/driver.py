@@ -5,7 +5,8 @@ divergence (> cfg.div_threshold) or a non-finite residual.
 
 `solve_ir` reaches the reference's 1e-13 from a complex64 hierarchy by
 mixed-precision iterative refinement; `solve_with_history` records the
-residual and the NTL weights of every cycle.
+residual and the NTL weights of every cycle; `mr_solve` is the
+unpreconditioned baseline.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from ..config import MGConfig
+from ..ops import cuda_stencil
 from ..ops.stencil import residual
 from .cycles import cycle, residual_norm_ratio0
 from .hierarchy import Hierarchy, cast_hierarchy, zero_fields
@@ -161,3 +163,42 @@ def solve_with_history(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
                        converged=resmag < cfg.res_threshold,
                        history=np.asarray(history),
                        ntl_weights=np.asarray(weights))
+
+
+def mr_solve(D, b, tol: float = 1e-8, max_iters: int = 100000,
+             chunk: int = 1000):
+    """Unpreconditioned minimal-residual iteration — the baseline the MG
+    solve must beat by >= 5x in cycle count (BASELINE.json north star).
+
+    x_{k+1} = x_k + alpha r_k with alpha = <D r, r> / <D r, D r>, alpha
+    and the norm in the field's dtype. `chunk` steps run between host
+    convergence checks, so the count keeps the JAX package's chunk
+    granularity. D r is cuda_stencil.apply_D: the SpMV kernel on CUDA
+    tensors, the plain version on CPU ones. Returns (x, iters, relres),
+    x a tensor on b's device.
+    """
+    return mr_iterate(lambda v: cuda_stencil.apply_D(D, v), b, b, tol,
+                      max_iters, chunk)
+
+
+def mr_iterate(op, r, b, tol: float, max_iters: int, chunk: int):
+    """Minimal-residual steps x += alpha r, r -= alpha op(r) from x = 0 and
+    residual r, alpha = <op r, r> / <op r, op r> in the field's dtype;
+    `chunk` steps between host checks of ||r|| / ||b||. Returns
+    (x, iters, rel)."""
+    bn = float(torch.sqrt(torch.sum(b.abs() ** 2)))
+    x = torch.zeros_like(r)
+    it = 0
+    rel = 1.0
+    while it < max_iters:
+        for _ in range(chunk):
+            Ar = op(r)
+            alpha = (torch.sum(torch.conj(Ar) * r)
+                     / torch.sum(torch.conj(Ar) * Ar))
+            x = x + alpha * r
+            r = r - alpha * Ar
+        it += chunk
+        rel = float(torch.sqrt(torch.sum(r.abs() ** 2))) / bn
+        if rel < tol or not math.isfinite(rel):
+            break
+    return x, it, rel

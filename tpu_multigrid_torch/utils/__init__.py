@@ -1,1 +1,1 @@
-from . import convert  # noqa: F401
+from . import convert, native  # noqa: F401
