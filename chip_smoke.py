@@ -32,6 +32,13 @@ Then the SpMV path:
   FGMRES on the flagship hierarchy to 1e-6; one profiled CGNR chunk gives
   the device's busy share and its largest device kernels.
 
+Then the entry points a user runs, in process: tpu_multigrid_torch.cli
+(the flagship's config and phases through the CLI: its cycle count, the
+self-tests, the results files, a near-null checkpoint read back, the
+complex128 solve_ir to 1e-13, the fmg / fgmres / cgnr / eo_mr solvers,
+--resume, lexicographic GS with joint-QR setup at L=32) and
+tpu_multigrid_torch.scan (a two-point laplace mass scan at L=256).
+
 It checks convergence, that each solve went through every kernel of its
 path (launch counters, set to 0 before the path and read after it), that
 the plain path on the same hierarchy takes the same number of cycles
@@ -44,7 +51,9 @@ the line before it is a JSON object with one entry per kernel. Without a
 CUDA device, or outside the repository, it fails and prints no result.
 """
 import collections
+import contextlib
 import functools
+import io
 import json
 import math
 import statistics
@@ -78,6 +87,8 @@ LARGE_KERNELS = ("links_update_tiled", "links_residual_tiled",
                  "dense_update_tiled", "dense_update")
 SPMV_KERNELS = ("dense_apply_tiled", "links_apply", "links_apply_tiled")
 KRYLOV_KERNELS = ("dense_apply",)
+CLI_KERNELS = ("links_update", "links_residual", "dense_update",
+               "dense_apply")
 L2_BYTES = 50 * 2**20
 BARS = {"complex64": 2e-5, "complex128": 1e-12}
 
@@ -611,6 +622,230 @@ def krylov_phase(torch, mgt, dev, flag_cfg, flag_hier):
     return out, launches
 
 
+class Stopwatch:
+    """Seconds and calls of one function attribute of `owner` while the
+    block runs (the card synchronized before the clock stops); the
+    attribute is restored after."""
+
+    def __init__(self, torch, owner, name):
+        self.torch, self.owner, self.name = torch, owner, name
+        self.seconds, self.calls = 0.0, 0
+
+    def __enter__(self):
+        self.orig = orig = getattr(self.owner, self.name)
+
+        @functools.wraps(orig)
+        def wrapped(*a, **k):
+            t0 = time.perf_counter()
+            out = orig(*a, **k)
+            if self.torch.cuda.is_initialized():
+                self.torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            return out
+
+        setattr(self.owner, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.orig)
+
+
+def run_cli(torch, mgt, argv, out_dir):
+    """tpu_multigrid_torch.cli.main(argv + --out-dir) in this process.
+    Returns (exit code, what it printed, solve_summary.json, setup
+    seconds, ResultsWriter.record seconds and calls)."""
+    buf = io.StringIO()
+    with Stopwatch(torch, mgt, "build_hierarchy") as setup, \
+            Stopwatch(torch, mgt.utils.io.ResultsWriter, "record") as rec, \
+            contextlib.redirect_stdout(buf):
+        rc = mgt.cli.main(argv + ["--out-dir", str(out_dir)])
+    summary = json.loads((out_dir / "solve_summary.json").read_text())
+    return rc, buf.getvalue(), summary, setup.seconds, rec.seconds, rec.calls
+
+
+def self_test_line(printed, bar, tag):
+    """The CLI's 'self-tests: N checks, worst X' line, held to `bar`."""
+    line = next(x for x in printed.splitlines() if x.startswith("self-tests:"))
+    worst = float(line.split("worst ")[1].split()[0])
+    check("(all pass)" in line and worst < bar, f"cli {tag}: {line}")
+    return int(line.split()[1]), worst
+
+
+def check_results_files(out_dir, cfg_L, nlevels, cycles, tag):
+    """One line per cycle in every results file, 'it,' first; L^2 * 2
+    values on each line of results_phi.txt, all finite."""
+    names = (["results_phi.txt", "results_NTL_weights.txt"]
+             + [f"results_res_lvl-{l}.txt" for l in range(nlevels + 1)])
+    for name in names:
+        n = 0
+        with open(out_dir / name) as f:
+            for n, line in enumerate(f, 1):
+                check(line.startswith(f"{n},"), f"cli {tag}: {name} line {n}")
+                check("nan" not in line and "inf" not in line,
+                      f"cli {tag}: {name} line {n} not finite")
+                if name == "results_phi.txt":
+                    check(line.count(",") - 1 == 2 * cfg_L * cfg_L,
+                          f"cli {tag}: results_phi.txt line {n} holds "
+                          f"{line.count(',') - 1} values")
+        check(n == cycles, f"cli {tag}: {name} has {n} lines for {cycles} "
+              "cycles")
+
+
+def cli_phase(torch, mgt, dev, card, flag, phases):
+    """The entry points: tpu_multigrid_torch.cli.main and scan.main in
+    process on the card, at the flagship's width, on the flagship's phases
+    written to a heat-bath-format phase file. Runs A (stationary, the
+    flagship's config: its cycle count and residual; self-tests; results
+    files; near-null checkpoint), B (--gen-null 0 from that checkpoint),
+    C (complex128, --solver ir to 1e-13), D (--solver fmg, fgmres with
+    --roofline, cgnr, eo_mr), E (--resume, twice), F (L=32 gs_lex with
+    joint-QR setup: no dense-smoother launch) and G (a two-point mass scan).
+    Every output directory lives in a temporary directory, deleted after
+    its checks. Returns (summary, launches over the phase)."""
+    import shutil
+    cs = mgt.ops.cuda_stencil
+    L = phases.shape[-1]
+    out = {}
+
+    def flags(**over):
+        f = {"L": L, "stencil": "wilson", "m": -0.005, "nlevels": 3,
+             "num-iters": 4, "null-iters": 100, "dtype": "complex64",
+             "res-threshold": 1e-6, "gauge": "file", "gauge-file": phase_file,
+             "checkpoint": nn, "platform": str(dev)}
+        f.update(over)
+        argv = ["--ntl"]
+        for k, v in f.items():
+            argv += [] if v is None else [f"--{k}", str(v)]
+        return argv
+
+    def run(tag, argv, files=False, converges=True):
+        d = tmp / tag
+        rc, printed, s, t_setup, t_rec, n_rec = run_cli(torch, mgt, argv, d)
+        row = {"rc": rc, "cycles": s["iters"], "res": s["resmag"],
+               "converged": s["converged"], "setup_s": t_setup,
+               "solve_s": s["seconds"]}
+        if n_rec:
+            row.update(record_s=t_rec, record_calls=n_rec,
+                       record_share=t_rec / s["seconds"])
+        print(f"cli {tag}: exit {rc}, {s['iters']} cycles to "
+              f"{s['resmag']:.3e}, setup {t_setup:.3f} s, solve "
+              f"{s['seconds']:.3f} s"
+              + (f" (ResultsWriter.record {t_rec:.3f} s in {n_rec} calls, "
+                 f"{row['record_share']:.3f} of the solve)" if n_rec else ""))
+        check(rc == (0 if converges else 1) and s["converged"] == converges,
+              f"cli {tag}: exit {rc}, {s}")
+        if files:
+            check_results_files(d, L, 3, s["iters"], tag)
+        return row, printed, d
+
+    cs.reset_launches()
+    with tempfile.TemporaryDirectory(dir=HERE) as tmpname:
+        tmp = Path(tmpname)
+        phase_file = tmp / f"phase_{L}.dat"
+        nn = tmp / "nn.npz"
+        mgt.models.gauge.write_heatbath_file(str(phase_file), phases)
+
+        # A: the flagship through the CLI
+        a, printed, d = run("A", flags(), files=True)
+        a["self_tests"], a["self_test_worst"] = self_test_line(
+            printed, 1e-4, "A")
+        check(nn.exists(), "cli A wrote no near-null checkpoint")
+        check(a["cycles"] == flag["cycles"]
+              and abs(a["res"] / flag["res"] - 1) < 1e-4,
+              f"cli A: {a['cycles']} cycles to {a['res']:.6e}; the flagship "
+              f"phase took {flag['cycles']} to {flag['res']:.6e}")
+        shutil.rmtree(d)
+        out["A"] = a
+
+        # B: the near-null vectors from A's checkpoint
+        b, _, d = run("B", flags(**{"gen-null": 0}), files=True)
+        check(abs(b["cycles"] - a["cycles"]) <= 1,
+              f"cli B: {b['cycles']} cycles from the checkpoint, A "
+              f"{a['cycles']}")
+        print(f"  setup {b['setup_s']:.3f} s from the checkpoint, "
+              f"{a['setup_s']:.3f} s generated (A)")
+        shutil.rmtree(d)
+        out["B"] = b
+
+        # C: the reference's own bar, complex128 to 1e-13
+        c, printed, d = run("C", flags(dtype="complex128", solver="ir",
+                                       checkpoint=None,
+                                       **{"res-threshold": 1e-13}))
+        c["self_tests"], c["self_test_worst"] = self_test_line(
+            printed, 1e-12, "C")
+        check(c["cycles"] <= 40, f"cli C: {c['cycles']} cycles > 40")
+        out["C"] = c
+
+        # D: the other solvers. CGNR and EO-MR (no hierarchy) run in
+        # complex128: in complex64 their true residual stalls near 1e-6
+        for solver in ("fmg", "fgmres", "cgnr", "eo_mr"):
+            extra = ["--roofline"] if solver == "fgmres" else []
+            dtype = "complex128" if solver in ("cgnr", "eo_mr") else "complex64"
+            row, printed, d = run(f"D_{solver}", flags(
+                solver=solver, checkpoint=None, dtype=dtype)
+                + ["--skip-tests"] + extra)
+            if extra:
+                row["roofline"] = [x.strip() for x in printed.splitlines()
+                                   if x.startswith("  ")]
+            out[f"D_{solver}"] = row
+        check(out["D_fmg"]["cycles"] <= a["cycles"] + 1,
+              f"cli D: fmg took {out['D_fmg']['cycles']} cycles, A "
+              f"{a['cycles']}")
+
+        # E: --resume, run twice: the first is cut after 5 cycles, the
+        # second starts from its saved state and ends where A ended
+        state = tmp / "state.npz"
+        e = [run(f"E{i}", flags(checkpoint=None, resume=state,
+                                **{"checkpoint-every": 5, "max-iters": mx})
+                 + ["--skip-tests"], converges=mx is None)[0]
+             for i, mx in ((1, 5), (2, None))]
+        check(e[0]["cycles"] == 5 and e[1]["res"] <= e[0]["res"]
+              and e[1]["cycles"] == 5 * math.ceil(a["cycles"] / 5),
+              f"cli E: resumed run {e[1]} after {e[0]}")
+        out["E"] = e
+
+        # F: lexicographic GS (no kernel) with joint-QR setup, complex128
+        n0 = dict(cs.launches)
+        f, _, d = run("F", ["--L", "32", "--stencil", "wilson", "--m", "0.05",
+                            "--nlevels", "2", "--ntl", "--num-iters", "4",
+                            "--null-iters", "40", "--dtype", "complex128",
+                            "--res-threshold", "1e-10", "--gauge", "random",
+                            "--smoother", "gs_lex", "--null-joint-qr",
+                            "--platform", str(dev)], files=False)
+        f["launches"] = {k: v - n0[k] for k, v in cs.launches.items()
+                         if v != n0[k]}
+        for k in ("dense_update", "dense_update_tiled", "links_update",
+                  "links_update_tiled"):
+            check(cs.launches[k] == n0[k], f"cli F: gs_lex launched {k}")
+        out["F"] = f
+
+        # G: a two-point mass scan
+        t0 = time.perf_counter()
+        rc = mgt.scan.main(["--L", str(L), "--stencil", "laplace",
+                            "--m", "0.01,0.04", "--nlevels", "3",
+                            "--dtype", "complex64", "--res-threshold", "1e-6",
+                            "--platform", str(dev),
+                            "--out-dir", str(tmp / "G")])
+        rows = [json.loads(x) for x in
+                (tmp / "G" / "scan_summary.jsonl").read_text().splitlines()]
+        print(f"cli G (scan): exit {rc}, "
+              + "; ".join(f"m={r['m']}: {r['iters']} cycles to "
+                          f"{r['resmag']:.3e}, setup {r['setup_seconds']:.3f}"
+                          f" s, solve {r['solve_seconds']:.3f} s"
+                          for r in rows)
+              + f"; {time.perf_counter() - t0:.3f} s")
+        check(rc == 0 and len(rows) == 2 and all(r["converged"] for r in rows)
+              and rows[1]["iters"] <= rows[0]["iters"],
+              f"cli G: scan exit {rc}, {rows}")
+        out["G"] = rows
+    launches = dict(cs.launches)
+    print(f"  cli launches {launches}")
+    for k in CLI_KERNELS:
+        check(launches[k] > 0, f"cli phase never launched {k}")
+    return out, launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -642,7 +877,7 @@ def main():
         torch, mgt, dev, cfg, gauges, FLAGSHIP_KERNELS, max_cycles=30,
         n_cyc=10, reps=5, warm_check=True)
     flag["solve_ir"] = ir_phase(torch, mgt, dev, cfg, gauges[0][0], hier)
-    flag_cfg, flag_hier = cfg, hier
+    flag_cfg, flag_hier, flag_phases = cfg, hier, gauges[0][0]
     del gauges, hier
     print(f"flagship done at {time.perf_counter() - t_start:.1f} s")
 
@@ -669,6 +904,13 @@ def main():
                                            flag_hier)
     del flag_hier
     print(f"krylov done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- the entry points: the CLI and the scan ----
+    t_cli = time.perf_counter()
+    cli, cli_launches = cli_phase(torch, mgt, dev, card, flag, flag_phases)
+    cli["seconds"] = time.perf_counter() - t_cli
+    print(f"cli done at {time.perf_counter() - t_start:.1f} s "
+          f"({cli['seconds']:.1f} s)")
     phase_launches = {k: spmv_launches for k in SPMV_KERNELS}
     phase_launches.update({k: krylov_launches for k in KRYLOV_KERNELS})
     phase_launches.update({k: large_launches for k in LARGE_KERNELS
@@ -678,6 +920,7 @@ def main():
     kernels = [{"name": k, "route": "cuda", "source": SOURCES[k],
                 "replaces": REPLACES[k],
                 "launches": phase_launches[k][k],
+                "cli_launches": cli_launches[k],
                 "max_abs_err": per_kernel[k]["max_abs_err"],
                 "ms": per_kernel[k]["ms"], "plain_ms": per_kernel[k]["plain_ms"]}
                for k in REPLACES]
@@ -685,6 +928,7 @@ def main():
     print(json.dumps({"large_flagship": large, "card": card}))
     print(json.dumps({"tiled_vs_global": vs_global, "card": card}))
     print(json.dumps({"krylov": krylov, "card": card}))
+    print(json.dumps({"cli": cli, "card": card}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

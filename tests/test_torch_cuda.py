@@ -375,3 +375,100 @@ def test_apply_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         cs.dense_apply_tiled(D, v, tile=(17, 32))
     assert cs.launches == n0
+
+
+# ---- the CLI path on the card: gs_lex, self-tests, the CLI, the writer ----
+
+
+def test_gs_lex_runs_the_plain_sweeps_on_cuda(dev):
+    """gs_lex has no kernel (the JAX package runs it on plain XLA): on CUDA
+    tensors `smooth` runs the plain wavefront, launches nothing, and
+    matches the CPU run."""
+    rng = np.random.default_rng(20)
+    for B in (None, 3):
+        D, Dinv = _dense(rng, 1, 4, 16, torch.complex128, dev)
+        lead = (B,) if B else ()
+        phi = _c(rng, lead + (4, 16, 16), torch.complex128, dev)
+        r = _c(rng, lead + (4, 16, 16), torch.complex128, dev)
+        n0 = dict(cs.launches)
+        got = sm.smooth(D[0], Dinv[0], phi, r, 2, "gs_lex", 0.9)
+        assert cs.launches == n0 and got.device == phi.device
+        want = sm.smooth(D[0].cpu(), Dinv[0].cpu(), phi.cpu(), r.cpu(), 2,
+                         "gs_lex", 0.9)
+        assert _rel(got.cpu(), want) < BARS[torch.complex128]
+
+
+def _wilson_setup(L, dtype, dev, **kw):
+    from tpu_multigrid_torch import MGConfig
+    from tpu_multigrid_torch.models import gauge, operators
+    cfg = MGConfig(L=L, stencil="wilson", m=0.05, nlevels=2, ntl=True,
+                   num_iters=4, null_iters=40, dtype=dtype, **kw)
+    U = gauge.gauge_from_phases(
+        0.3 * np.random.default_rng(21).normal(size=(2, L, L)), cfg.cdtype,
+        dev)
+    return cfg, U, operators.assemble("wilson", U, cfg.m)
+
+
+def test_run_mg_tests_on_a_c64_cuda_hierarchy(dev):
+    from tpu_multigrid_torch import build_hierarchy, testing
+    cfg, U, D = _wilson_setup(64, "complex64", dev)
+    hier = build_hierarchy(D, cfg, U=U)
+    checks = testing.run_mg_tests(hier, cfg)
+    assert len(checks) == 2 + 4 + 4 * cfg.n_copies
+    assert max(checks.values()) < testing.epsilon_for(cfg) == 1e-4, checks
+
+
+def test_cli_on_cuda(tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tpu_multigrid_torch import cli
+    rc = cli.main(["--L", "32", "--stencil", "wilson", "--m", "0.05",
+                   "--nlevels", "2", "--ntl", "--num-iters", "4",
+                   "--null-iters", "40", "--dtype", "complex64",
+                   "--res-threshold", "1e-6", "--gauge", "random",
+                   "--platform", "cuda", "--out-dir", str(tmp_path)])
+    assert rc == 0
+    assert (tmp_path / "results_phi.txt").exists()
+
+
+def test_results_writer_cuda_matches_cpu(dev, tmp_path):
+    """Two cycles of solve_with_history(writer=...) on one complex64
+    hierarchy, on the card (kernels) and on the CPU (plain versions): every
+    line of every results file agrees to 1e-5 relative: of the line's
+    largest value for phi, of |b| for the residual fields (r = b - D phi
+    carries rounding of ~eps |b| at the sites where it nearly cancels)."""
+    from tpu_multigrid_torch import build_hierarchy, point_source
+    from tpu_multigrid_torch import solve_with_history
+    from tpu_multigrid_torch.solver.hierarchy import (Hierarchy, LevelOps,
+                                                      NTLOps)
+    from tpu_multigrid_torch.utils.io import ResultsWriter
+    from torch_port_helpers import read_results
+    cfg, U, D = _wilson_setup(32, "complex64", torch.device("cpu"))
+    hcpu = build_hierarchy(D, cfg, U=U)
+
+    def on(t):
+        return None if t is None else t.to(dev)
+
+    hgpu = Hierarchy(levels=tuple(LevelOps(D=on(l.D), D0inv=on(l.D0inv),
+                                           phi_null=on(l.phi_null))
+                                  for l in hcpu.levels),
+                     ntl=NTLOps(phi_null=on(hcpu.ntl.phi_null),
+                                D=on(hcpu.ntl.D), D0inv=on(hcpu.ntl.D0inv)),
+                     gauge=on(hcpu.gauge))
+    for name, hier, d in (("cpu", hcpu, torch.device("cpu")),
+                          ("cuda", hgpu, dev)):
+        w = ResultsWriter(cfg, str(tmp_path / name))
+        n0 = dict(cs.launches)
+        solve_with_history(hier, point_source(cfg, device=d), cfg,
+                           max_iters=2, writer=w)
+        w.close()
+        assert (cs.launches != n0) == (name == "cuda")
+    bmax = float(point_source(cfg).abs().max())
+    for f in ("results_phi.txt", "results_res_lvl-0.txt",
+              "results_res_lvl-1.txt", "results_res_lvl-2.txt"):
+        _, got = read_results(tmp_path / "cuda" / f)
+        _, want = read_results(tmp_path / "cpu" / f)
+        assert len(got) == len(want) == 2
+        for g, w in zip(got, want):
+            scale = max(np.max(np.abs(w)), 0.0 if "phi" in f else bmax)
+            assert np.max(np.abs(g - w)) <= 1e-5 * scale, f

@@ -102,6 +102,28 @@ def test_cgnr_ir_matches_jax():
     assert abs(float(true) - got["rel"]) < 1e-3 * got["rel"]
 
 
+def test_cgnr_ir_complex64_past_underflow():
+    """Wilson m=-0.07 on a beta=32 native heat-bath ensemble at L=8 with
+    the default chunk of 500: the inner complex64 CGNR runs far past
+    float32 underflow. JAX (XLA flushes denormals) stalls at |r|^2 = 0;
+    the port must stall too, not give 0/0 = NaN: finite numbers, JAX's
+    outer steps and inner iterations, a true complex128 residual < 1e-8."""
+    th = tgauge.heatbath_ensemble(8, 32.0, 100, 4302529)
+    D128 = np.asarray(jops.assemble("wilson", jgauge.gauge_from_phases(th),
+                                    -0.07))
+    D64 = D128.astype(np.complex64)
+    b = np.zeros((2, 8, 8), np.complex128)
+    b[0, 2, 2] = 5.0
+    want = jkr.cgnr_solve_ir(jnp.asarray(D64), D128, b, tol=1e-8)
+    got = mgt.cgnr_solve_ir(t_of(D64), D128, b, tol=1e-8)
+    x = torch.complex(*got["phi_planes"])
+    assert np.isfinite(got["rel"]) and bool(torch.isfinite(x).all())
+    assert (got["outer"], got["inner_iters"]) == (want["outer"],
+                                                  want["inner_iters"])
+    true = tst.residual(t_of(D128), x, t_of(b)).norm() / t_of(b).norm()
+    assert float(true) < 1e-8
+
+
 def _fgmres_case(stencil, L, m, theta, **cfg_kw):
     cfg = mg.MGConfig(L=L, stencil=stencil, m=m, nlevels=2, **cfg_kw)
     U = jgauge.gauge_from_phases(theta, cfg.cdtype)

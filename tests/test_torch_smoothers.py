@@ -91,11 +91,50 @@ def test_cpu_tensors_take_the_plain_versions():
                        tgs.residual_u("wilson", U, m, phi, r))
     assert torch.equal(tsm.smooth(D, Dinv, phi, r, 2, "jacobi"),
                        tsm.smooth(D, Dinv, phi, r, 2, "jacobi", pallas="off"))
+    # gs_lex has no kernel (the JAX package runs it on plain XLA): its
+    # plain sweeps on any device
+    assert torch.equal(tsm.smooth(D, Dinv, phi, r, 2, "gs_lex"),
+                       tsm.smooth_plain(D, Dinv, phi, r, 2, "gs_lex"))
     assert cs.launches == before
     with pytest.raises(NotImplementedError):
-        tsm.smooth(D, Dinv, phi, r, 2, "gs_lex")
-    with pytest.raises(NotImplementedError):
         tsm.smooth(D, Dinv, phi, r, 2, "chebyshev")
+    with pytest.raises(NotImplementedError):     # no kernel takes gs_lex
+        cs._check_lattice(8, "gs_lex")
+
+
+@pytest.mark.parametrize("omega", [1.0, 0.8])
+@pytest.mark.parametrize("n,B,shared", [(1, None, True), (2, None, True),
+                                        (4, 3, False), (2, 3, True)])
+def test_gs_lex_matches_jax(n, B, shared, omega):
+    """gs_lex_sweep (2L-1 anti-diagonal steps) == JAX's wavefront, in
+    c128 at 1e-12: unbatched, and with a batch axis (per-copy stencils as
+    the NTL copies, or one shared stencil as the setup candidates)."""
+    rng = np.random.default_rng(30 + n)
+    L = 6
+    D = _dense(rng, 1 if shared else B, n, L)
+    Dinv = np.stack([np.asarray(jst.site_inverse(jnp.asarray(d[0])))
+                     for d in D])
+    lead = (B,) if B else ()
+    phi, r = crandn(rng, lead + (n, L, L)), crandn(rng, lead + (n, L, L))
+    tD, tDinv = t_of(D), t_of(Dinv)
+    if shared:
+        tD, tDinv = tD[0], tDinv[0]
+    got = tsm.smooth(tD, tDinv, t_of(phi), t_of(r), 2, "gs_lex", omega)
+    for b in range(B or 1):
+        i = 0 if shared else b
+        want = jsm.smooth(D[i], Dinv[i], phi[b] if B else phi,
+                          r[b] if B else r, 2, "gs_lex", omega)
+        assert rel_err(got[b] if B else got, want) < C128_BAR
+    # one sweep == the lexicographic site loop, done by hand
+    ref = t_of(phi[0] if B else phi).clone()
+    rr = t_of(r[0] if B else r)
+    Dq, Dq0 = t_of(D[0]), t_of(Dinv[0])
+    for x in range(L):
+        for y in range(L):
+            upd = tsm._local_solve(Dq0, tst.apply_hop(Dq, ref), rr)
+            ref[:, x, y] = ref[:, x, y] + omega * (upd[:, x, y] - ref[:, x, y])
+    one = tsm.gs_lex_sweep(Dq, Dq0, t_of(phi[0] if B else phi), rr, omega)
+    assert rel_err(one, ref) < C128_BAR
 
 
 # ---- the Pallas TPU kernels (interpret mode) vs the port's plain versions

@@ -149,3 +149,107 @@ def test_cycle_on_jax_hierarchy(c128_pair, ntl):
     for tp, jp in zip(tphis, jphis):
         if np.any(np.asarray(jp)):
             assert rel_err(tp, jp) < C128_BAR
+
+
+# ---- W-cycle, FMG, joint-QR setup, the writer (the CLI's algorithms) ----
+
+
+def test_gamma_cycle_and_fmg_init_match_jax(c128_pair):
+    """cycle() with cycle_gamma=2 (the W-cycle) and fmg_init on the
+    JAX-built hierarchy carried over == JAX's, complex128 at 1e-12."""
+    jcfg, tcfg, (jhier, _) = c128_pair
+    jcfg = jcfg.replace(ntl=False, cycle_gamma=2)
+    tcfg = tcfg.replace(ntl=False, cycle_gamma=2)
+    thier = hierarchy_from_numpy(*jax_hierarchy_leaves(jhier),
+                                 dtype=torch.complex128)
+    b = mg.point_source(jcfg)
+    jphis, _ = mg.cycle(jhier, mg.zero_fields(jcfg), b, jcfg)
+    tphis, _ = mgt.cycle(thier, mgt.zero_fields(tcfg), t_of(b), tcfg)
+    assert rel_err(tphis[0], jphis[0]) < C128_BAR
+    v_phis, _ = mgt.cycle(thier, mgt.zero_fields(tcfg), t_of(b),
+                          tcfg.replace(cycle_gamma=1))
+    assert rel_err(v_phis[0], tphis[0]) > 1e-6      # the W-cycle differs
+    from tpu_multigrid.solver.cycles import fmg_init as jfmg
+    for n_v in (1, 2):
+        want = jfmg(jhier, b, jcfg, n_v)
+        got = mgt.fmg_init(thier, t_of(b), tcfg, n_v)
+        assert len(got) == len(want)
+        assert rel_err(got[0], want[0]) < C128_BAR
+        assert not any(bool(p.abs().max()) for p in got[1:])
+
+
+def test_solve_fmg_matches_jax_count(c128_pair):
+    jcfg, tcfg, (jhier, _) = c128_pair
+    thier = hierarchy_from_numpy(*jax_hierarchy_leaves(jhier),
+                                 dtype=torch.complex128)
+    want = mg.solve_fmg(jhier, mg.point_source(jcfg), jcfg, max_iters=40,
+                        chunk=1)
+    got = mgt.solve_fmg(thier, mgt.point_source(tcfg), tcfg, max_iters=40,
+                        chunk=1)
+    assert want.converged and got.converged
+    assert got.iters == want.iters
+    assert rel_err(got.phi, want.phi) < SLICE_BAR
+    plain = mgt.solve_chunked(thier, mgt.point_source(tcfg), tcfg,
+                              max_iters=40, chunk=1)
+    assert got.iters <= plain.iters + 1
+
+
+def test_joint_qr_relaxation_matches_jax():
+    """relax_null_vectors(joint_qr=True) from injected starts == JAX's:
+    global modified Gram-Schmidt over the candidates at every
+    renormalization, c128 at 1e-12; the candidates come out orthonormal."""
+    from tpu_multigrid.ops import nearnull as jnn
+    from tpu_multigrid_torch.ops import nearnull as tnn
+    rng = np.random.default_rng(40)
+    L = 8
+    D = np.asarray(mg.models.operators.assemble(
+        "wilson", mg.models.gauge.gauge_from_phases(
+            0.3 * rng.normal(size=(2, L, L))), 0.05))
+    Dinv = np.asarray(mg.ops.stencil.site_inverse(D[0]))
+    starts = rng.uniform(-np.pi, np.pi, (3, 2, L, L)).astype(complex)
+    for kind in ("rbgs", "gs_lex"):
+        want = jnn.relax_null_vectors(D, Dinv, starts, 8, 4, kind,
+                                      joint_qr=True)
+        got = tnn.relax_null_vectors(t_of(D), t_of(Dinv), t_of(starts), 8, 4,
+                                     kind, joint_qr=True)
+        assert rel_err(got, want) < C128_BAR
+        G = torch.einsum("ainm,binm->ab", torch.conj(got), got)
+        assert float((G - torch.eye(3, dtype=G.dtype)).abs().max()) < 1e-12
+    indep = tnn.relax_null_vectors(t_of(D), t_of(Dinv), t_of(starts), 8, 4,
+                                   "rbgs")
+    assert rel_err(indep, jnn.relax_null_vectors(D, Dinv, starts, 8, 4,
+                                                 "rbgs")) < C128_BAR
+
+
+def test_solve_with_history_writer_matches_jax(c128_pair, tmp_path):
+    """solve_with_history(writer=ResultsWriter) on the carried hierarchy:
+    JAX's cycles, one line per cycle in every results file, values within
+    1e-9 of JAX's files (of each line's largest value, or of 1e-4)."""
+    from tpu_multigrid.utils import io as jio
+    from tpu_multigrid_torch.utils import io as tio
+    from torch_port_helpers import read_results
+    jcfg, tcfg, (jhier, _) = c128_pair
+    thier = hierarchy_from_numpy(*jax_hierarchy_leaves(jhier),
+                                 dtype=torch.complex128)
+    outs = {}
+    for name, pkg, io, cfg, hier in (("jax", mg, jio, jcfg, jhier),
+                                     ("port", mgt, tio, tcfg, thier)):
+        w = io.ResultsWriter(cfg, str(tmp_path / name))
+        outs[name] = pkg.solve_with_history(hier, pkg.point_source(cfg), cfg,
+                                            max_iters=40, writer=w)
+        w.close()
+    assert outs["port"].iters == outs["jax"].iters
+    for f in ("results_phi.txt", "results_res_lvl-0.txt",
+              "results_res_lvl-2.txt", "results_NTL_weights.txt"):
+        jits, jrows = read_results(tmp_path / "jax" / f)
+        tits, trows = read_results(tmp_path / "port" / f)
+        assert tits == jits == list(range(1, outs["jax"].iters + 1))
+        if f == "results_NTL_weights.txt":
+            continue            # printed to 4 digits
+        for t, j in zip(trows, jrows):
+            assert t.shape == j.shape == ((2 if "phi" in f or "-0" in f
+                                           else 4) * (32 if "-0" in f or
+                                                      "phi" in f else 8) ** 2,)
+            # late residual fields carry rounding of ~eps |b| (|b| = 5)
+            assert (np.max(np.abs(t - j))
+                    <= SLICE_BAR * max(np.max(np.abs(j)), 1e-4))

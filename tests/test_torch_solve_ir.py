@@ -122,6 +122,19 @@ def test_solve_with_history_matches_jax(problem):
         assert (rel_err(out.ntl_weights[k], ref.ntl_weights[k])
                 < weights_bar(res_in[k]))
     assert rel_err(out.phi, ref.phi) < 1e-9
-    with pytest.raises(NotImplementedError):
-        mgt.solve_with_history(thier, t_of(b), tcfg, max_iters=1,
-                               writer=object())
+    # the writer records cycles 1, 1 + write_interval, ..., as JAX's
+    calls = {}
+
+    class Recorder:
+        def __init__(self, name):
+            self.name = name
+
+        def record(self, it, hier, phis, b, weights):
+            calls.setdefault(self.name, []).append((it, np.shape(weights)))
+
+    for pkg, cfg, hier, rhs in ((mg, jcfg, jhier, jnp.asarray(b)),
+                                (mgt, tcfg, thier, t_of(b))):
+        pkg.solve_with_history(hier, rhs, cfg.replace(write_interval=2),
+                               max_iters=5, writer=Recorder(pkg.__name__))
+    assert calls["tpu_multigrid_torch"] == calls["tpu_multigrid"] == [
+        (1, (tcfg.n_copies,)), (3, (tcfg.n_copies,)), (5, (tcfg.n_copies,))]

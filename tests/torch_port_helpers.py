@@ -67,3 +67,17 @@ def jax_hierarchy_leaves(hier):
                np.asarray(hier.ntl.D0inv))
     gauge = None if hier.gauge is None else np.asarray(hier.gauge)
     return levels, ntl, gauge
+
+
+def read_results(path):
+    """A results_*.txt file of the reference format ("it," then
+    "re+i im," per value) as (iterations, [values per line])."""
+    its, rows = [], []
+    with open(path) as f:
+        for line in f:
+            head, *vals = line.rstrip(",\n").split(",")
+            its.append(int(head))
+            rows.append(np.array([complex(float(v.partition("+i")[0]),
+                                          float(v.partition("+i")[2]))
+                                  for v in vals]))
+    return its, rows

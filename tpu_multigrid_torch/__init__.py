@@ -4,8 +4,10 @@ Wilson-Dirac). The JAX package is the reference; this package mirrors its
 module layout, function names and tensor layouts, and runs the smoother
 path and the SpMV path (the operator application inside `mr_solve`,
 `eo_mr_solve`, `cgnr_solve`, `cgnr_solve_ir` and `fgmres_solve`) through
-hand-written CUDA kernels (ops/cuda_stencil.py) on CUDA tensors. It never
-imports jax.
+hand-written CUDA kernels (ops/cuda_stencil.py) on CUDA tensors. Its
+entry points are the JAX package's: `python -m tpu_multigrid_torch.cli`
+(the reference program's phases, self-tests and results files) and
+`python -m tpu_multigrid_torch.scan`. It never imports jax.
 
 Quick start::
 
@@ -33,15 +35,26 @@ complex128 defect correction::
     out = mgt.cgnr_solve_ir(D128.to(torch.complex64), D128, b, tol=1e-8)
 """
 from . import config, models, ops, profiling, solver, utils  # noqa: F401
-from .config import MGConfig
+from . import testing  # noqa: F401
+from .config import MGConfig, from_reference_argv
 from .ops import cuda_stencil  # noqa: F401
 from .solver.hierarchy import (Hierarchy, LevelOps, NTLOps, build_hierarchy,
                                build_ntl, zero_fields, point_source,
                                cast_hierarchy)
-from .solver.cycles import v_cycle, ntl_cycle, cycle, min_res_weights
-from .solver.driver import (solve, solve_chunked, solve_ir,
+from .solver.cycles import (v_cycle, ntl_cycle, gamma_cycle, cycle,
+                            fmg_init, min_res_weights)
+from .solver.driver import (solve, solve_chunked, solve_ir, solve_fmg,
                             solve_with_history, mr_solve, SolveResult)
 from .solver.eo import eo_mr_solve
 from .solver.krylov import fgmres_solve, cgnr_solve, cgnr_solve_ir
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # the entry-point modules load on first access, so that
+    # `python -m tpu_multigrid_torch.cli` does not find itself imported
+    if name in ("cli", "scan"):
+        import importlib
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

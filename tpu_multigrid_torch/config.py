@@ -159,3 +159,17 @@ class MGConfig:
 
     def replace(self, **kw) -> "MGConfig":
         return dataclasses.replace(self, **kw)
+
+
+def from_reference_argv(argv) -> MGConfig:
+    """A config from the reference's 8 positional CLI arguments,
+    ``L num_iters block gen_null m nlevels t_flag n_copies`` (reference
+    params.h:42-50; the stencil is the reference's compiled-in wilson,
+    params.h:69)."""
+    L, num_iters, block, gen_null, m, nlevels, t_flag, n_copies = argv[:8]
+    return MGConfig(
+        L=int(L), num_iters=int(num_iters), block_x=int(block),
+        block_y=int(block), gen_null=bool(int(gen_null)), m=float(m),
+        nlevels=int(nlevels), ntl=bool(int(t_flag)), n_copies=int(n_copies),
+        stencil="wilson",
+    )

@@ -20,9 +20,20 @@ def identity_gauge(L: int, dtype=torch.complex128, device=None) -> torch.Tensor:
 
 def gauge_from_phases(phases: np.ndarray, dtype=torch.complex128,
                       device=None) -> torch.Tensor:
-    """U = exp(i * phase), phases a numpy array shaped [2, L, L]."""
-    u = np.exp(1j * np.asarray(phases, dtype=np.float64))
+    """U = exp(i * phase), phases a numpy array shaped [2, L, L] in any
+    memory layout; U is contiguous, as the kernels take it."""
+    u = np.exp(1j * np.ascontiguousarray(phases, dtype=np.float64))
     return torch.from_numpy(u).to(device=device, dtype=dtype)
+
+
+def random_gauge(L: int, generator: torch.Generator, width: float = 0.2,
+                 dtype=torch.complex128, device=None) -> torch.Tensor:
+    """Gaussian-phase links about the identity (reference gauge.h:25-36's
+    commented-out 'Gaussian local phase' option), phases width * N(0, 1)
+    drawn from `generator` on its device, then moved to `device`."""
+    ph = width * torch.randn((2, L, L), generator=generator,
+                             dtype=torch.float64, device=generator.device)
+    return torch.polar(torch.ones_like(ph), ph).to(device=device, dtype=dtype)
 
 
 def plaquette(U: torch.Tensor) -> torch.Tensor:
@@ -119,3 +130,47 @@ def wilson_action_density(theta: np.ndarray, beta: float) -> float:
     p = (u[0] * np.roll(u[1], -1, axis=-2)
          * np.conj(np.roll(u[0], -1, axis=-1)) * np.conj(u[1]))
     return float(-beta * np.mean(np.real(p)))
+
+
+# ---------------------------------------------------------------------------
+# Reference file formats (the JAX package's models/gauge.py; SURVEY.md
+# Appendix B).
+# ---------------------------------------------------------------------------
+
+def read_heatbath_file(path: str, L: int, dtype=torch.complex128,
+                       device=None) -> torch.Tensor:
+    """Read `phase_{L}_b{beta}.dat`: one phase per line, order x->y->mu
+    (reference gauge.h:103-107: outer x, then y, then mu)."""
+    ph = np.loadtxt(path).reshape(L, L, 2)          # [x, y, mu]
+    return gauge_from_phases(np.transpose(ph, (2, 0, 1)), dtype, device)
+
+
+def write_heatbath_file(path: str, theta: np.ndarray):
+    """Write phases theta [2, L, L] in read_heatbath_file's order, %.18e."""
+    ph = np.transpose(np.asarray(theta), (1, 2, 0)).reshape(-1)  # x, y, mu
+    np.savetxt(path, ph, fmt="%.18e")
+
+
+def read_gauge_text(path: str, L: int, dtype=torch.complex128,
+                    device=None) -> torch.Tensor:
+    """Read `Uphases.txt`-format complex links 're+i im' per line
+    (reference gauge.h:65-86), order x->y->mu."""
+    vals = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            re, im = line.split("+i")
+            vals.append(complex(float(re), float(im)))
+    u = np.transpose(np.array(vals).reshape(L, L, 2), (2, 0, 1))
+    return torch.from_numpy(np.ascontiguousarray(u)).to(device=device,
+                                                        dtype=dtype)
+
+
+def write_gauge_text(path: str, U: torch.Tensor):
+    """Write links U [2, L, L] as '%25.20e+i%25.20e' lines, x->y->mu."""
+    u = np.transpose(U.detach().cpu().numpy(), (1, 2, 0)).reshape(-1)
+    with open(path, "w") as f:
+        for v in u:
+            f.write(f"{v.real:25.20e}+i{v.imag:25.20e}\n")

@@ -65,3 +65,16 @@ def assemble(stencil: str, U: torch.Tensor, m: float) -> torch.Tensor:
     if stencil == "wilson":
         return assemble_wilson(U, m)
     raise ValueError(f"unknown stencil {stencil!r}")
+
+
+def wilson_free_spectrum(L: int, m: float) -> np.ndarray:
+    """Analytic free-field Wilson eigenvalues, for validation (reference
+    analysis_nbks/spectrum_calc/1_compute_spectrum.ipynb): for each
+    momentum (kx, ky),
+      lam(k) = (2+m) + cos kx + cos ky +- i sqrt(sin^2 kx + sin^2 ky).
+    Returns the 2 L^2 eigenvalues."""
+    k = 2.0 * np.pi * np.arange(L) / L
+    kx, ky = np.meshgrid(k, k, indexing="ij")
+    re = (2.0 + m) + np.cos(kx) + np.cos(ky)
+    im = np.sqrt(np.sin(kx) ** 2 + np.sin(ky) ** 2)
+    return np.concatenate([(re + 1j * im).ravel(), (re - 1j * im).ravel()])

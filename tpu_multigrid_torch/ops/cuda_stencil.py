@@ -209,7 +209,7 @@ def _check(name: str, t: torch.Tensor, like: torch.Tensor, shape) -> None:
 
 
 def _check_lattice(L: int, kind: str) -> None:
-    if kind not in smoothers.KINDS:
+    if kind not in smoothers.KERNEL_KINDS:
         raise NotImplementedError(f"no kernel for smoother {kind!r}")
     if kind == "rbgs" and L % 2:
         raise ValueError(f"red-black sweeps need an even lattice, got L={L}")

@@ -4,8 +4,9 @@ level.h:177-249).
 
 The k candidates relax D x = 0 from random starts as ONE batch through
 `smooth` (the dense_update kernel on CUDA tensors, D shared by the
-batch), renormalized each globally every `iters_per_norm` sweeps. Wilson
-candidates are split chirally into upper/lower rows (level.h:223-248).
+batch), renormalized each globally every `iters_per_norm` sweeps, or,
+with joint_qr, orthonormalized together. Wilson candidates are split
+chirally into upper/lower rows (level.h:223-248).
 """
 from __future__ import annotations
 
@@ -19,22 +20,41 @@ from .smoothers import smooth
 def relax_null_vectors(D, D0inv, starts, null_iters: int,
                        iters_per_norm: int, smoother: str, omega: float = 1.0,
                        joint_qr: bool = False, pallas: str = "auto"):
-    """Relax each start vector toward the near-null space of D, each
-    candidate independently (the reference's scheme).
+    """Relax the start vectors toward the near-null space of D.
 
-    starts: [k, nf, L, L]. Returns the same shape, each candidate globally
-    normalized. joint_qr (MGConfig.null_joint_qr) is not ported yet.
+    starts: [k, nf, L, L]. Returns the same shape.
+
+    joint_qr=False is the reference's scheme: each candidate relaxes
+    independently and is normalized globally every iters_per_norm sweeps.
+    joint_qr=True (MGConfig.null_joint_qr, beyond the reference)
+    orthonormalizes the candidate set by global modified Gram-Schmidt at
+    the start and at every renormalization: block power iteration toward
+    the lowest k modes, robust where independent candidates all collapse
+    onto the lowest mode (<= ~4^2 setup levels).
     """
-    if joint_qr:
-        raise NotImplementedError("null_joint_qr is not ported yet")
     zero_r = torch.zeros_like(starts[0])
-    v = starts
+    renorm = _mgs if joint_qr else _normalize_each
+    v = _mgs(starts) if joint_qr else starts
     for _ in range(max(null_iters // iters_per_norm, 1)):
-        v = smooth(D, D0inv, v, zero_r, iters_per_norm, smoother, omega,
-                   pallas=pallas)
-        v = v / torch.sqrt(torch.sum(v.abs() ** 2, dim=(1, 2, 3),
-                                     keepdim=True))
+        v = renorm(smooth(D, D0inv, v, zero_r, iters_per_norm, smoother,
+                          omega, pallas=pallas))
     return v
+
+
+def _normalize_each(v):
+    return v / torch.sqrt(torch.sum(v.abs() ** 2, dim=(1, 2, 3),
+                                    keepdim=True))
+
+
+def _mgs(vs):
+    """Global modified Gram-Schmidt over the candidate axis."""
+    out = []
+    for v in vs:
+        for u in out:
+            v = v - u * torch.sum(torch.conj(u) * v)
+        n = torch.sqrt(torch.sum(v.abs() ** 2))
+        out.append(v / torch.where(n > 0, n, torch.ones_like(n)))
+    return torch.stack(out)
 
 
 def candidates_to_phi_null(vecs: torch.Tensor, stencil: str, nc: int):

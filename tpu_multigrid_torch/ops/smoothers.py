@@ -1,21 +1,26 @@
-"""Stationary smoothers: Jacobi and red-black Gauss-Seidel (counterpart of
-tpu_multigrid/ops/smoothers.py; lexicographic GS and Chebyshev are not
-ported yet).
+"""Stationary smoothers: Jacobi, red-black Gauss-Seidel and lexicographic
+Gauss-Seidel (counterpart of tpu_multigrid/ops/smoothers.py; Chebyshev is
+not ported yet).
 
 Update rule (reference Level::f_relax, level.h:100-128):
     phi(x) <- -D0(x)^{-1} ( sum_{mu != 0} D_mu(x) phi(x+mu) - r(x) )
 
 `phi` and `r` may carry a leading batch axis; `D` and `D0inv` may be
-shared by the batch or batched with it. The sweeps here are the plain
-torch versions of the dense_update and dense_update_tiled kernels
-(ops/cuda_stencil.py), which `smooth` runs for CUDA tensors.
+shared by the batch or batched with it. The Jacobi and red-black sweeps
+here are the plain torch versions of the dense_update and
+dense_update_tiled kernels (ops/cuda_stencil.py), which `smooth` runs for
+CUDA tensors. `gs_lex` has no kernel, here as in the JAX package (which
+runs it on plain XLA): `smooth` runs its plain sweeps on any device.
 """
 from __future__ import annotations
+
+import torch
 
 from .gauge_stencil import parity_mask
 from .stencil import apply_hop, _site_matvec
 
-KINDS = ("jacobi", "rbgs")
+KINDS = ("jacobi", "rbgs", "gs_lex")
+KERNEL_KINDS = ("jacobi", "rbgs")        # the kinds with a CUDA kernel
 
 
 def _local_solve(D0inv, hop, r):
@@ -37,7 +42,26 @@ def rbgs_sweep(D, D0inv, phi, r, omega: float = 1.0):
     return phi
 
 
-_SWEEPS = {"jacobi": jacobi_sweep, "rbgs": rbgs_sweep}
+def gs_lex_sweep(D, D0inv, phi, r, omega: float = 1.0):
+    """Exact lexicographic Gauss-Seidel in the reference's in-place site
+    order `for x { for y { update } }` (level.h:114-123), as the JAX
+    package's wavefront: a site's already-updated neighbours (x-1, y),
+    (x, y-1) and the periodic wraps lie on anti-diagonals x + y below its
+    own, its not-yet-updated ones above, so updating each whole
+    anti-diagonal d = 0 .. 2L-2 in turn reproduces the lexicographic
+    sweep in 2L-1 steps."""
+    L = phi.shape[-1]
+    ar = torch.arange(L, device=phi.device)
+    diag = ar[:, None] + ar[None, :]
+    for d in range(2 * L - 1):
+        upd = _local_solve(D0inv, apply_hop(D, phi), r)
+        if omega != 1.0:
+            upd = phi + omega * (upd - phi)
+        phi = torch.where(diag == d, upd, phi)
+    return phi
+
+
+_SWEEPS = {"jacobi": jacobi_sweep, "rbgs": rbgs_sweep, "gs_lex": gs_lex_sweep}
 
 
 def _check_kind(kind: str):
@@ -63,9 +87,11 @@ def smooth(D, D0inv, phi, r, n_sweeps: int, kind: str = "rbgs",
     pallas='auto' (MGConfig.pallas) runs the CUDA kernels on CUDA tensors:
     dense_update, or dense_update_tiled where cuda_stencil.smoother_mode
     says the level is past the L2; 'off' runs the plain torch sweeps
-    everywhere.
+    everywhere. A kind without a kernel (gs_lex) runs its plain sweeps on
+    any device, as the JAX package runs it on plain XLA.
     """
-    if pallas == "off":
+    _check_kind(kind)
+    if pallas == "off" or kind not in KERNEL_KINDS:
         return smooth_plain(D, D0inv, phi, r, n_sweeps, kind, omega)
     from . import cuda_stencil as cs
     n, L = phi.shape[-3], phi.shape[-1]

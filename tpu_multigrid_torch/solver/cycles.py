@@ -5,16 +5,19 @@ f_MG_ntl, modules_main.h:255-280, 386-439).
 
 Sawtooth V: relax `num_iters` sweeps at each level on the way down (then
 restrict the residual) and again on the way up (then prolong and add the
-correction). The W-cycle (`gamma_cycle`) and FMG are not ported yet.
+correction). `gamma_cycle` generalizes it to the W-cycle; `fmg_init` is
+the full-multigrid initial guess.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from ..config import MGConfig
 from ..ops import cuda_stencil, gauge_stencil
 from ..ops.stencil import apply_D, residual, _sumsq
-from ..ops.smoothers import smooth
+from ..ops.smoothers import KERNEL_KINDS, smooth
 from ..ops.transfer import restrict, prolong
 from .hierarchy import Hierarchy
 
@@ -38,7 +41,11 @@ def _tiled0(phi) -> bool:
 
 
 def _relax(lev, phi, r, cfg: MGConfig, lvl: int = 0, gauge=None):
-    if links_active(cfg, gauge, lvl):
+    """num_iters sweeps at one level: the links smoother at a links-active
+    level 0 for the kinds it has (jacobi, rbgs), else `smooth` on the
+    level's dense stencil (gs_lex there runs its plain sweeps), as the
+    JAX package's _relax dispatches."""
+    if links_active(cfg, gauge, lvl) and cfg.smoother in KERNEL_KINDS:
         if cfg.pallas == "off":
             return gauge_stencil.smooth_u(cfg.stencil, gauge, cfg.m, phi, r,
                                           cfg.num_iters, cfg.smoother,
@@ -94,6 +101,38 @@ def v_cycle(hier: Hierarchy, phis, b: torch.Tensor, cfg: MGConfig):
             corr = prolong(L[l - 1].phi_null, phis[l], cfg.quad, bx, by)
             phis[l - 1] = phis[l - 1] + corr
             phis[l] = torch.zeros_like(phis[l])
+    return tuple(phis)
+
+
+def gamma_cycle(hier: Hierarchy, phis, b: torch.Tensor, cfg: MGConfig):
+    """Recursive gamma-cycle: gamma=1 is the sawtooth V-cycle's step
+    sequence; gamma=2 the W-cycle (each coarse problem approximately
+    solved by two child cycles; the coarsest once)."""
+    L = hier.levels
+    g = hier.gauge
+    n = cfg.nlevels
+    bx, by = cfg.block_x, cfg.block_y
+    phis = list(phis)
+    gamma = cfg.cycle_gamma
+
+    def at(l, rhs):
+        phis[l] = _relax(L[l], phis[l], rhs, cfg, l, g)
+        if l == n:
+            return
+        res = _residual0(L[l], phis[l], rhs, cfg, l, g)
+        rc = restrict(L[l].phi_null, res, cfg.quad, bx, by)
+        phis[l + 1] = torch.zeros_like(phis[l + 1])
+        for _ in range(gamma if l + 1 < n else 1):
+            at(l + 1, rc)
+        corr = prolong(L[l].phi_null, phis[l + 1], cfg.quad, bx, by)
+        phis[l] = phis[l] + corr
+        phis[l + 1] = torch.zeros_like(phis[l + 1])
+        phis[l] = _relax(L[l], phis[l], rhs, cfg, l, g)
+
+    if n == 0:
+        phis[0] = _relax(L[0], phis[0], b, cfg, 0, g)
+    else:
+        at(0, b)
     return tuple(phis)
 
 
@@ -179,11 +218,52 @@ def ntl_cycle(hier: Hierarchy, phis, b: torch.Tensor, cfg: MGConfig):
     return tuple(phis), a
 
 
+def fmg_init(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
+             n_vcycles: int = 1, coarsest_iters: Optional[int] = None):
+    """Full-multigrid (nested-iteration) initial guess, beyond the
+    reference: restrict b down the hierarchy (the plain restriction P b,
+    consistent with the Galerkin D_c = P D P^dagger), relax the coarsest
+    problem `coarsest_iters` (default 4 num_iters) sweeps, then prolong
+    upward, refining with `n_vcycles` V-cycles per level. Returns a
+    per-level phis tuple whose entry 0 is the initial guess."""
+    L = hier.levels
+    n = cfg.nlevels
+    bx, by = cfg.block_x, cfg.block_y
+    if n == 0:
+        return (_relax(L[0], torch.zeros_like(b), b, cfg, 0, hier.gauge),)
+
+    def zeros_below(l):
+        return tuple(torch.zeros((lev.D.shape[1], lev.D.shape[-1],
+                                  lev.D.shape[-1]), dtype=b.dtype,
+                                 device=b.device) for lev in L[l + 1:])
+
+    bs = [b]
+    for l in range(n):
+        bs.append(restrict(L[l].phi_null, bs[l], cfg.quad, bx, by))
+    phi = smooth(L[n].D, L[n].D0inv, torch.zeros_like(bs[n]), bs[n],
+                 coarsest_iters or 4 * cfg.num_iters, cfg.smoother,
+                 cfg.omega, pallas=cfg.pallas)
+    for l in range(n - 1, -1, -1):
+        phi = prolong(L[l].phi_null, phi, cfg.quad, bx, by)
+        sub_h = Hierarchy(levels=L[l:], ntl=None,
+                          gauge=hier.gauge if l == 0 else None)
+        sub_c = cfg.replace(
+            nlevels=n - l, ntl=False,
+            cheby_lmax=(cfg.cheby_lmax[l:] if cfg.cheby_lmax else None))
+        phis = (phi,) + zeros_below(l)
+        for _ in range(n_vcycles):
+            phis = v_cycle(sub_h, phis, bs[l], sub_c)
+        phi = phis[0]
+    return (phi,) + zeros_below(0)
+
+
 def cycle(hier: Hierarchy, phis, b: torch.Tensor, cfg: MGConfig):
-    """Dispatch: NTL if configured, else the V-cycle. Returns (phis, a)."""
+    """Dispatch: NTL if configured, else the V-cycle (or the W-cycle for
+    cycle_gamma > 1). Returns (phis, a)."""
     if cfg.ntl and cfg.nlevels > 0:
         return ntl_cycle(hier, phis, b, cfg)
     if cfg.cycle_gamma > 1:
-        raise NotImplementedError("gamma_cycle (W-cycle) is not ported yet")
-    phis = v_cycle(hier, phis, b, cfg)
+        phis = gamma_cycle(hier, phis, b, cfg)
+    else:
+        phis = v_cycle(hier, phis, b, cfg)
     return phis, torch.zeros((cfg.n_copies,), dtype=b.dtype, device=b.device)

@@ -4,9 +4,10 @@ the relative level-0 residual drops below cfg.res_threshold, stopping on
 divergence (> cfg.div_threshold) or a non-finite residual.
 
 `solve_ir` reaches the reference's 1e-13 from a complex64 hierarchy by
-mixed-precision iterative refinement; `solve_with_history` records the
-residual and the NTL weights of every cycle; `mr_solve` is the
-unpreconditioned baseline.
+mixed-precision iterative refinement; `solve_fmg` starts the cycles from
+the full-multigrid guess; `solve_with_history` records the residual and
+the NTL weights of every cycle (and the reference's results files through
+a utils.io.ResultsWriter); `mr_solve` is the unpreconditioned baseline.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ import torch
 from ..config import MGConfig
 from ..ops import cuda_stencil
 from ..ops.stencil import residual
-from .cycles import cycle, residual_norm_ratio0
+from .cycles import cycle, fmg_init, residual_norm_ratio0
 from .hierarchy import Hierarchy, cast_hierarchy, zero_fields
 
 
@@ -76,6 +77,18 @@ def solve_chunked(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
             break
     return SolveResult(phi=phis[0], iters=it, resmag=resmag,
                        converged=resmag < cfg.res_threshold)
+
+
+def solve_fmg(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
+              n_vcycles: int = 1, max_iters: Optional[int] = None,
+              chunk: int = 10) -> SolveResult:
+    """Full-multigrid solve: the FMG initial guess (cycles.fmg_init), then
+    solve_chunked. The reported `iters` counts the FMG sweep as one
+    cycle."""
+    phis0 = fmg_init(hier, b, cfg, n_vcycles)
+    out = solve_chunked(hier, b, cfg, phis0=phis0, max_iters=max_iters,
+                        chunk=chunk)
+    return dataclasses.replace(out, iters=out.iters + 1)
 
 
 def solve_ir(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
@@ -141,12 +154,9 @@ def solve_with_history(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
                        phis0=None, max_iters: Optional[int] = None,
                        writer=None) -> SolveResult:
     """Cycle until converged, recording the relative residual and the NTL
-    weights of every cycle. `writer` (the reference's per-iteration output
-    surface, utils.io.ResultsWriter in the JAX package) is not ported yet.
-    """
-    if writer is not None:
-        raise NotImplementedError("the ResultsWriter output surface is not "
-                                  "ported yet")
+    weights of every cycle; `writer` (utils.io.ResultsWriter, the
+    reference's per-iteration output surface) records cycles 1,
+    1 + write_interval, ..."""
     max_iters = max_iters or cfg.max_iters
     phis = phis0 if phis0 is not None else zero_fields(cfg, b.device)
     history, weights = [], []
@@ -157,6 +167,8 @@ def solve_with_history(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
         resmag = float(residual_norm_ratio0(hier, phis[0], b, cfg))
         history.append(resmag)
         weights.append(a.cpu().numpy())
+        if writer is not None and (it - 1) % cfg.write_interval == 0:
+            writer.record(it, hier, phis, b, weights[-1])
         if _stop(resmag, cfg):
             break
     return SolveResult(phi=phis[0], iters=it, resmag=resmag,

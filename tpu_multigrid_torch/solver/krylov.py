@@ -93,6 +93,13 @@ def fgmres_solve(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
     return x, total_iters, _norm(r) / bnorm
 
 
+def _guarded_ratio(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """num / den where den > 0 (den clamped at 1e-300 as in the JAX
+    package), else 0."""
+    return torch.where(den > 0, num / torch.clamp_min(den, 1e-300),
+                       torch.zeros((), dtype=torch.float64, device=num.device))
+
+
 def cgnr_solve(D, b, tol: float = 1e-8, max_iters: int = 50000,
                chunk: int = 500, Ddag=None, x0=None):
     """CG on the normal equations D^H D x = D^H b (CGNR), the solver of
@@ -100,11 +107,13 @@ def cgnr_solve(D, b, tol: float = 1e-8, max_iters: int = 50000,
 
     Two SpMVs per iteration (D, then D^H as the stencil
     adjoint_stencil(D), or `Ddag` if given). |r|^2 is accumulated in
-    float64; p^H A p in A p's dtype, clamped at 1e-300 as in the JAX
-    package (0 in complex64); alpha and beta are cast to x's real dtype
-    before they multiply. `chunk` iterations run between host checks of
-    the true residual ||b - D x|| / ||b||. Returns (x, iters, rel), x a
-    tensor on b's device.
+    float64, p^H A p in A p's dtype; alpha and beta are cast to x's real
+    dtype before they multiply. A zero p^H A p gives alpha = 0 and a zero
+    |r|^2 gives beta = 0, so a converged iteration stalls, as JAX's does
+    where XLA flushes float32 denormals to zero; torch keeps them until
+    p^H A p underflows as well, where an unguarded 0/0 would give NaN.
+    `chunk` iterations run between host checks of the true residual
+    ||b - D x|| / ||b||. Returns (x, iters, rel), x a tensor on b's device.
     """
     apply = cuda_stencil.apply_D
     if Ddag is None:
@@ -121,11 +130,11 @@ def cgnr_solve(D, b, tol: float = 1e-8, max_iters: int = 50000,
         for _ in range(chunk):
             Ap = apply(Ddag, apply(D, p))
             pAp = torch.sum(torch.conj(p) * Ap).real
-            alpha = (rs / torch.clamp_min(pAp, 1e-300)).to(rdt)
+            alpha = _guarded_ratio(rs, pAp).to(rdt)
             x = x + alpha * p
             r = r - alpha * Ap
             rs_new = _sumsq(r)
-            beta = (rs_new / torch.clamp_min(rs, 1e-300)).to(rdt)
+            beta = _guarded_ratio(rs_new, rs).to(rdt)
             p = r + beta.to(p.dtype) * p
             rs = rs_new
         it += chunk

@@ -1,1 +1,1 @@
-from . import convert, native  # noqa: F401
+from . import checkpoint, convert, io, native  # noqa: F401

@@ -1,8 +1,7 @@
 """ctypes bindings of the native U(1) heat-bath generator
-(tpu_multigrid/native/heatbath.cpp, built together with refio.cpp, the
-reference-format text I/O of the same library) — the port's own loader,
-counterpart of tpu_multigrid/utils/native.py. The text-I/O entry points
-are not bound yet: their caller, the gauge file I/O, is not ported.
+(tpu_multigrid/native/heatbath.cpp) and the reference-format text reader
+and writer (tpu_multigrid/native/refio.cpp) — the port's own loader,
+counterpart of tpu_multigrid/utils/native.py.
 
 The sources are compiled with g++ and the flags of
 tpu_multigrid/native/Makefile into tpu_multigrid_torch/_build/ at first
@@ -10,7 +9,8 @@ use, keyed by a hash of the sources and flags. This module reads those
 sources as files: it never imports anything under `tpu_multigrid` (whose
 `__init__` imports jax) and never loads that package's own libtpumg.so.
 `available()` is False when no C++ compiler can build them; callers
-(models.gauge.heatbath_ensemble) then take the NumPy path.
+(models.gauge.heatbath_ensemble, utils.io's near-null text files) then
+take the NumPy / Python path.
 """
 from __future__ import annotations
 
@@ -70,6 +70,12 @@ _SIGNATURES = {
     "tpumg_heatbath_run": (None, (_DP, ctypes.c_int, ctypes.c_double,
                                   ctypes.c_int, ctypes.c_uint64)),
     "tpumg_mean_plaquette": (ctypes.c_double, (_DP, ctypes.c_int)),
+    "tpumg_read_complex_text": (ctypes.c_long, (ctypes.c_char_p, _DP,
+                                                ctypes.c_long)),
+    "tpumg_write_complex_text": (ctypes.c_int, (ctypes.c_char_p, _DP,
+                                                ctypes.c_long)),
+    "tpumg_read_phase_text": (ctypes.c_long, (ctypes.c_char_p, _DP,
+                                              ctypes.c_long)),
 }
 
 
@@ -111,3 +117,32 @@ def mean_plaquette(theta: np.ndarray) -> float:
     th = np.ascontiguousarray(theta, dtype=np.float64)
     return float(get_lib().tpumg_mean_plaquette(_dptr(th), th.shape[-1]))
 
+
+def read_complex_text(path: str, max_vals: int) -> np.ndarray:
+    """Up to max_vals complex values of a '%25.20e+i%25.20e' text file, as
+    a complex128 array."""
+    buf = np.empty(2 * max_vals, dtype=np.float64)
+    k = get_lib().tpumg_read_complex_text(path.encode(), _dptr(buf), max_vals)
+    if k < 0:
+        raise FileNotFoundError(path)
+    pairs = buf[:2 * k].reshape(-1, 2)
+    return pairs[:, 0] + 1j * pairs[:, 1]
+
+
+def write_complex_text(path: str, vals: np.ndarray):
+    """Write complex values one per line as '%25.20e+i%25.20e'."""
+    v = np.ascontiguousarray(vals, dtype=np.complex128).ravel()
+    inter = np.ascontiguousarray(v.view(np.float64))   # re, im interleaved
+    if get_lib().tpumg_write_complex_text(path.encode(), _dptr(inter),
+                                          v.size) != 0:
+        raise IOError(f"cannot write {path}")
+
+
+def read_phase_text(path: str, max_vals: int) -> np.ndarray:
+    """Up to max_vals bare doubles, one per line (the heat-bath phase
+    file format)."""
+    buf = np.empty(max_vals, dtype=np.float64)
+    k = get_lib().tpumg_read_phase_text(path.encode(), _dptr(buf), max_vals)
+    if k < 0:
+        raise FileNotFoundError(path)
+    return buf[:k]
