@@ -41,9 +41,18 @@ tpu_multigrid_torch.scan (a two-point laplace mass scan at L=256).
 
 It checks convergence, that each solve went through every kernel of its
 path (launch counters, set to 0 before the path and read after it), that
+one flagship cycle launches the persistent smoothers exactly once per
+smooth call (2 links_update, 5 dense_update, no x-tiled smoother), that
 the plain path on the same hierarchy takes the same number of cycles
 (within one), and that the kernel path agrees with the plain path on a
 small complex128 problem.
+
+Beside each kernel's main shape it computes the kernel's bound (the least
+bytes and flops of the call over the card's peak rates) and times one
+PyTorch call that computes the same function where there is one: for the
+SpMV and residual kernels torch.sparse.mm / torch.sparse.addmm on the
+operator assembled once as a CSR matrix (int32 indices); the smoothers
+have none. The port never calls these.
 
 Any failed check raises, and the exit code is then non-zero. The last
 line of standard output is one JSON object, {"ok": true, "device": ...};
@@ -52,6 +61,7 @@ CUDA device, or outside the repository, it fails and prints no result.
 """
 import collections
 import contextlib
+import dataclasses
 import functools
 import io
 import json
@@ -91,6 +101,55 @@ CLI_KERNELS = ("links_update", "links_residual", "dense_update",
                "dense_apply")
 L2_BYTES = 50 * 2**20
 BARS = {"complex64": 2e-5, "complex128": 1e-12}
+# Peak rates outside the tensor cores, H100 SXM (NVIDIA's data sheet): the
+# kernels' complex arithmetic is float32 (complex64) or float64 pairs.
+PEAK_FLOPS = {"complex64": 67e12, "complex128": 34e12}
+NO_LIBRARY = ("none: no single PyTorch call computes a red-black or Jacobi "
+              "sweep")
+# Device ops of one flagship cycle on record for the first design of the
+# smoothers (one launch per half-sweep; PERF.md).
+FIRST_DESIGN_CYCLE_OPS = 313
+
+
+@dataclasses.dataclass
+class Case:
+    """One kernel call at a path's shape: the kernel (fk), its plain
+    version (fp), the global kernel at a tiled case's shape (fg), the
+    least (bytes, flops) of the call, and `library`: a function that builds
+    (outside any timing) and returns one PyTorch call computing the same
+    function, or None."""
+    kernel: str
+    label: str
+    dtype: object
+    fk: object
+    fp: object
+    fg: object = None
+    work: tuple = None
+    library: object = None
+
+
+def stencil_csr(torch, D):
+    """The stencil D [5, n, n, L, L] as one CSR matrix of n L^2 rows, int32
+    indices, columns sorted: row i L^2 + s, column j L^2 + (the neighbour
+    of site s in direction d), value D[d, i, j, s]."""
+    n, L = D.shape[1], D.shape[-1]
+    LL = L * L
+    ar = torch.arange(L, device=D.device)
+    X, Y = torch.meshgrid(ar, ar, indexing="ij")
+    nbr = torch.stack([X * L + Y, (X + 1) % L * L + Y, (X - 1) % L * L + Y,
+                       X * L + (Y + 1) % L, X * L + (Y - 1) % L])
+    nbr = nbr.reshape(5, LL)
+    j = torch.arange(n, device=D.device)
+    cols = (j[None, None, :] * LL + nbr.T[:, :, None]).reshape(1, LL, 5 * n)
+    cols = cols.expand(n, LL, 5 * n).reshape(n * LL, 5 * n)
+    vals = D.permute(1, 3, 4, 0, 2).reshape(n * LL, 5 * n)
+    cols, order = torch.sort(cols, dim=1)
+    vals = torch.gather(vals, 1, order)
+    crow = torch.arange(n * LL + 1, device=D.device,
+                        dtype=torch.int32) * (5 * n)
+    return torch.sparse_csr_tensor(crow, cols.to(torch.int32).reshape(-1),
+                                   vals.reshape(-1), size=(n * LL, n * LL),
+                                   check_invariants=False)
 
 
 def check(cond, msg):
@@ -116,12 +175,13 @@ def cuda_ms(torch, fn, reps=20):
 
 
 def kernel_cases(torch, mgt, dev):
-    """(kernel, label, dtype, kernel_fn, plain_fn, global_fn or None) at the
-    paths' shapes; global_fn runs the global kernel at a tiled case's
-    shape. The first complex64 case of each kernel is its main shape."""
+    """Case objects at the paths' shapes, complex64 then complex128. The
+    first complex64 case of each kernel is its main shape; the x-tiled
+    cases at the default tile also run the global kernel (fg)."""
     cs = mgt.ops.cuda_stencil
     gs = mgt.ops.gauge_stencil
     sm = mgt.ops.smoothers
+    work = mgt.profiling.kernel_work
     gen = torch.Generator(device=dev).manual_seed(20261016)
     m = -0.005
 
@@ -143,8 +203,14 @@ def kernel_cases(torch, mgt, dev):
         D = stencil(B, n, L, dtype)
         return D, mgt.ops.stencil.site_inverse(D[..., 0, :, :, :, :])
 
-    def links_cases(L, tag, dtype, tiled, tile=None):
+    def links_op(U):
+        return lambda: stencil_csr(torch, mgt.models.operators.assemble(
+            "wilson", U, m))
+
+    def links_cases(L, tag, dtype, tiled, tile=None, sweeps=4, omega=1.0,
+                    resid=True):
         U, phi, r = links(L, dtype), c((2, L, L), dtype), c((2, L, L), dtype)
+        isz = phi.element_size()
         if tiled:
             res = functools.partial(cs.wilson_u_residual_tiled, tile=tile)
             upd = functools.partial(cs.wilson_u_smooth_tiled, tile=tile)
@@ -154,17 +220,30 @@ def kernel_cases(torch, mgt, dev):
             res, upd, gres, gupd = (cs.wilson_u_residual, cs.wilson_u_smooth,
                                     None, None)
             kr, ku = "links_residual", "links_update"
-        out = [(kr, f"{'B5b' if tiled else 'B2'} residual {tag}", dtype,
-                lambda: res(U, m, phi, r),
-                lambda: gs.residual_u("wilson", U, m, phi, r),
-                gres and (lambda: gres(U, m, phi, r)))]
+
+        def resid_call():
+            A = links_op(U)()
+            return lambda: torch.sparse.addmm(r.reshape(-1, 1), A,
+                                              phi.reshape(-1, 1), alpha=-1)
+
+        out = []
+        if resid:
+            out.append(Case(kr, f"{'B5b' if tiled else 'B2'} residual {tag}",
+                            dtype, lambda: res(U, m, phi, r),
+                            lambda: gs.residual_u("wilson", U, m, phi, r),
+                            gres and (lambda: gres(U, m, phi, r)),
+                            work(kr, 2, L, isz), resid_call))
+        om = "" if omega == 1.0 else f" omega={omega}"
         for kind in ("rbgs", "jacobi"):
-            name = ("B5a" if tiled else "B1") + f" {kind} x4 {tag}"
-            out.append((ku, name, dtype,
-                        lambda k=kind: upd(U, m, phi, r, 4, k),
-                        lambda k=kind: gs.smooth_u("wilson", U, m, phi, r, 4,
-                                                   k),
-                        gupd and (lambda k=kind: gupd(U, m, phi, r, 4, k))))
+            name = ("B5a" if tiled else "B1") + f" {kind} x{sweeps}{om} {tag}"
+            out.append(Case(
+                ku, name, dtype,
+                lambda k=kind: upd(U, m, phi, r, sweeps, k, omega),
+                lambda k=kind: gs.smooth_u("wilson", U, m, phi, r, sweeps, k,
+                                           omega),
+                gupd and (lambda k=kind: gupd(U, m, phi, r, sweeps, k,
+                                              omega)),
+                work(ku, 2, L, isz, n_sweeps=sweeps)))
         return out
 
     def apply_cases(B, n, L, tag, dtype, tiled, tile=None):
@@ -174,40 +253,59 @@ def kernel_cases(torch, mgt, dev):
                                           dtype)
         fn = (functools.partial(cs.dense_apply_tiled, tile=tile) if tiled
               else cs.dense_apply)
-        return [("dense_apply_tiled" if tiled else "dense_apply",
-                 f"{'B7b' if tiled else 'B7a'} apply {tag}", dtype,
-                 lambda: fn(D, v), lambda: mgt.ops.stencil.apply_D(D, v),
-                 (lambda: cs.dense_apply(D, v)) if tiled and tile is None
-                 else None)]
+        kern = "dense_apply_tiled" if tiled else "dense_apply"
+
+        def spmm():
+            A = stencil_csr(torch, D)
+            return lambda: torch.sparse.mm(A, v.reshape(-1, 1))
+
+        return [Case(kern, f"{'B7b' if tiled else 'B7a'} apply {tag}", dtype,
+                     lambda: fn(D, v), lambda: mgt.ops.stencil.apply_D(D, v),
+                     (lambda: cs.dense_apply(D, v)) if tiled and tile is None
+                     else None,
+                     work(kern, n, L, v.element_size(), B or 1, B or 1),
+                     None if B else spmm)]
 
     def links_apply_cases(L, tag, dtype, tiled, tile=None):
         """The links SpMV D_U v: B8 (global) or B5c (x-tiled)."""
         U, v = links(L, dtype), c((2, L, L), dtype)
         fn = (functools.partial(cs.wilson_u_apply_tiled, tile=tile) if tiled
               else cs.wilson_u_apply)
-        return [("links_apply_tiled" if tiled else "links_apply",
-                 f"{'B5c' if tiled else 'B8'} apply {tag}", dtype,
-                 lambda: fn(U, m, v), lambda: gs.apply_wilson_u(U, m, v),
-                 (lambda: cs.wilson_u_apply(U, m, v)) if tiled and tile is None
-                 else None)]
+        kern = "links_apply_tiled" if tiled else "links_apply"
 
-    def dense_cases(B, n, L, shared, tag, kinds, dtype, tiled, tile=None):
+        def spmm():
+            A = links_op(U)()
+            return lambda: torch.sparse.mm(A, v.reshape(-1, 1))
+
+        return [Case(kern, f"{'B5c' if tiled else 'B8'} apply {tag}", dtype,
+                     lambda: fn(U, m, v), lambda: gs.apply_wilson_u(U, m, v),
+                     (lambda: cs.wilson_u_apply(U, m, v)) if tiled and tile is None
+                     else None, work(kern, 2, L, v.element_size()), spmm)]
+
+    def dense_cases(B, n, L, shared, tag, kinds, dtype, tiled, tile=None,
+                    sweeps=4, omega=1.0):
         D, Dinv = dense(None if shared else B, n, L, dtype)
         lead = (B,) if B else ()
         phi = c(lead + (n, L, L), dtype)
         r = c((n, L, L) if shared else lead + (n, L, L), dtype)
         fn = (functools.partial(cs.dense_smooth_tiled, tile=tile) if tiled
               else cs.dense_smooth)
+        kern = "dense_update_tiled" if tiled else "dense_update"
+        om = "" if omega == 1.0 else f" omega={omega}"
         out = []
         for kind in kinds:
             name = ("B6 " if tiled else ("B3 " if kind == "rbgs" else "B4 ")
-                    ) + f"{kind} x4 {tag}"
-            out.append(("dense_update_tiled" if tiled else "dense_update",
-                        name, dtype,
-                        lambda k=kind: fn(D, Dinv, phi, r, 4, k),
-                        lambda k=kind: sm.smooth_plain(D, Dinv, phi, r, 4, k),
-                        (lambda k=kind: cs.dense_smooth(D, Dinv, phi, r, 4, k))
-                        if tiled and tile is None else None))
+                    ) + f"{kind} x{sweeps}{om} {tag}"
+            out.append(Case(
+                kern, name, dtype,
+                lambda k=kind: fn(D, Dinv, phi, r, sweeps, k, omega),
+                lambda k=kind: sm.smooth_plain(D, Dinv, phi, r, sweeps, k,
+                                               omega),
+                (lambda k=kind: cs.dense_smooth(D, Dinv, phi, r, sweeps, k,
+                                                omega))
+                if tiled and tile is None else None,
+                work(kern, n, L, phi.element_size(), B or 1,
+                     1 if shared or not B else B, sweeps)))
         return out
 
     cases = []
@@ -223,6 +321,21 @@ def kernel_cases(torch, mgt, dev):
                 (2, 4, 128, True, "n=4 L=128 k=2 shared D (setup)", ("rbgs",))]:
             cases += dense_cases(B, n, L, shared, tag, kinds, dtype,
                                  tiled=False)
+        # the persistent smoothers' edges: 1 and 3 sweeps, omega 0.8, a
+        # lattice with fewer x-rows than blocks (L=8), and streamed
+        # operands (n=4 L=1024: no band fits the shared memory)
+        for sweeps, omega in ((1, 1.0), (3, 1.0), (4, 0.8)):
+            cases += links_cases(256, "L=256", dtype, tiled=False,
+                                 sweeps=sweeps, omega=omega, resid=False)
+            cases += dense_cases(None, 4, 128, False, "n=4 L=128",
+                                 ("rbgs", "jacobi"), dtype, tiled=False,
+                                 sweeps=sweeps, omega=omega)
+        cases += links_cases(8, "L=8", dtype, tiled=False, resid=False)
+        cases += dense_cases(3, 4, 8, False, "n=4 L=8 batch 3",
+                             ("rbgs", "jacobi"), dtype, tiled=False)
+        cases += dense_cases(None, 4, 1024, False,
+                             "n=4 L=1024 (streamed operands)",
+                             ("rbgs",), dtype, tiled=False)
         # the large flagship (L=2048) on the x-tiled kernels
         cases += links_cases(2048, "L=2048", dtype, tiled=True)
         for B, n, L, shared, tag, kinds in [
@@ -291,22 +404,51 @@ def timed(torch, fn):
     return out, time.perf_counter() - t0
 
 
+def library_time(torch, case, want):
+    """(ms, what) of the one PyTorch call that computes the case's function
+    (built outside the timing), or (None, why there is none)."""
+    if case.library is None:
+        return None, NO_LIBRARY
+    try:
+        call = case.library()
+        got = call()
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        return None, f"not supported: {type(e).__name__}: {str(e)[:160]}"
+    rel = float((got.reshape(want.shape) - want).abs().max()
+                / want.abs().max())
+    what = ("torch.sparse.addmm" if "residual" in case.kernel
+            else "torch.sparse.mm") + f" (CSR, int32; rel diff {rel:.1e})"
+    ms = cuda_ms(torch, call)
+    del call
+    return ms, what
+
+
 def run_kernel_cases(torch, mgt, dev):
     """Each kernel against its plain version (and a tiled kernel beside the
     global one) at the paths' shapes. Returns the per-kernel entries of the
-    kernels line (complex64) and the tiled-vs-global times."""
+    kernels line (complex64: the main shape's times, bound and library
+    call) and the tiled-vs-global times."""
+    cs = mgt.ops.cuda_stencil
+    peak = mgt.profiling.peak_bandwidth()
     per_kernel = {k: {"max_abs_err": 0.0, "ms": None, "plain_ms": None}
                   for k in REPLACES}
     vs_global = []
-    for kern, label, dtype, fk, fp, fg in kernel_cases(torch, mgt, dev):
+    for case in kernel_cases(torch, mgt, dev):
+        kern, label, fk, fp, fg = (case.kernel, case.label, case.fk, case.fp,
+                                   case.fg)
+        bands = {k: dict(v) for k, v in cs.band_launches.items()}
         got, want = fk(), fp()
         torch.cuda.synchronize()
+        mode = [m for k, v in cs.band_launches.items()
+                for m, c in v.items() if c != bands[k][m]]
         abs_err = float((got - want).abs().max())
         rel = abs_err / float(want.abs().max())
         ms, plain_ms = cuda_ms(torch, fk), cuda_ms(torch, fp)
-        dt = str(dtype).replace("torch.", "")
-        line = (f"  {kern:20s} {label:42s} {dt:10s} rel_err {rel:.3e} "
-                f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
+        dt = str(case.dtype).replace("torch.", "")
+        line = (f"  {kern:20s} {label:48s} {dt:10s} rel_err {rel:.3e} "
+                f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
+                + (f"  ({mode[0]} operands)" if mode else ""))
         check(rel < BARS[dt], f"{kern} {label} {dt}: rel err {rel:.3e} "
               f">= {BARS[dt]}")
         if fg is not None:
@@ -318,13 +460,63 @@ def run_kernel_cases(torch, mgt, dev):
             vs_global.append({"kernel": kern, "case": label, "dtype": dt,
                               "ms": ms, "global_ms": g_ms,
                               "plain_ms": plain_ms})
-        print(line)
+        e = per_kernel[kern]
+        if dt == "complex64" and e["ms"] is None:   # the main shape
+            nbytes, flops = case.work
+            bound_s, bound_by = mgt.profiling.bound_seconds(
+                nbytes, flops, peak, PEAK_FLOPS[dt])
+            lib_ms, lib = library_time(torch, case, want)
+            e.update(ms=ms, plain_ms=plain_ms, case=label,
+                     bound_ms=bound_s * 1e3, bound_by=bound_by,
+                     library_ms=lib_ms, library=lib)
+            line += (f"\n    main shape: bound {bound_s * 1e3:.4f} ms "
+                     f"({bound_by}); library "
+                     + (lib if lib_ms is None else f"{lib_ms:.4f} ms, {lib}"))
         if dt == "complex64":
-            e = per_kernel[kern]
             e["max_abs_err"] = max(e["max_abs_err"], abs_err)
-            if e["ms"] is None:          # the first case is the path's main shape
-                e["ms"], e["plain_ms"] = ms, plain_ms
+        print(line)
     return per_kernel, vs_global
+
+
+def cycle_launches(torch, mgt, dev, cfg, hier, ms_per_cycle):
+    """One flagship cycle with the launch counters set to 0 just before it
+    and read just after: exactly 2 links_update and 5 dense_update launches
+    (one per smooth call) and no x-tiled smoother. The profiler gives the
+    cycle's device ops and device time; the idle share is taken against
+    the unprofiled ms_per_cycle."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    cs = mgt.ops.cuda_stencil
+    b = mgt.point_source(cfg, device=dev)
+    phis, _ = mgt.cycle(hier, mgt.zero_fields(cfg, dev), b, cfg)
+    torch.cuda.synchronize()
+    cs.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        mgt.cycle(hier, phis, b, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = {k: v for k, v in cs.launches.items() if v}
+    events = [e for e in p.events() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(getattr(e, "device_time_total", None)
+                  or getattr(e, "cuda_time_total", 0.0) for e in events)
+    out = {"port_launches": counts, "device_ops": len(events),
+           "first_design_device_ops": FIRST_DESIGN_CYCLE_OPS,
+           "device_ms": busy_us / 1e3,
+           "wall_ms_profiled": wall * 1e3,
+           "idle_share": 1 - busy_us / 1e3 / ms_per_cycle}
+    print(f"  one flagship cycle: kernel launches {counts}; profiler "
+          f"{len(events)} device ops (first design, on record: "
+          f"{FIRST_DESIGN_CYCLE_OPS}), "
+          f"{busy_us / 1e3:.4f} ms of device time, idle "
+          f"{out['idle_share']:.3f} of the {ms_per_cycle:.3f} ms cycle")
+    check(counts.get("links_update") == 2 and counts.get("dense_update") == 5
+          and "links_update_tiled" not in counts
+          and "dense_update_tiled" not in counts,
+          f"a flagship cycle launched {counts}: want 2 links_update, 5 "
+          "dense_update, no x-tiled smoother")
+    return out
 
 
 def solve_phase(torch, mgt, dev, cfg, gauges, kernels, max_cycles, n_cyc,
@@ -876,6 +1068,8 @@ def main():
     hier, flag, flag_launches = solve_phase(
         torch, mgt, dev, cfg, gauges, FLAGSHIP_KERNELS, max_cycles=30,
         n_cyc=10, reps=5, warm_check=True)
+    flag["cycle"] = cycle_launches(torch, mgt, dev, cfg, hier,
+                                   flag["ms_per_cycle"])
     flag["solve_ir"] = ir_phase(torch, mgt, dev, cfg, gauges[0][0], hier)
     flag_cfg, flag_hier, flag_phases = cfg, hier, gauges[0][0]
     del gauges, hier
@@ -921,8 +1115,9 @@ def main():
                 "replaces": REPLACES[k],
                 "launches": phase_launches[k][k],
                 "cli_launches": cli_launches[k],
-                "max_abs_err": per_kernel[k]["max_abs_err"],
-                "ms": per_kernel[k]["ms"], "plain_ms": per_kernel[k]["plain_ms"]}
+                **{f: per_kernel[k][f] for f in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "library", "case")}}
                for k in REPLACES]
     print(json.dumps({"flagship": flag, "card": card}))
     print(json.dumps({"large_flagship": large, "card": card}))

@@ -1,0 +1,251 @@
+#!/usr/bin/env python3
+"""Same-card comparison of two designs of the port's global smoother
+kernels (links_update, dense_update) on one CUDA card.
+
+    python3 scripts/torch_smoother_ab.py OTHER_DIR [--out FILE]
+
+OTHER_DIR holds another version of the `tpu_multigrid_torch` package
+(for example the first design's, unpacked with
+`git archive <commit> tpu_multigrid_torch | tar -x -C OTHER_DIR`); it is
+loaded beside this checkout's package under its own module name and builds
+its own kernels. On one flagship hierarchy (built by this checkout), it
+times runs of 10 cycles of each design in three rounds of turns (other,
+this, this, other; 11 runs a turn; the median of each design's runs) and
+profiles one cycle of each: the device ops, the device time, the idle
+share of the unprofiled cycle and the port's kernel launches. Then, on
+the same seeded inputs, complex64, at the flagship's shapes (links rbgs x4
+at L=256; dense rbgs x4 at n=4 L=128, L=64, the 4 NTL copies at L=32 and
+setup at n=2 L=256 with k=2 sharing D; dense Jacobi x4 at n=4 L=128), it
+times one wrapper call of each design in the same turns (21 calls a turn,
+each between CUDA events), profiles ten calls of each for the device time
+a call, and reports the largest difference between their results.
+
+Prints one JSON object (with the card's name and power limit) as its last
+line, and writes it to FILE too when --out is given.
+"""
+import argparse
+import importlib.util
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+HERE = Path(__file__).resolve().parent.parent
+
+
+def load_package(pkg_dir: Path, name: str):
+    spec = importlib.util.spec_from_file_location(
+        name, pkg_dir / "__init__.py",
+        submodule_search_locations=[str(pkg_dir)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def cuda_times(torch, fn, reps):
+    """Milliseconds of `reps` runs of fn, each between its own pair of CUDA
+    events, after one warm-up run."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
+
+
+def in_turns(torch, other, this, reps, rounds=3):
+    """(other ms, this ms, medians of each turn): `rounds` rounds of turns
+    other, this, this, other, `reps` runs a turn; each design's ms is the
+    median of all its runs (the host's jitter moves single turns)."""
+    runs = {other: [], this: []}
+    turns = []
+    for _ in range(rounds):
+        for f in (other, this, this, other):
+            t = cuda_times(torch, f, reps)
+            runs[f] += t
+            turns.append(statistics.median(t))
+    return (statistics.median(runs[other]), statistics.median(runs[this]),
+            turns)
+
+
+def profiled(torch, fn, reps=1):
+    """(device ops, device seconds, wall seconds) of `reps` runs of fn under
+    torch.profiler, after one run outside it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in p.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(getattr(e, "device_time_total", None)
+               or getattr(e, "cuda_time_total", 0.0) for e in events) / 1e6
+    return len(events), busy, wall
+
+
+def profile_cycle(torch, cs, cycle, ms_per_cycle):
+    """One cycle under the profiler (cycle() resets the launch counters
+    first): device ops, device time and the idle share of the unprofiled
+    ms_per_cycle."""
+    ops, busy, wall = profiled(torch, cycle)
+    return {"device_ops": ops, "device_ms": busy * 1e3,
+            "busy_share_profiled": busy / wall, "wall_ms_profiled": wall * 1e3,
+            "idle_share": 1 - busy * 1e3 / ms_per_cycle,
+            "launches": {k: v for k, v in cs.launches.items() if v}}
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("other", type=Path)
+    ap.add_argument("--out", type=Path, default=None)
+    ns = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_smoother_ab: no CUDA device")
+    sys.path.insert(0, str(HERE))
+    import tpu_multigrid_torch as this
+    other = load_package(ns.other.resolve() / "tpu_multigrid_torch",
+                         "tmg_other")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+    print(card)
+    dev = torch.device("cuda")
+    dt = torch.complex64
+    rng = np.random.default_rng(20261016)
+    m = -0.005
+
+    def c(shape):
+        return torch.from_numpy(rng.normal(size=shape)
+                                + 1j * rng.normal(size=shape)).to(dev, dt)
+
+    def dense(B, n, L, shared):
+        lead = () if B is None else (B,)
+        D = 0.25 * c(((1,) if shared or B is None else lead)
+                     + (5, n, n, L, L))
+        D[:, 0] += 4.0 * torch.eye(n, dtype=dt, device=dev)[:, :, None, None]
+        Dinv = this.ops.stencil.site_inverse(D[:, 0])
+        if shared or B is None:
+            D, Dinv = D[0], Dinv[0]
+        return (D, Dinv, c(lead + (n, L, L)),
+                c((n, L, L) if shared or B is None else lead + (n, L, L)))
+
+    # the flagship cycle first (one hierarchy, each package's cycle
+    # code), then the single calls
+    cfgs = {p: p.MGConfig(L=256, stencil="wilson", m=m, nlevels=3, ntl=True,
+                          num_iters=4, null_iters=100, dtype="complex64",
+                          res_threshold=1e-6, smoother="rbgs")
+            for p in (other, this)}
+    cfg = cfgs[this]
+    ph = 0.2 * np.random.default_rng(cfg.seed).normal(size=(2, 256, 256))
+    Uf = this.models.gauge.gauge_from_phases(ph, cfg.cdtype, dev)
+    hier = this.build_hierarchy(
+        this.models.operators.assemble("wilson", Uf, m), cfg, U=Uf)
+    b = this.point_source(cfg, device=dev)
+
+    def cycles(p, k):
+        def run():
+            phis = this.zero_fields(cfg, dev)
+            for _ in range(k):
+                phis, _ = p.cycle(hier, phis, b, cfgs[p])
+            return phis
+        return run
+
+    def one_cycle(p):
+        """A cycle on from a running solution, the counters reset first."""
+        state = [this.zero_fields(cfg, dev)]
+
+        def run():
+            p.ops.cuda_stencil.reset_launches()
+            state[0], _ = p.cycle(hier, state[0], b, cfgs[p])
+        return run
+
+    res = {p: float(this.ops.stencil.residual(
+        hier.levels[0].D, cycles(p, 10)()[0], b).norm() / b.norm())
+        for p in (other, this)}
+    ms_o, ms_t, turns = in_turns(torch, cycles(other, 10), cycles(this, 10),
+                                 reps=11)
+    cycle = {"other_ms_per_cycle": ms_o / 10, "this_ms_per_cycle": ms_t / 10,
+             "turns_ms_10_cycles": turns,
+             "other_res_10": res[other], "this_res_10": res[this],
+             "other_profile": profile_cycle(torch, other.ops.cuda_stencil,
+                                            one_cycle(other), ms_o / 10),
+             "this_profile": profile_cycle(torch, this.ops.cuda_stencil,
+                                           one_cycle(this), ms_t / 10)}
+    print(f"flagship cycle: other {ms_o / 10:.4f} ms, this {ms_t / 10:.4f} "
+          f"ms (10 cycles a run, 3 rounds of turns of 11 runs); residual "
+          f"after 10: {res[other]:.6e} / {res[this]:.6e}")
+    for k in ("other", "this"):
+        pr = cycle[f"{k}_profile"]
+        print(f"  {k}: {pr['device_ops']} device ops, {pr['device_ms']:.4f} "
+              f"ms of device time a cycle, idle {pr['idle_share']:.3f} of the "
+              f"unprofiled cycle; launches {pr['launches']}")
+
+    rows = []
+    U = torch.polar(torch.ones(2, 256, 256, dtype=torch.float64),
+                    torch.from_numpy(0.2 * rng.normal(size=(2, 256, 256)))
+                    ).to(dev, dt)
+    phi, r = c((2, 256, 256)), c((2, 256, 256))
+    cases = [("B1 links rbgs x4 L=256", "links_update",
+              lambda p: p.ops.cuda_stencil.wilson_u_smooth(U, m, phi, r, 4,
+                                                           "rbgs"))]
+    for tag, kind, (B, n, L, shared) in (
+            ("B3 rbgs x4 n=4 L=128 (level 1)", "rbgs", (None, 4, 128, False)),
+            ("B3 rbgs x4 n=4 L=64 (level 2)", "rbgs", (None, 4, 64, False)),
+            ("B3 rbgs x4 n=4 L=32 batch 4 (NTL copies)", "rbgs",
+             (4, 4, 32, False)),
+            ("B3 rbgs x4 n=2 L=256 k=2 shared D (setup)", "rbgs",
+             (2, 2, 256, True)),
+            ("B4 jacobi x4 n=4 L=128", "jacobi", (None, 4, 128, False))):
+        ops = dense(B, n, L, shared)
+        cases.append((tag, "dense_update",
+                      lambda p, o=ops, k=kind: p.ops.cuda_stencil.dense_smooth(
+                          *o, 4, k)))
+    for tag, kernel, fn in cases:
+        got_o, got_t = fn(other), fn(this)
+        torch.cuda.synchronize()
+        diff = float((got_t - got_o).abs().max() / got_o.abs().max())
+        for pkg in (other, this):
+            pkg.ops.cuda_stencil.reset_launches()
+        fn(other)
+        fn(this)
+        n_o = other.ops.cuda_stencil.launches[kernel]
+        n_t = this.ops.cuda_stencil.launches[kernel]
+        ms_o, ms_t, turns = in_turns(torch, lambda: fn(other),
+                                     lambda: fn(this), reps=21)
+        dev_o = profiled(torch, lambda: fn(other), 10)[1] * 1e5
+        dev_t = profiled(torch, lambda: fn(this), 10)[1] * 1e5
+        rows.append({"case": tag, "other_ms": ms_o, "this_ms": ms_t,
+                     "turns_ms": turns, "other_launches": n_o,
+                     "this_launches": n_t, "other_device_us": dev_o,
+                     "this_device_us": dev_t, "rel_diff": diff})
+        print(f"{tag:44s} other {ms_o:.4f} ms ({n_o} launches, device "
+              f"{dev_o:.1f} us)  this {ms_t:.4f} ms ({n_t}, device "
+              f"{dev_t:.1f} us)  rel diff {diff:.2e}", flush=True)
+
+    out = {"card": card, "kernels": rows, "flagship_cycle": cycle}
+    if ns.out is not None:
+        ns.out.parent.mkdir(parents=True, exist_ok=True)
+        ns.out.write_text(json.dumps(out, indent=1))
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()

@@ -63,21 +63,39 @@ def test_links_residual(dev, dtype, L):
     assert _rel(got, want) < BARS[dtype]
 
 
+def _sweep_by_sweep(fn, phi, n_sweeps):
+    """n_sweeps calls of one sweep each: the first design's launch boundary
+    after every sweep (it made one launch per Jacobi sweep or red/black
+    half-sweep, with the same arithmetic per site)."""
+    for _ in range(n_sweeps):
+        phi = fn(phi, 1)
+    return phi
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("kind,omega", [("rbgs", 1.0), ("jacobi", 1.0),
                                         ("rbgs", 0.8), ("jacobi", 0.8)])
 @pytest.mark.parametrize("L", [8, 256])
 def test_links_smooth(dev, dtype, kind, omega, L):
+    """One cooperative launch per call, for 1, 3 and 4 sweeps; the caller's
+    phi untouched; the plain version's result, and the sweep-by-sweep
+    launches' to rounding."""
     rng = np.random.default_rng(2)
     U = _links(rng, L, dtype, dev)
     phi, r = _c(rng, (2, L, L), dtype, dev), _c(rng, (2, L, L), dtype, dev)
     keep = phi.clone()
-    n0 = cs.launches["links_update"]
-    got = cs.wilson_u_smooth(U, -0.005, phi, r, 4, kind, omega)
-    assert cs.launches["links_update"] == n0 + (8 if kind == "rbgs" else 4)
-    assert torch.equal(phi, keep)            # the input is not overwritten
-    want = gs.smooth_u("wilson", U, -0.005, phi, r, 4, kind, omega)
-    assert _rel(got, want) < BARS[dtype]
+
+    def smooth(p, k):
+        return cs.wilson_u_smooth(U, -0.005, p, r, k, kind, omega)
+
+    for n_sweeps in (1, 3, 4):
+        n0 = cs.launches["links_update"]
+        got = smooth(phi, n_sweeps)
+        assert cs.launches["links_update"] == n0 + 1
+        assert torch.equal(phi, keep)        # the input is not overwritten
+        want = gs.smooth_u("wilson", U, -0.005, phi, r, n_sweeps, kind, omega)
+        assert _rel(got, want) < BARS[dtype]
+        assert _rel(got, _sweep_by_sweep(smooth, phi, n_sweeps)) < BARS[dtype]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -85,11 +103,16 @@ def test_links_smooth(dev, dtype, kind, omega, L):
 @pytest.mark.parametrize("n,B,L,shared", [
     (4, None, 128, False), (4, None, 64, False), (4, 4, 32, False),
     (2, 2, 256, True), (4, 2, 128, True), (1, 3, 16, False), (2, None, 8, False),
+    (4, None, 1024, False),
 ])
 def test_dense_smooth(dev, dtype, kind, n, B, L, shared):
     """The flagship's coarse levels (n=4 at 128 and 64), its NTL copies
     (batch 4, each its own D) and its setup relaxation (k=2 candidates
-    sharing D, n=2 at 256 and n=4 at 128), plus n=1."""
+    sharing D, n=2 at 256 and n=4 at 128), plus n=1, a lattice with fewer
+    x-rows than blocks (L=8) and one whose band cannot be staged (L=1024,
+    streamed operands): one cooperative launch per call, for 1, 3 and 4
+    sweeps and omega 1 and 0.8; the plain version's result, and the
+    sweep-by-sweep launches' to rounding."""
     rng = np.random.default_rng(3)
     nb = 1 if (B is None or shared) else B
     D, Dinv = _dense(rng, nb, n, L, dtype, dev)
@@ -98,11 +121,72 @@ def test_dense_smooth(dev, dtype, kind, n, B, L, shared):
     lead = () if B is None else (B,)
     phi = _c(rng, lead + (n, L, L), dtype, dev)
     r = _c(rng, (n, L, L) if shared else lead + (n, L, L), dtype, dev)
-    n0 = cs.launches["dense_update"]
-    got = sm.smooth(D, Dinv, phi, r, 4, kind)
-    assert cs.launches["dense_update"] == n0 + (8 if kind == "rbgs" else 4)
-    want = sm.smooth(D, Dinv, phi, r, 4, kind, pallas="off")
-    assert _rel(got, want) < BARS[dtype]
+    keep = phi.clone()
+    for n_sweeps, omega in ((4, 1.0), (1, 1.0), (3, 0.8)):
+        def smooth(p, k):
+            return cs.dense_smooth(D, Dinv, p, r, k, kind, omega)
+
+        n0 = cs.launches["dense_update"]
+        got = smooth(phi, n_sweeps)
+        assert cs.launches["dense_update"] == n0 + 1
+        assert torch.equal(phi, keep)
+        want = sm.smooth(D, Dinv, phi, r, n_sweeps, kind, omega,
+                         pallas="off")
+        assert _rel(got, want) < BARS[dtype]
+        assert _rel(got, _sweep_by_sweep(smooth, phi, n_sweeps)) < BARS[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_persistent_smoothers_stage_by_shape(dev, dtype):
+    """plan_band on the card: the flagship's bands are staged (level 1
+    even in complex128, one 172 KB row a block), the L=1024 level and
+    complex128 setup at n=2 L=256 stream; every grid is co-resident, and
+    the launches are counted by mode."""
+    size = torch.empty((), dtype=dtype).element_size()
+    for name, n, B, L, staged in (
+            ("links_update", 2, 1, 256, True),
+            ("dense_update", 4, 1, 128, True),
+            ("dense_update", 4, 1, 64, True),
+            ("dense_update", 4, 4, 32, True),
+            ("dense_update", 4, 1, 1024, False),
+            ("dense_update", 2, 2, 256, size == 8)):
+        band = cs._band(name, dtype, n, B, L, dev)
+        assert band.staged == staged, (name, n, B, L, band)
+        assert band.grid * band.rows >= B * L > (band.grid - 1) * band.rows
+    rng = np.random.default_rng(14)
+    D, Dinv = _dense(rng, 1, 4, 1024, dtype, dev)
+    phi = _c(rng, (4, 1024, 1024), dtype, dev)
+    before = {k: dict(v) for k, v in cs.band_launches.items()}
+    cs.dense_smooth(D[0], Dinv[0], phi, phi, 1, "rbgs")
+    cs.dense_smooth(D[0, :, :, :, :128, :128].contiguous(),
+                    Dinv[0, :, :, :128, :128].contiguous(),
+                    phi[:, :128, :128].contiguous(),
+                    phi[:, :128, :128].contiguous(), 1, "rbgs")
+    got = cs.band_launches["dense_update"]
+    assert got["streamed"] == before["dense_update"]["streamed"] + 1
+    assert got["staged"] == before["dense_update"]["staged"] + 1
+
+
+def test_refused_cooperative_launch_raises(dev, monkeypatch):
+    """A band asking for more shared memory than a block may have: the
+    card refuses the launch, the wrapper raises and counts nothing."""
+    rng = np.random.default_rng(15)
+    U = _links(rng, 64, torch.complex64, dev)
+    phi = _c(rng, (2, 64, 64), torch.complex64, dev)
+    D, Dinv = _dense(rng, 1, 4, 64, torch.complex64, dev)
+    v = _c(rng, (4, 64, 64), torch.complex64, dev)
+    too_big = cs.Band(rows=1, grid=64, staged=True,
+                      smem_bytes=4 * cs.SMEM_BLOCK_MAX)
+    monkeypatch.setattr(cs, "_band", lambda *a: too_big)
+    n0 = dict(cs.launches)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        cs.wilson_u_smooth(U, 0.1, phi, phi, 2, "rbgs")
+    with pytest.raises(RuntimeError, match="launch failed"):
+        cs.dense_smooth(D[0], Dinv[0], v, v, 2, "jacobi")
+    assert cs.launches == n0
+    torch.cuda.synchronize()               # no error left behind
+    assert _rel(cs.wilson_u_residual(U, 0.1, phi, phi),
+                gs.residual_u("wilson", U, 0.1, phi, phi)) < 2e-5
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -204,16 +288,18 @@ def test_dense_smooth_tiled(dev, dtype, kind, omega, n, B, L, shared, tile):
 
 def test_smooth_dispatches_tiled_past_the_l2(dev):
     """smooth() on a level past the L2 (n=4, L=256) launches the tiled
-    kernel only; on one within it (n=4, L=128) the global kernel only."""
+    kernel only (once per half-sweep); on one within it (n=4, L=128) the
+    global kernel only (once per call)."""
     rng = np.random.default_rng(8)
-    for L, kernel in ((256, "dense_update_tiled"), (128, "dense_update")):
+    for L, kernel, n in ((256, "dense_update_tiled", 2),
+                         (128, "dense_update", 1)):
         D, Dinv = _dense(rng, 1, 4, L, torch.complex64, dev)
         phi = _c(rng, (4, L, L), torch.complex64, dev)
         before = dict(cs.launches)
         sm.smooth(D[0], Dinv[0], phi, phi, 1, "rbgs")
         moved = {k: v - before[k] for k, v in cs.launches.items()
                  if v != before[k]}
-        assert moved == {kernel: 2}
+        assert moved == {kernel: n}
 
 
 def test_tiled_wrappers_refuse_what_the_kernels_do_not_take(dev):

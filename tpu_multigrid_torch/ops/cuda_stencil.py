@@ -36,16 +36,22 @@ bytes a level streams per sweep or apply against the H100's L2;
 `apply_D` and `wilson_u_apply_auto` (counterpart of
 pallas_stencil.apply_D_pallas_auto) dispatch the SpMV by `apply_mode`.
 
-What bounds them on the H100 is bytes, not flops: ~4.5 complex words per
-site per links sweep and ~26 per dense n=4 sweep (the accounting of
-pallas_stencil.py:669-673). In the global kernels one thread per site
+What bounds them on the H100 is bytes, not flops: 8 complex words a site
+per links smooth and 5n^2 + 3n per dense smooth (92 at n=4), each word
+once (`profiling.kernel_work`). The two global smoothers (links_update,
+dense_update) run a whole smooth call, every sweep, in ONE cooperative
+launch, as the TPU kernels run it in one call with the lattice in VMEM: a
+grid barrier separates the red/black half-sweeps (or the Jacobi sweeps),
+and each block owns a band of (batch, x) rows for all of them, its
+read-only operands staged once in shared memory where the band fits
+(`plan_band`; counted per launch in `band_launches`). The x-tiled
+smoothers make one launch per Jacobi sweep or red/black half-sweep (the
+launch boundary is their colour barrier). Red/black half-updates are
+written in place. In the SpMV and residual kernels one thread per site
 reads its neighbours from global memory and L2 serves the reuse; in the
 tiled ones a thread owns two sites of a tile whose phi sits in shared
-memory. The TPU kernels ran all sweeps in one launch with the lattice
-resident in VMEM; here each Jacobi sweep is one launch and each red-black
-sweep two (the launch boundary is the grid-wide colour barrier), with
-red/black half-updates written in place. An SpMV moves 5n^2 + 2n words a
-site (dense) or 6 (links), once each.
+memory. An SpMV moves 5n^2 + 2n words a site (dense) or 6 (links), once
+each.
 
 A CUDA tensor always goes to its kernel, or the wrapper raises; the plain
 version runs only for CPU tensors (or when the caller passes
@@ -60,6 +66,7 @@ seconds).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
@@ -67,6 +74,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import Callable
 
 import torch
 
@@ -83,11 +91,18 @@ launches = {"links_update": 0, "links_residual": 0, "dense_update": 0,
             "links_update_tiled": 0, "links_residual_tiled": 0,
             "dense_update_tiled": 0, "links_apply": 0, "dense_apply": 0,
             "links_apply_tiled": 0, "dense_apply_tiled": 0}
+# Launches of the persistent smoothers by where their read-only operands
+# sat: staged in shared memory or streamed from global memory (plan_band).
+band_launches = {k: {"staged": 0, "streamed": 0}
+                 for k in ("links_update", "dense_update")}
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+    for modes in band_launches.values():
+        for k in modes:
+            modes[k] = 0
 
 
 def _sources():
@@ -152,11 +167,15 @@ def build() -> Path:
 
 _P, _I, _D, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_double,
                    ctypes.c_longlong)
+_PI = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "links_residual": (_P, _P, _P, _P, _I, _D, _P),
-    "links_update": (_P, _P, _P, _P, _I, _D, _D, _I, _P),
-    "dense_update": (_P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _I, _D,
+    "links_update": (_P, _P, _P, _P, _P, _I, _D, _D, _I, _I, _I, _I, _LL,
                      _P),
+    "links_update_occupancy": (_I, _LL, _PI),
+    "dense_update": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _I,
+                     _I, _D, _I, _I, _LL, _P),
+    "dense_update_occupancy": (_I, _I, _LL, _PI),
     "links_residual_tiled": (_P, _P, _P, _P, _I, _D, _I, _I, _P),
     "links_update_tiled": (_P, _P, _P, _P, _I, _D, _D, _I, _I, _I, _P),
     "dense_update_tiled": (_P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _LL,
@@ -216,9 +235,10 @@ def _check_lattice(L: int, kind: str) -> None:
 
 
 def _sweeps(launch, phi, n_sweeps: int, kind: str):
-    """n_sweeps of launch(src, dst, colour). Red-black: colours 0 then 1,
-    in place on a copy of phi (the caller's phi is left as it was);
-    Jacobi: colour -1, ping-pong between two fresh buffers."""
+    """n_sweeps of launch(src, dst, colour) for the x-tiled smoothers.
+    Red-black: colours 0 then 1, in place on a copy of phi (the caller's
+    phi is left as it was); Jacobi: colour -1, ping-pong between two fresh
+    buffers."""
     if kind == "rbgs":
         out = phi.clone()
         for _ in range(n_sweeps):
@@ -268,6 +288,113 @@ def apply_mode(n: int, L: int, dtype=torch.complex64,
     and out, 6 words."""
     words = 6 if links else 5 * n * n + 2 * n
     return "tiled" if words * L * L * dtype.itemsize > L2_BYTES else "global"
+
+
+# --------------------------------------------------------------------------
+# the band of the persistent smoothers (links_update, dense_update)
+# --------------------------------------------------------------------------
+
+# Shared memory one block of the H100 may ask for: 227 KB of the SM's
+# 228 KB, above the 48 KB default only once the kernel opts in (the C side
+# does, for each launch).
+SMEM_BLOCK_MAX = 232448
+
+
+@dataclasses.dataclass(frozen=True)
+class Band:
+    """How one persistent smoother launch cuts the lattice: each of `grid`
+    blocks owns `rows` consecutive (batch, x) rows for every sweep (the
+    last block the rest); `staged`: the block keeps its rows' read-only
+    operands in `smem_bytes` of shared memory for the whole call, else it
+    reads them from global memory each sweep."""
+    rows: int
+    grid: int
+    staged: bool
+    smem_bytes: int
+
+
+def links_band_bytes(L: int, rows: int, itemsize: int) -> int:
+    """Shared memory of a links band: U_x of its rows and of the row before
+    (the -x hop reads U_x(x-1)), U_y, r_0 and r_1 of its rows."""
+    return (4 * rows + 1) * L * itemsize
+
+
+def dense_band_bytes(n: int, L: int, rows: int, itemsize: int) -> int:
+    """Shared memory of a dense band: D's 4n^2 hop planes, D0inv's n^2 and
+    r's n over its rows (5n^2 + n words a site)."""
+    return (5 * n * n + n) * rows * L * itemsize
+
+
+def plan_band(total_rows: int, band_bytes: Callable[[int], int],
+              sm_count: int, occupancy: Callable[[bool, int], int]) -> Band:
+    """The band of a persistent smoother launch over `total_rows` (batch,
+    x) rows: the fewest rows a block such that the operands of the band
+    (band_bytes(rows)) fit SMEM_BLOCK_MAX and every block of the grid is
+    resident at once (grid <= occupancy(True, smem) * sm_count, as a
+    cooperative launch needs); if no band fits, streamed operands (no
+    shared memory), the fewest rows a block that the card holds resident
+    (occupancy(False, 0) blocks an SM). `occupancy(staged, smem)` is the
+    blocks of the kernel one SM holds with `smem` bytes of shared memory:
+    the card's own count on the card, any given numbers in tests."""
+    def ceil_div(a, b):
+        return -(-a // b)
+
+    for rows in range(1, total_rows + 1):
+        smem = band_bytes(rows)
+        if smem > SMEM_BLOCK_MAX:
+            break
+        grid = ceil_div(total_rows, rows)
+        if grid <= occupancy(True, smem) * sm_count:
+            return Band(rows, grid, True, smem)
+    resident = occupancy(False, 0) * sm_count
+    if resident < 1:
+        raise RuntimeError("the smoother kernel cannot be resident on the "
+                           "card")
+    rows = ceil_div(total_rows, resident)
+    return Band(rows, ceil_div(total_rows, rows), False, 0)
+
+
+def _occupancy(name: str, dtype: torch.dtype, *head) -> Callable:
+    """occupancy(staged, smem) of the kernel `name` on the current card."""
+    def occ(staged: bool, smem: int) -> int:
+        blocks = ctypes.c_int(0)
+        err = _entry(f"{name}_occupancy", dtype)(*head, int(staged), smem,
+                                                 ctypes.byref(blocks))
+        if err != 0:
+            raise RuntimeError(f"{name} occupancy query failed: CUDA error "
+                               f"{err}")
+        return blocks.value
+    return occ
+
+
+@functools.lru_cache(maxsize=None)
+def _band(name: str, dtype: torch.dtype, n: int, B: int, L: int,
+          device: torch.device) -> Band:
+    """plan_band for one call's shapes with the card's SM count and the
+    kernel's occupancy (cached per shape)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    size = torch.empty((), dtype=dtype).element_size()
+    if name == "links_update":
+        return plan_band(L, lambda k: links_band_bytes(L, k, size), sms,
+                         _occupancy(name, dtype))
+    return plan_band(B * L, lambda k: dense_band_bytes(n, L, k, size), sms,
+                     _occupancy(name, dtype, n))
+
+
+def _smooth_once(name: str, band: Band, phi, n_sweeps: int, kind: str,
+                 launch) -> torch.Tensor:
+    """One persistent smoother launch: launch(out, scratch, rb) with out
+    and a Jacobi scratch buffer (2+ sweeps) allocated here; the caller's
+    phi is left as it was. No sweeps: a copy of phi, no launch."""
+    if n_sweeps <= 0:
+        return phi.clone()
+    out = torch.empty_like(phi)
+    scratch = (torch.empty_like(phi) if kind == "jacobi" and n_sweeps > 1
+               else None)
+    launch(out.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
+           int(kind == "rbgs"))
+    band_launches[name]["staged" if band.staged else "streamed"] += 1
+    return out
 
 
 # Largest tile of the tiled kernels: a block of 32 x 8 threads, two sites a
@@ -335,31 +462,30 @@ def wilson_u_residual_tiled(U, m: float, phi, r, tile=None):
     return out
 
 
-def _links_smooth(name, U, m, phi, r, n_sweeps, kind, omega, *tile):
+def wilson_u_smooth(U, m: float, phi, r, n_sweeps: int, kind: str = "rbgs",
+                    omega: float = 1.0):
+    """n_sweeps links-only Wilson smoother sweeps (Jacobi or red-black).
+
+    Replaces tpu_multigrid/ops/pallas_stencil.py _u_smooth_vmem_kernel
+    (via wilson_u_smooth_pallas): one cooperative launch runs every sweep,
+    each block on its band of x-rows (plan_band). Bound by bytes: U, r,
+    phi in and out, 8 complex words per site once per smooth. The result
+    is a new tensor; phi is left as it was."""
     if not phi.is_cuda:
         return gauge_stencil.smooth_u("wilson", U, m, phi, r, n_sweeps, kind,
                                       omega)
     _check_links(U, phi, r)
     L = phi.shape[-1]
     _check_lattice(L, kind)
+    band = _band("links_update", phi.dtype, 2, 1, L, phi.device)
 
-    def launch(src, dst, colour):
-        _launch(name, phi.dtype, phi.device, U.data_ptr(), src.data_ptr(),
-                r.data_ptr(), dst.data_ptr(), L, float(m), float(omega),
-                colour, *tile)
+    def launch(out, scratch, rb):
+        _launch("links_update", phi.dtype, phi.device, U.data_ptr(),
+                phi.data_ptr(), r.data_ptr(), out, scratch, L, float(m),
+                float(omega), rb, n_sweeps, band.rows, int(band.staged),
+                band.smem_bytes)
 
-    return _sweeps(launch, phi, n_sweeps, kind)
-
-
-def wilson_u_smooth(U, m: float, phi, r, n_sweeps: int, kind: str = "rbgs",
-                    omega: float = 1.0):
-    """n_sweeps links-only Wilson smoother sweeps (Jacobi or red-black).
-
-    Replaces tpu_multigrid/ops/pallas_stencil.py _u_smooth_vmem_kernel
-    (via wilson_u_smooth_pallas). Bound by bytes (~4.5 complex words per
-    site per sweep); red-black half-sweeps update a copy of phi in place,
-    Jacobi ping-pongs between two buffers."""
-    return _links_smooth("links_update", U, m, phi, r, n_sweeps, kind, omega)
+    return _smooth_once("links_update", band, phi, n_sweeps, kind, launch)
 
 
 def wilson_u_smooth_tiled(U, m: float, phi, r, n_sweeps: int,
@@ -368,9 +494,21 @@ def wilson_u_smooth_tiled(U, m: float, phi, r, n_sweeps: int,
 
     Replaces tpu_multigrid/ops/pallas_stencil.py _u_update_tile_kernel
     (via wilson_u_smooth_pallas_tiled): one launch per Jacobi sweep or
-    red/black half-sweep, as there."""
-    return _links_smooth("links_update_tiled", U, m, phi, r, n_sweeps, kind,
-                         omega, *_tile(tile, phi.shape[-1]))
+    red/black half-sweep."""
+    TX, TY = _tile(tile, phi.shape[-1])
+    if not phi.is_cuda:
+        return gauge_stencil.smooth_u("wilson", U, m, phi, r, n_sweeps, kind,
+                                      omega)
+    _check_links(U, phi, r)
+    L = phi.shape[-1]
+    _check_lattice(L, kind)
+
+    def launch(src, dst, colour):
+        _launch("links_update_tiled", phi.dtype, phi.device, U.data_ptr(),
+                src.data_ptr(), r.data_ptr(), dst.data_ptr(), L, float(m),
+                float(omega), colour, TX, TY)
+
+    return _sweeps(launch, phi, n_sweeps, kind)
 
 
 def wilson_u_apply(U, m: float, v):
@@ -429,9 +567,8 @@ def _batch_stride(t: torch.Tensor, unbatched_ndim: int, B: int) -> int:
                      f"batch {B}")
 
 
-def _dense_smooth(name, D, D0inv, phi, r, n_sweeps, kind, omega, *tile):
-    if not phi.is_cuda:
-        return smoothers.smooth_plain(D, D0inv, phi, r, n_sweeps, kind, omega)
+def _dense_operands(name, D, D0inv, phi, r, kind):
+    """Checks of a dense smoother call; (B, n, L, d_bs, dinv_bs, r_bs)."""
     batched = phi.dim() == 4
     B = phi.shape[0] if batched else 1
     n, L = phi.shape[-3], phi.shape[-1]
@@ -446,13 +583,7 @@ def _dense_smooth(name, D, D0inv, phi, r, n_sweeps, kind, omega, *tile):
     _check("D", D, phi, ((B,) if d_bs else ()) + (5, n, n, L, L))
     _check("D0inv", D0inv, phi, ((B,) if dinv_bs else ()) + (n, n, L, L))
     _check("r", r, phi, ((B,) if r_bs else ()) + (n, L, L))
-
-    def launch(src, dst, colour):
-        _launch(name, phi.dtype, phi.device, D.data_ptr(), D0inv.data_ptr(),
-                src.data_ptr(), r.data_ptr(), dst.data_ptr(), B, n, L, d_bs,
-                dinv_bs, r_bs, colour, float(omega), *tile)
-
-    return _sweeps(launch, phi, n_sweeps, kind)
+    return B, n, L, d_bs, dinv_bs, r_bs
 
 
 def dense_smooth(D, D0inv, phi, r, n_sweeps: int, kind: str = "rbgs",
@@ -461,13 +592,26 @@ def dense_smooth(D, D0inv, phi, r, n_sweeps: int, kind: str = "rbgs",
     phi <- -D0inv (sum_mu D_mu phi(x+mu) - r), red-black or Jacobi.
 
     Replaces tpu_multigrid/ops/pallas_stencil.py _rbgs_kernel (via
-    rbgs_smooth_pallas) and _jacobi_kernel (via jacobi_smooth_pallas).
-    phi [B?, n, L, L] with an optional batch axis; D [B?, 5, n, n, L, L],
-    D0inv [B?, n, n, L, L] and r [B?, n, L, L] each shared or batched.
-    Bound by bytes: D's 4n^2 hop blocks and D0inv's n^2 dominate
-    (~26 complex words per site per n=4 sweep)."""
-    return _dense_smooth("dense_update", D, D0inv, phi, r, n_sweeps, kind,
-                         omega)
+    rbgs_smooth_pallas) and _jacobi_kernel (via jacobi_smooth_pallas):
+    one cooperative launch runs every sweep, each block on its band of
+    (batch, x) rows (plan_band). phi [B?, n, L, L] with an optional batch
+    axis; D [B?, 5, n, n, L, L], D0inv [B?, n, n, L, L] and r [B?, n, L, L]
+    each shared or batched. Bound by bytes: D's 4n^2 hop blocks, D0inv's
+    n^2, r, phi in and out, once per smooth (92 complex words per site at
+    n=4). The result is a new tensor; phi is left as it was."""
+    if not phi.is_cuda:
+        return smoothers.smooth_plain(D, D0inv, phi, r, n_sweeps, kind, omega)
+    B, n, L, d_bs, dinv_bs, r_bs = _dense_operands("dense_update", D, D0inv,
+                                                   phi, r, kind)
+    band = _band("dense_update", phi.dtype, n, B, L, phi.device)
+
+    def launch(out, scratch, rb):
+        _launch("dense_update", phi.dtype, phi.device, D.data_ptr(),
+                D0inv.data_ptr(), phi.data_ptr(), r.data_ptr(), out, scratch,
+                B, n, L, d_bs, dinv_bs, r_bs, rb, n_sweeps, float(omega),
+                band.rows, int(band.staged), band.smem_bytes)
+
+    return _smooth_once("dense_update", band, phi, n_sweeps, kind, launch)
 
 
 def dense_smooth_tiled(D, D0inv, phi, r, n_sweeps: int, kind: str = "rbgs",
@@ -476,9 +620,21 @@ def dense_smooth_tiled(D, D0inv, phi, r, n_sweeps: int, kind: str = "rbgs",
     same batch axis and per-operand batch strides.
 
     Replaces tpu_multigrid/ops/pallas_stencil.py _tiled_update_kernel (via
-    _tiled_update_call / smooth_pallas_tiled)."""
-    return _dense_smooth("dense_update_tiled", D, D0inv, phi, r, n_sweeps,
-                         kind, omega, *_tile(tile, phi.shape[-1]))
+    _tiled_update_call / smooth_pallas_tiled): one launch per Jacobi sweep
+    or red/black half-sweep."""
+    TX, TY = _tile(tile, phi.shape[-1])
+    if not phi.is_cuda:
+        return smoothers.smooth_plain(D, D0inv, phi, r, n_sweeps, kind, omega)
+    B, n, L, d_bs, dinv_bs, r_bs = _dense_operands(
+        "dense_update_tiled", D, D0inv, phi, r, kind)
+
+    def launch(src, dst, colour):
+        _launch("dense_update_tiled", phi.dtype, phi.device, D.data_ptr(),
+                D0inv.data_ptr(), src.data_ptr(), r.data_ptr(),
+                dst.data_ptr(), B, n, L, d_bs, dinv_bs, r_bs, colour,
+                float(omega), TX, TY)
+
+    return _sweeps(launch, phi, n_sweeps, kind)
 
 
 def _dense_apply(name, D, v, *tile):

@@ -46,6 +46,52 @@ def stencil_nnz(n: int, L: int) -> int:
     return 5 * n * n * L * L
 
 
+# Real flops of one site: the links-only Wilson hop (4 complex products,
+# 4 projections, the two spinor sums) and a complex multiply-add.
+_HOP_FLOPS = 48
+_CMAC_FLOPS = 8
+
+
+def kernel_work(kernel: str, n: int, L: int, itemsize: int, batch: int = 1,
+                op_batch: int = 1, n_sweeps: int = 1):
+    """(bytes, flops) the least that one call of a hand kernel must do:
+    each input word read once and each output word written once, whatever
+    the kernel reads again. `kernel` is a cuda_stencil.launches key (the
+    x-tiled kernels do the same work as the global ones); `batch` fields,
+    `op_batch` copies of the operator (1: shared by the batch); a smoother
+    call runs `n_sweeps` sweeps. Words a site:
+    - links smoother / residual: U 2, phi 2, r 2, out 2 (8);
+    - links apply: U 2, v 2, out 2 (6);
+    - dense smoother: per operator copy D's 4n^2 hop blocks, D0inv's n^2
+      and r's n; per field phi in and out (2n): 92 at n=4;
+    - dense apply: 5n^2 per operator copy, v in and out per field."""
+    LL = L * L
+    base = kernel.removesuffix("_tiled")
+    if base in ("links_update", "links_residual", "links_apply"):
+        words = 6 if base == "links_apply" else 8
+        flops = {"links_update": (_HOP_FLOPS + 8) * n_sweeps,
+                 "links_residual": _HOP_FLOPS + 12,
+                 "links_apply": _HOP_FLOPS + 8}[base]
+        return words * LL * itemsize, flops * LL
+    if base == "dense_update":
+        words = (5 * n * n + n) * op_batch + 2 * n * batch
+        flops = (_CMAC_FLOPS * 5 * n * n + 2 * n) * n_sweeps * batch
+        return words * LL * itemsize, flops * LL
+    if base == "dense_apply":
+        words = 5 * n * n * op_batch + 2 * n * batch
+        return words * LL * itemsize, _CMAC_FLOPS * 5 * n * n * batch * LL
+    raise ValueError(f"no work model for kernel {kernel!r}")
+
+
+def bound_seconds(nbytes: int, flops: int, peak_bytes_per_s: float,
+                  peak_flops: float):
+    """(seconds, 'bytes' or 'operations'): the least time the card could
+    take for the work, the larger of bytes over its memory rate and flops
+    over its peak rate for their type."""
+    t_bytes, t_ops = nbytes / peak_bytes_per_s, flops / peak_flops
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def time_op(fn: Callable, *args, reps: int = 100, warmup: bool = True,
             passes: int = 3) -> float:
     """Best-of-passes seconds per call of fn(*args[:-1], x), chained `reps`
