@@ -43,9 +43,11 @@ It checks convergence, that each solve went through every kernel of its
 path (launch counters, set to 0 before the path and read after it), that
 one flagship cycle launches the persistent smoothers exactly once per
 smooth call (2 links_update, 5 dense_update, no x-tiled smoother), that
-the plain path on the same hierarchy takes the same number of cycles
-(within one), and that the kernel path agrees with the plain path on a
-small complex128 problem.
+one large-flagship cycle launches the x-tiled smoothers exactly once per
+sweep (8 links_update_tiled, 24 dense_update_tiled: one fused red-black
+pass a sweep), that the plain path on the same hierarchy takes the same
+number of cycles (within one), and that the kernel path agrees with the
+plain path on a small complex128 problem.
 
 Beside each kernel's main shape it computes the kernel's bound (the least
 bytes and flops of the call over the card's peak rates) and times one
@@ -353,6 +355,15 @@ def kernel_cases(torch, mgt, dev):
                              tile=(8, 8))
         cases += dense_cases(2, 2, 32, True, "n=2 L=32 k=2 shared tile 6x12",
                              ("rbgs",), dtype, tiled=True, tile=(6, 12))
+        # the fused red-black pass's edges: 1 and 3 sweeps, omega 0.8,
+        # ragged 3 x 5 and 6 x 12 tiles, a batch with its own operators
+        for sweeps, omega in ((1, 1.0), (3, 1.0), (4, 0.8)):
+            cases += links_cases(32, "L=32 tile 6x12", dtype, tiled=True,
+                                 tile=(6, 12), sweeps=sweeps, omega=omega,
+                                 resid=False)
+            cases += dense_cases(3, 4, 32, False, "n=4 L=32 batch 3 tile 3x5",
+                                 ("rbgs", "jacobi"), dtype, tiled=True,
+                                 tile=(3, 5), sweeps=sweeps, omega=omega)
         # the SpMV path: the first case of each kernel is its main shape
         cases += apply_cases(None, 2, 256, "n=2 L=256 (MR, CGNR)", dtype,
                              tiled=False)
@@ -478,12 +489,12 @@ def run_kernel_cases(torch, mgt, dev):
     return per_kernel, vs_global
 
 
-def cycle_launches(torch, mgt, dev, cfg, hier, ms_per_cycle):
-    """One flagship cycle with the launch counters set to 0 just before it
-    and read just after: exactly 2 links_update and 5 dense_update launches
-    (one per smooth call) and no x-tiled smoother. The profiler gives the
-    cycle's device ops and device time; the idle share is taken against
-    the unprofiled ms_per_cycle."""
+def cycle_launches(torch, mgt, dev, cfg, hier, ms_per_cycle, want, tag,
+                   first_design_ops=None):
+    """One cycle with the launch counters set to 0 just before it and read
+    just after: exactly want[k] launches of each kernel k of `want`. The
+    profiler gives the cycle's device ops and device time; the idle share
+    is taken against the unprofiled ms_per_cycle."""
     from torch.profiler import ProfilerActivity, profile
     from torch.autograd import DeviceType
     cs = mgt.ops.cuda_stencil
@@ -502,20 +513,19 @@ def cycle_launches(torch, mgt, dev, cfg, hier, ms_per_cycle):
     busy_us = sum(getattr(e, "device_time_total", None)
                   or getattr(e, "cuda_time_total", 0.0) for e in events)
     out = {"port_launches": counts, "device_ops": len(events),
-           "first_design_device_ops": FIRST_DESIGN_CYCLE_OPS,
            "device_ms": busy_us / 1e3,
            "wall_ms_profiled": wall * 1e3,
            "idle_share": 1 - busy_us / 1e3 / ms_per_cycle}
-    print(f"  one flagship cycle: kernel launches {counts}; profiler "
-          f"{len(events)} device ops (first design, on record: "
-          f"{FIRST_DESIGN_CYCLE_OPS}), "
-          f"{busy_us / 1e3:.4f} ms of device time, idle "
+    if first_design_ops is not None:
+        out["first_design_device_ops"] = first_design_ops
+    print(f"  one {tag} cycle: kernel launches {counts}; profiler "
+          f"{len(events)} device ops"
+          + ("" if first_design_ops is None else
+             f" (first design, on record: {first_design_ops})")
+          + f", {busy_us / 1e3:.4f} ms of device time, idle "
           f"{out['idle_share']:.3f} of the {ms_per_cycle:.3f} ms cycle")
-    check(counts.get("links_update") == 2 and counts.get("dense_update") == 5
-          and "links_update_tiled" not in counts
-          and "dense_update_tiled" not in counts,
-          f"a flagship cycle launched {counts}: want 2 links_update, 5 "
-          "dense_update, no x-tiled smoother")
+    check(all(counts.get(k, 0) == n for k, n in want.items()),
+          f"a {tag} cycle launched {counts}: want {want}")
     return out
 
 
@@ -1068,8 +1078,10 @@ def main():
     hier, flag, flag_launches = solve_phase(
         torch, mgt, dev, cfg, gauges, FLAGSHIP_KERNELS, max_cycles=30,
         n_cyc=10, reps=5, warm_check=True)
-    flag["cycle"] = cycle_launches(torch, mgt, dev, cfg, hier,
-                                   flag["ms_per_cycle"])
+    flag["cycle"] = cycle_launches(
+        torch, mgt, dev, cfg, hier, flag["ms_per_cycle"],
+        {"links_update": 2, "dense_update": 5, "links_update_tiled": 0,
+         "dense_update_tiled": 0}, "flagship", FIRST_DESIGN_CYCLE_OPS)
     flag["solve_ir"] = ir_phase(torch, mgt, dev, cfg, gauges[0][0], hier)
     flag_cfg, flag_hier, flag_phases = cfg, hier, gauges[0][0]
     del gauges, hier
@@ -1082,6 +1094,12 @@ def main():
         n_cyc=4, reps=3, warm_check=False)
     phases0 = gauges[0][0]
     del gauges
+    # one fused red-black launch a sweep: rbgs x4 at level 0 (2 calls) and
+    # at levels 1-3 (2 calls each)
+    large["cycle"] = cycle_launches(
+        torch, mgt, dev, cfg, hier, large["ms_per_cycle"],
+        {"links_update_tiled": 8, "dense_update_tiled": 24},
+        "large flagship")
     large["solve_ir"] = ir_phase(torch, mgt, dev, cfg, phases0, hier)
     del hier
     torch.cuda.synchronize()

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Same-card comparison of two designs of the port's global smoother
-kernels (links_update, dense_update) on one CUDA card.
+"""Same-card comparison of two designs of the port's smoother kernels
+(links_update, dense_update and the x-tiled links_update_tiled,
+dense_update_tiled) on one CUDA card.
 
     python3 scripts/torch_smoother_ab.py OTHER_DIR [--out FILE]
 
@@ -15,10 +16,22 @@ profiles one cycle of each: the device ops, the device time, the idle
 share of the unprofiled cycle and the port's kernel launches. Then, on
 the same seeded inputs, complex64, at the flagship's shapes (links rbgs x4
 at L=256; dense rbgs x4 at n=4 L=128, L=64, the 4 NTL copies at L=32 and
-setup at n=2 L=256 with k=2 sharing D; dense Jacobi x4 at n=4 L=128), it
-times one wrapper call of each design in the same turns (21 calls a turn,
-each between CUDA events), profiles ten calls of each for the device time
-a call, and reports the largest difference between their results.
+setup at n=2 L=256 with k=2 sharing D; dense Jacobi x4 at n=4 L=128) and
+the large flagship's x-tiled shapes (links rbgs x4 at L=2048; dense rbgs
+x4 at n=4 L=1024, 512 and 256, and setup at n=2 L=2048 with k=2 sharing
+D), it times one wrapper call of each design in the same turns (21 calls a
+turn, each between CUDA events), profiles ten calls of each for the device
+time a call, and reports the largest difference between their results.
+
+Then the large flagship (the same config at L=2048, 6 levels): on one
+hierarchy built by this checkout, runs of 4 cycles of each design's cycle
+code in three rounds of turns (5 runs a turn), one profiled cycle of
+each, and the warm setup seconds of each design's build_hierarchy on a
+second gauge (after one unmeasured build each), in one round of turns.
+Last, the links apply at L=256 (links_apply, B8) beside torch.sparse.mm
+on the operator as a CSR matrix (chip_smoke.stencil_csr): wrapper ms in
+turns, and device microseconds a call from the profiler (ten calls a turn,
+three rounds of turns).
 
 Prints one JSON object (with the card's name and power limit) as its last
 line, and writes it to FILE too when --out is given.
@@ -108,6 +121,16 @@ def profile_cycle(torch, cs, cycle, ms_per_cycle):
             "busy_share_profiled": busy / wall, "wall_ms_profiled": wall * 1e3,
             "idle_share": 1 - busy * 1e3 / ms_per_cycle,
             "launches": {k: v for k, v in cs.launches.items() if v}}
+
+
+def device_us_in_turns(torch, other, this, calls=10, rounds=3):
+    """(other, this) median device microseconds a call: `calls` calls under
+    the profiler a turn, turns other, this, this, other."""
+    got = {other: [], this: []}
+    for _ in range(rounds):
+        for f in (other, this, this, other):
+            got[f].append(profiled(torch, f, calls)[1] / calls * 1e6)
+    return statistics.median(got[other]), statistics.median(got[this])
 
 
 def main():
@@ -218,6 +241,23 @@ def main():
         cases.append((tag, "dense_update",
                       lambda p, o=ops, k=kind: p.ops.cuda_stencil.dense_smooth(
                           *o, 4, k)))
+    # the large flagship's x-tiled shapes
+    Ul = torch.polar(torch.ones(2, 2048, 2048, dtype=torch.float64),
+                     torch.from_numpy(0.2 * rng.normal(size=(2, 2048, 2048)))
+                     ).to(dev, dt)
+    phil, rl = c((2, 2048, 2048)), c((2, 2048, 2048))
+    cases.append(("B5a links rbgs x4 L=2048", "links_update_tiled",
+                  lambda p: p.ops.cuda_stencil.wilson_u_smooth_tiled(
+                      Ul, m, phil, rl, 4, "rbgs")))
+    for tag, (B, n, L, shared) in (
+            ("B6 rbgs x4 n=4 L=1024 (level 1)", (None, 4, 1024, False)),
+            ("B6 rbgs x4 n=4 L=512 (level 2)", (None, 4, 512, False)),
+            ("B6 rbgs x4 n=4 L=256 (level 3)", (None, 4, 256, False)),
+            ("B6 rbgs x4 n=2 L=2048 k=2 shared D (setup)", (2, 2, 2048, True))):
+        ops = dense(B, n, L, shared)
+        cases.append((tag, "dense_update_tiled",
+                      lambda p, o=ops: p.ops.cuda_stencil.dense_smooth_tiled(
+                          *o, 4, "rbgs")))
     for tag, kernel, fn in cases:
         got_o, got_t = fn(other), fn(this)
         torch.cuda.synchronize()
@@ -240,11 +280,124 @@ def main():
               f"{dev_o:.1f} us)  this {ms_t:.4f} ms ({n_t}, device "
               f"{dev_t:.1f} us)  rel diff {diff:.2e}", flush=True)
 
-    out = {"card": card, "kernels": rows, "flagship_cycle": cycle}
+    del cases, ops, Ul, phil, rl
+    large = large_flagship(torch, this, other, dev)
+    b8 = links_apply_vs_library(torch, this, other, dev, rng)
+    out = {"card": card, "kernels": rows, "flagship_cycle": cycle,
+           "large_flagship": large, "links_apply_vs_sparse_mm": b8}
     if ns.out is not None:
         ns.out.parent.mkdir(parents=True, exist_ok=True)
         ns.out.write_text(json.dumps(out, indent=1))
     print(json.dumps(out))
+
+
+def large_flagship(torch, this, other, dev):
+    """The large flagship (L=2048, 6 levels): ms per cycle of each design
+    on one hierarchy, in turns; one profiled cycle of each; warm setup
+    seconds of each design in one round of turns."""
+    m = -0.005
+    cfgs = {p: p.MGConfig(L=2048, stencil="wilson", m=m, nlevels=6, ntl=True,
+                          num_iters=4, null_iters=100, dtype="complex64",
+                          res_threshold=1e-6, smoother="rbgs")
+            for p in (other, this)}
+    cfg = cfgs[this]
+    rng = np.random.default_rng(cfg.seed)
+    gauges = []
+    for _ in range(2):
+        U = this.models.gauge.gauge_from_phases(
+            0.2 * rng.normal(size=(2, 2048, 2048)), cfg.cdtype, dev)
+        gauges.append((U, this.models.operators.assemble("wilson", U, m)))
+    (U, D), (Ub, Db) = gauges
+    hier = this.build_hierarchy(D, cfg, U=U, check=False)
+    b = this.point_source(cfg, device=dev)
+
+    def cycles(p, k):
+        def run():
+            phis = this.zero_fields(cfg, dev)
+            for _ in range(k):
+                phis, _ = p.cycle(hier, phis, b, cfgs[p])
+            return phis
+        return run
+
+    def one_cycle(p):
+        state = [this.zero_fields(cfg, dev)]
+
+        def run():
+            p.ops.cuda_stencil.reset_launches()
+            state[0], _ = p.cycle(hier, state[0], b, cfgs[p])
+        return run
+
+    res = {p: float(this.ops.stencil.residual(
+        hier.levels[0].D, cycles(p, 4)()[0], b).norm() / b.norm())
+        for p in (other, this)}
+    ms_o, ms_t, turns = in_turns(torch, cycles(other, 4), cycles(this, 4),
+                                 reps=5)
+    out = {"other_ms_per_cycle": ms_o / 4, "this_ms_per_cycle": ms_t / 4,
+           "turns_ms_4_cycles": turns, "other_res_4": res[other],
+           "this_res_4": res[this],
+           "other_profile": profile_cycle(torch, other.ops.cuda_stencil,
+                                          one_cycle(other), ms_o / 4),
+           "this_profile": profile_cycle(torch, this.ops.cuda_stencil,
+                                         one_cycle(this), ms_t / 4)}
+    print(f"large flagship cycle: other {ms_o / 4:.4f} ms, this "
+          f"{ms_t / 4:.4f} ms (4 cycles a run, 3 rounds of turns of 5 runs);"
+          f" residual after 4: {res[other]:.6e} / {res[this]:.6e}")
+    for k in ("other", "this"):
+        pr = out[f"{k}_profile"]
+        print(f"  {k}: {pr['device_ops']} device ops, {pr['device_ms']:.4f} "
+              f"ms of device time a cycle, idle {pr['idle_share']:.3f}; "
+              f"launches {pr['launches']}")
+    del hier
+
+    def setup(p):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = p.build_hierarchy(Db, cfgs[p], U=Ub, check=False)
+        torch.cuda.synchronize()
+        del h
+        return time.perf_counter() - t0
+
+    for p in (other, this):          # first builds: kernels, caches
+        setup(p)
+    warm = {other: [], this: []}
+    for p in (other, this, this, other):
+        warm[p].append(setup(p))
+    out.update(other_setup_warm_s=warm[other], this_setup_warm_s=warm[this])
+    print(f"large flagship warm setup (second gauge, check=False): other "
+          f"{warm[other]} s, this {warm[this]} s")
+    return out
+
+
+def links_apply_vs_library(torch, this, other, dev, rng):
+    """B8 (links_apply) at L=256 beside torch.sparse.mm on the operator as
+    one CSR matrix: wrapper ms in turns, device us a call in turns."""
+    sys.path.insert(0, str(HERE))
+    from chip_smoke import stencil_csr
+    m, L = -0.005, 256
+    U = torch.polar(torch.ones(2, L, L, dtype=torch.float64),
+                    torch.from_numpy(0.2 * rng.normal(size=(2, L, L)))
+                    ).to(dev, torch.complex64)
+    v = torch.from_numpy(rng.normal(size=(2, L, L))
+                         + 1j * rng.normal(size=(2, L, L))).to(
+                             dev, torch.complex64)
+    A = stencil_csr(torch, this.models.operators.assemble("wilson", U, m))
+
+    def kernel():
+        return this.ops.cuda_stencil.wilson_u_apply(U, m, v)
+
+    def library():
+        return torch.sparse.mm(A, v.reshape(-1, 1))
+
+    diff = float((library().reshape(v.shape) - kernel()).abs().max()
+                 / kernel().abs().max())
+    lib_ms, ker_ms, turns = in_turns(torch, library, kernel, reps=21)
+    lib_us, ker_us = device_us_in_turns(torch, library, kernel)
+    print(f"B8 links apply L=256: kernel {ker_ms:.4f} ms ({ker_us:.2f} us on "
+          f"the device), torch.sparse.mm {lib_ms:.4f} ms ({lib_us:.2f} us); "
+          f"rel diff {diff:.1e}")
+    return {"kernel_ms": ker_ms, "library_ms": lib_ms, "turns_ms": turns,
+            "kernel_device_us": ker_us, "library_device_us": lib_us,
+            "rel_diff": diff}
 
 
 if __name__ == "__main__":

@@ -238,6 +238,7 @@ def test_links_residual_tiled(dev, dtype, L, tile):
                                         ("rbgs", 0.8), ("jacobi", 0.8)])
 @pytest.mark.parametrize("L,tile", TILES + [(2048, None)])
 def test_links_smooth_tiled(dev, dtype, kind, omega, L, tile):
+    """One launch per sweep (a red-black sweep in one fused pass)."""
     rng = np.random.default_rng(6)
     U = _links(rng, L, dtype, dev)
     phi, r = _c(rng, (2, L, L), dtype, dev), _c(rng, (2, L, L), dtype, dev)
@@ -245,8 +246,7 @@ def test_links_smooth_tiled(dev, dtype, kind, omega, L, tile):
     n0 = cs.launches["links_update_tiled"]
     got = cs.wilson_u_smooth_tiled(U, -0.005, phi, r, 4, kind, omega,
                                    tile=tile)
-    assert cs.launches["links_update_tiled"] == n0 + (8 if kind == "rbgs"
-                                                      else 4)
+    assert cs.launches["links_update_tiled"] == n0 + 4
     assert torch.equal(phi, keep)
     want = gs.smooth_u("wilson", U, -0.005, phi, r, 4, kind, omega)
     assert _rel(got, want) < BARS[dtype]
@@ -279,8 +279,7 @@ def test_dense_smooth_tiled(dev, dtype, kind, omega, n, B, L, shared, tile):
     keep = phi.clone()
     n0 = cs.launches["dense_update_tiled"]
     got = cs.dense_smooth_tiled(D, Dinv, phi, r, 4, kind, omega, tile=tile)
-    assert cs.launches["dense_update_tiled"] == n0 + (8 if kind == "rbgs"
-                                                      else 4)
+    assert cs.launches["dense_update_tiled"] == n0 + 4
     assert torch.equal(phi, keep)
     want = sm.smooth_plain(D, Dinv, phi, r, 4, kind, omega)
     assert _rel(got, want) < BARS[dtype]
@@ -288,18 +287,96 @@ def test_dense_smooth_tiled(dev, dtype, kind, omega, n, B, L, shared, tile):
 
 def test_smooth_dispatches_tiled_past_the_l2(dev):
     """smooth() on a level past the L2 (n=4, L=256) launches the tiled
-    kernel only (once per half-sweep); on one within it (n=4, L=128) the
-    global kernel only (once per call)."""
+    kernel only (once per sweep); on one within it (n=4, L=128) the global
+    kernel only (once per call)."""
     rng = np.random.default_rng(8)
-    for L, kernel, n in ((256, "dense_update_tiled", 2),
+    for L, kernel, n in ((256, "dense_update_tiled", 3),
                          (128, "dense_update", 1)):
         D, Dinv = _dense(rng, 1, 4, L, torch.complex64, dev)
         phi = _c(rng, (4, L, L), torch.complex64, dev)
         before = dict(cs.launches)
-        sm.smooth(D[0], Dinv[0], phi, phi, 1, "rbgs")
+        sm.smooth(D[0], Dinv[0], phi, phi, 3, "rbgs")
         moved = {k: v - before[k] for k, v in cs.launches.items()
                  if v != before[k]}
         assert moved == {kernel: n}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("form,L,tile", [
+    ("links", 2048, None), ("links", 32, (6, 12)), ("links", 8, (16, 32)),
+    ("dense n=4", 1024, None), ("dense n=4", 32, (3, 5)),
+    ("dense n=2 k=2", 2048, None), ("dense n=1 batch 3", 8, (16, 32)),
+])
+def test_fused_red_black_sweep(dev, dtype, form, L, tile):
+    """The fused red-black pass (links_rb_tiled_kernel,
+    dense_rb_tiled_kernel): 3 sweeps in one call equal 3 calls of one sweep
+    (a launch boundary after each) to rounding; one sweep leaves src bit
+    for bit unchanged; a sweep with dst == src, or overlapping it, raises
+    and launches nothing, in the wrapper and in the C entry."""
+    rng = np.random.default_rng(30)
+    m, omega = -0.005, 0.8
+    if form == "links":
+        U = _links(rng, L, dtype, dev)
+        phi, r = _c(rng, (2, L, L), dtype, dev), _c(rng, (2, L, L), dtype, dev)
+        TX, TY = cs._tile(tile, L)
+        name = "links_update_tiled"
+
+        def smooth(p, k):
+            return cs.wilson_u_smooth_tiled(U, m, p, r, k, "rbgs", omega,
+                                            tile=tile)
+
+        def sweep(src, dst):
+            cs._links_sweep(U, m, r, omega, TX, TY, src, dst, 1)
+
+        def raw(src, dst):
+            return cs._entry(name, dtype)(
+                U.data_ptr(), src.data_ptr(), r.data_ptr(), dst.data_ptr(), L,
+                m, omega, 1, TX, TY, torch.cuda.current_stream().cuda_stream)
+    else:
+        n = int(form.split()[1][2:])
+        B = 2 if "k=2" in form else 3 if "batch" in form else None
+        nb = 3 if B == 3 else 1
+        D, Dinv = _dense(rng, nb, n, L, dtype, dev)
+        if nb == 1:
+            D, Dinv = D[0], Dinv[0]
+        lead = () if B is None else (B,)
+        phi = _c(rng, lead + (n, L, L), dtype, dev)
+        r = _c(rng, (n, L, L) if B != 3 else lead + (n, L, L), dtype, dev)
+        TX, TY = cs._tile(tile, L, n, phi.element_size())
+        name = "dense_update_tiled"
+        dims = cs._dense_operands(name, D, Dinv, phi, r, "rbgs")
+
+        def smooth(p, k):
+            return cs.dense_smooth_tiled(D, Dinv, p, r, k, "rbgs", omega,
+                                         tile=tile)
+
+        def sweep(src, dst):
+            cs._dense_sweep(D, Dinv, r, dims, omega, TX, TY, src, dst, 1)
+
+        def raw(src, dst):
+            return cs._entry(name, dtype)(
+                D.data_ptr(), Dinv.data_ptr(), src.data_ptr(), r.data_ptr(),
+                dst.data_ptr(), *dims, 1, omega, TX, TY,
+                torch.cuda.current_stream().cuda_stream)
+    keep = phi.clone()
+    n0 = cs.launches[name]
+    got = smooth(phi, 3)
+    assert cs.launches[name] == n0 + 3
+    assert _rel(got, _sweep_by_sweep(smooth, phi, 3)) < BARS[dtype]
+    out = torch.empty_like(phi)
+    sweep(phi, out)
+    torch.cuda.synchronize()
+    assert torch.equal(phi, keep)              # src bit for bit unchanged
+    assert torch.equal(out, smooth(phi, 1))
+    n0 = cs.launches[name]
+    with pytest.raises(ValueError, match="out of place"):
+        sweep(phi, phi)
+    with pytest.raises(ValueError, match="out of place"):
+        sweep(phi, phi.flatten()[1:])
+    assert cs.launches[name] == n0
+    assert raw(phi, phi) != 0                  # refused by the C entry
+    torch.cuda.synchronize()
+    assert torch.equal(phi, keep)
 
 
 def test_tiled_wrappers_refuse_what_the_kernels_do_not_take(dev):

@@ -7,7 +7,9 @@ themselves are held against those on the card (tests/test_torch_cuda.py).
 
 Also: the global/tiled dispatch at the level sizes of the large flagship
 (Wilson L=2048, 6 levels), and that the solver routes each level to the
-wrapper the dispatch names."""
+wrapper the dispatch names; a torch mirror of the fused red-black pass of
+the CUDA kernels (its tiles, two-site halo and ring) against the plain
+sweeps; the wrappers' sweep schedule and their out-of-place rule."""
 import functools
 
 import numpy as np
@@ -118,6 +120,43 @@ def test_default_tile():
         assert all(t <= m for t, m in zip(cs.default_tile(L), cs.MAX_TILE))
 
 
+@pytest.mark.parametrize("n", [1, 2, 4])
+@pytest.mark.parametrize("itemsize", [8, 16])
+def test_rb_tile_fits_the_shared_memory(n, itemsize):
+    """The dense red-black tile: 12 (complex64) or 6 (complex128) x-rows
+    by 32 from L=1024, 16 below, cut by 2 rows where the block's staged
+    phi and black-site operands would pass the shared memory of a block
+    (n=4 complex128 below 1024: 8)."""
+    for L in (256, 512, 1024, 2048):
+        TX, TY = cs.rb_tile(L, n, itemsize)
+        assert TY == 32 and 1 <= TX <= cs.MAX_TILE[0]
+        assert cs.rb_smem_bytes(n, TX, TY, itemsize) <= cs.SMEM_BLOCK_MAX
+        want = 16 if L < 1024 else (12 if itemsize == 8 else 6)
+        if n == 4 and itemsize == 16 and L < 1024:
+            want = 8
+        assert TX == want, (L, TX)
+    assert cs.rb_smem_bytes(4, 16, 32, 8) == 195072
+    assert cs.rb_smem_bytes(4, 12, 32, 8) == 147456
+    assert cs.rb_smem_bytes(4, 16, 32, 16) > cs.SMEM_BLOCK_MAX
+
+
+def test_dense_red_black_tile_past_the_shared_memory_is_refused():
+    """n=4 complex128 on 16 x 32 tiles would need 390 KB of shared memory
+    a block: refused for red-black, taken for Jacobi (no staged operands),
+    on CPU tensors as on the card."""
+    rng = np.random.default_rng(27)
+    n, L = 4, 8
+    D = 0.25 * t_of(crandn(rng, (5, n, n, L, L)))
+    D[0] += 4.0 * torch.eye(n, dtype=D.dtype)[:, :, None, None]
+    Dinv = tst.site_inverse(D[0])
+    phi, r = t_of(crandn(rng, (n, L, L))), t_of(crandn(rng, (n, L, L)))
+    with pytest.raises(ValueError, match="shared memory"):
+        cs.dense_smooth_tiled(D, Dinv, phi, r, 1, "rbgs", tile=(16, 32))
+    assert torch.equal(
+        cs.dense_smooth_tiled(D, Dinv, phi, r, 1, "jacobi", tile=(16, 32)),
+        tsm.smooth_plain(D, Dinv, phi, r, 1, "jacobi"))
+
+
 # ---- CPU tensors
 
 
@@ -205,3 +244,161 @@ def test_level0_routes_by_u_mode(monkeypatch, mode):
     tcy._relax(None, phi, r, off, 0, U)
     tcy._residual0(None, phi, r, off, 0, U)
     assert sum(len(c) for c in spies.values()) == 2
+
+
+# ---- the sweep schedule of the tiled wrappers
+
+
+@pytest.mark.parametrize("kind,n_sweeps", [("rbgs", 4), ("rbgs", 1),
+                                           ("jacobi", 3), ("rbgs", 0)])
+def test_sweeps_one_launch_a_sweep_out_of_place(kind, n_sweeps):
+    """_sweeps makes one launch a sweep (rb=1 for red-black), from the
+    caller's phi into a buffer of its own and then back and forth between
+    two (phi -> A -> B -> A ...); phi is never a destination, and no sweeps
+    give a copy of phi with no launch."""
+    phi = torch.arange(8.0).reshape(2, 2, 2).to(torch.complex128)
+    calls = []
+
+    def launch(src, dst, rb):
+        calls.append((src.data_ptr(), dst.data_ptr(), rb))
+        dst.copy_(src + 1)
+
+    out = cs._sweeps(launch, phi, n_sweeps, kind)
+    assert len(calls) == n_sweeps
+    assert torch.equal(out, phi + n_sweeps)
+    assert out.data_ptr() != phi.data_ptr()
+    assert all(rb == int(kind == "rbgs") for _, _, rb in calls)
+    assert all(dst != phi.data_ptr() for _, dst, _ in calls)
+    if calls:
+        assert calls[0][0] == phi.data_ptr()
+    for (_, dst, _), (src, _, _) in zip(calls, calls[1:]):
+        assert src == dst
+    assert len({dst for _, dst, _ in calls}) == min(n_sweeps, 2)
+
+
+def test_sweep_refuses_dst_overlapping_src():
+    """A fused red-black sweep reads src two sites past its tile while
+    other blocks write dst: a sweep with dst == src, or overlapping it, is
+    refused before any launch."""
+    rng = np.random.default_rng(28)
+    L = 8
+    U = t_of(np.exp(1j * phases(rng, L)))
+    phi, r = t_of(crandn(rng, (2, L, L))), t_of(crandn(rng, (2, L, L)))
+    D = t_of(crandn(rng, (5, 2, 2, L, L)))
+    dims = (1, 2, L, 0, 0, 0)
+    before = dict(cs.launches)
+    for dst in (phi, phi[1], phi.flatten()[3:]):
+        with pytest.raises(ValueError, match="out of place"):
+            cs._links_sweep(U, 0.1, r, 1.0, 4, 4, phi, dst, 1)
+        with pytest.raises(ValueError, match="out of place"):
+            cs._dense_sweep(D, D[0], r, dims, 1.0, 4, 4, phi, dst, 1)
+    assert cs.launches == before
+
+
+# ---- the fused red-black pass of the CUDA kernels, mirrored in torch
+
+
+def _fused_rb_sweep(relax, src, TX, TY):
+    """One red-black sweep as links_rb_tiled_kernel / dense_rb_tiled_kernel
+    (csrc/stencil_tiled.cu) compute it, tile by tile, out of place: stage
+    src over the tile and a two-site periodic halo; update the red sites
+    ((x + y) even, global coordinates) of the tile AND of its one-site ring
+    in the staged copy, from the staged black sites; then the tile's black
+    sites from the new reds; write both colours of the tile (not the ring)
+    to dst. relax(v, gx, gy) is the update at the lattice rows gx and
+    columns gy from v [..., len(gx) + 2, len(gy) + 2], the staged values
+    with a one-site border."""
+    L = src.shape[-1]
+    dst = torch.full_like(src, float("nan"))
+    for x0 in range(0, L, TX):
+        for y0 in range(0, L, TY):
+            tx, ty = min(TX, L - x0), min(TY, L - y0)
+            sv = src[..., (torch.arange(x0 - 2, x0 + tx + 2) % L)[:, None],
+                     (torch.arange(y0 - 2, y0 + ty + 2) % L)[None, :]]
+            ix = torch.arange(x0 - 1, x0 + tx + 1)     # tile and ring
+            iy = torch.arange(y0 - 1, y0 + ty + 1)
+            red = (ix[:, None] + iy[None, :]) % 2 == 0
+            sv[..., 1:-1, 1:-1] = torch.where(
+                red, relax(sv, ix % L, iy % L), sv[..., 1:-1, 1:-1])
+            bx, by = ix[1:-1], iy[1:-1]                # the tile
+            black = (bx[:, None] + by[None, :]) % 2 == 1
+            dst[..., x0:x0 + tx, y0:y0 + ty] = torch.where(
+                black, relax(sv[..., 1:-1, 1:-1], bx % L, by % L),
+                sv[..., 2:-2, 2:-2])
+    return dst
+
+
+def _relaxed(old, upd, omega):
+    return upd if omega == 1.0 else old + omega * (upd - old)
+
+
+def _dense_relax(D, Dinv, r, omega):
+    """-D0inv (sum_{mu != 0} D_mu phi(x + mu) - r), relaxed by omega."""
+    def relax(v, gx, gy):
+        X, Y = gx[:, None], gy[None, :]
+        nbrs = (v[..., 2:, 1:-1], v[..., :-2, 1:-1],   # +x, -x
+                v[..., 1:-1, 2:], v[..., 1:-1, :-2])   # +y, -y
+        a = -r[..., X, Y]
+        for d, w in enumerate(nbrs, start=1):
+            Dd = D[..., d, :, :, :, :][..., X, Y]
+            a = a + (Dd * w.unsqueeze(-4)).sum(-3)
+        upd = -(Dinv[..., X, Y] * a.unsqueeze(-4)).sum(-3)
+        return _relaxed(v[..., 1:-1, 1:-1], upd, omega)
+    return relax
+
+
+def _links_relax(U, m, r, omega):
+    """(r - hop_U(phi)) / (2 + m), relaxed by omega (csrc/cplx.cuh
+    wilson_hop_core)."""
+    L = U.shape[-1]
+
+    def relax(v, gx, gy):
+        X, Y = gx[:, None], gy[None, :]
+        xp, xm = v[..., 2:, 1:-1], v[..., :-2, 1:-1]
+        yp, ym = v[..., 1:-1, 2:], v[..., 1:-1, :-2]
+        ha = U[0][X, Y] * (xp[0] - xp[1])
+        hb = U[0][((gx - 1) % L)[:, None], Y].conj() * (xm[0] + xm[1])
+        hc = U[1][X, Y] * (yp[0] + 1j * yp[1])
+        hd = U[1][X, ((gy - 1) % L)[None, :]].conj() * (ym[0] - 1j * ym[1])
+        hop = torch.stack([0.5 * (ha + hb + hc + hd),
+                           0.5 * ((hb - ha) + 1j * (hd - hc))])
+        return _relaxed(v[..., 1:-1, 1:-1], (r[:, X, Y] - hop) / (2.0 + m),
+                        omega)
+    return relax
+
+
+@pytest.mark.parametrize("omega", [1.0, 0.8])
+@pytest.mark.parametrize("form", ["n=1", "n=2 k=2 shared", "n=4 batch 2",
+                                  "links"])
+@pytest.mark.parametrize("tile", [(3, 5), (4, 4), (6, 12), (16, 32)])
+@pytest.mark.parametrize("L", [8, 12])
+def test_fused_red_black_pass_matches_the_plain_sweeps(L, tile, form, omega):
+    """Two sweeps of the torch mirror of the fused pass equal two plain
+    red-black sweeps (smoothers.smooth_plain, gauge_stencil.smooth_u) in
+    complex128 to 1e-12: ragged tiles, a halo that wraps onto the tile's
+    own sites (a tile past the lattice), shared and batched operands."""
+    rng = np.random.default_rng(29)
+    if form == "links":
+        m = -0.005
+        U = t_of(np.exp(1j * phases(rng, L)))
+        phi, r = t_of(crandn(rng, (2, L, L))), t_of(crandn(rng, (2, L, L)))
+        relax = _links_relax(U, m, r, omega)
+        want = tgs.smooth_u("wilson", U, m, phi, r, 2, "rbgs", omega)
+    else:
+        n = int(form[2])
+        B = 2 if "2" in form[3:] else None
+        nb = 2 if "batch" in form else 1
+        D = 0.25 * t_of(crandn(rng, (nb, 5, n, n, L, L)))
+        D[:, 0] += 4.0 * torch.eye(n, dtype=D.dtype)[:, :, None, None]
+        Dinv = tst.site_inverse(D[:, 0])
+        if nb == 1:
+            D, Dinv = D[0], Dinv[0]
+        lead = () if B is None else (B,)
+        phi = t_of(crandn(rng, lead + (n, L, L)))
+        r = t_of(crandn(rng, (lead if nb == 2 else ()) + (n, L, L)))
+        relax = _dense_relax(D, Dinv, r, omega)
+        want = tsm.smooth_plain(D, Dinv, phi, r, 2, "rbgs", omega)
+    keep = phi.clone()
+    got = _fused_rb_sweep(relax, _fused_rb_sweep(relax, phi, *tile), *tile)
+    assert torch.equal(phi, keep)
+    assert rel_err(got, want) < 1e-12

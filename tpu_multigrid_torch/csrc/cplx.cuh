@@ -68,4 +68,29 @@ __device__ __forceinline__ void wilson_hop_core(
   h1 = scale(T(0.5), (hb - ha) + times_i(hd - hc));
 }
 
+// One complex word, global -> shared, asynchronously (cp.async, 8 or 16
+// bytes); cp_async_wait waits for all of this thread's copies.
+template <typename T>
+__device__ __forceinline__ void cp_async(cplx<T>* smem, const cplx<T>* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+               "l"(gmem), "n"((int)sizeof(cplx<T>)));
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// Close this thread's group of copies issued since the last commit;
+// cp_async_wait_group<K> waits for all but its K most recent groups.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int K>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(K) : "memory");
+}
+
 }  // namespace tmg

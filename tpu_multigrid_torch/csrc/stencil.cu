@@ -37,6 +37,8 @@ namespace {
 
 namespace cg = cooperative_groups;
 
+using tmg::cp_async;
+using tmg::cp_async_wait;
 using tmg::cplx;
 using tmg::mk;
 using tmg::scale;
@@ -104,20 +106,6 @@ __device__ __forceinline__ cplx<T> ld_ro(const cplx<T>* p) {
   } else {
     return ld_nc(p);
   }
-}
-
-// One complex word, global -> shared, asynchronously (cp.async, 8 or 16
-// bytes); cp_async_wait waits for all of this thread's copies.
-template <typename T>
-__device__ __forceinline__ void cp_async(cplx<T>* smem, const cplx<T>* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
-               "l"(gmem), "n"((int)sizeof(cplx<T>)));
-}
-
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
-                   : "memory");
 }
 
 template <typename T>

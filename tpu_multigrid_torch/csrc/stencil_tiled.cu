@@ -1,57 +1,56 @@
 // Hand-written Hopper (sm_90a) x-tiled kernels for lattices past the L2.
 //
 // Ports of the x-tiled Pallas TPU kernels in tpu_multigrid/ops/pallas_stencil.py:
+//   links_rb_tiled_kernel<T>       <- _u_update_tile_kernel (B5a, :711; one
+//                                     whole red-black sweep a launch)
 //   links_tiled_kernel<T, kUpdate> <- _u_update_tile_kernel (B5a, :711;
-//                                     Jacobi, or one red/black half-sweep
-//                                     in place)
+//                                     one Jacobi sweep a launch)
 //   links_tiled_kernel<T, kResid>  <- _u_resid_tile_kernel  (B5b, :703)
 //   links_tiled_kernel<T, kApply>  <- _u_apply_tile_kernel  (B5c, :695)
-//   dense_tiled_kernel<T, N>       <- _tiled_update_kernel  (B6, :358; n in
-//                                     {1,2,4}, batch axis with per-operand
-//                                     batch strides)
+//   dense_rb_tiled_kernel<T, N>    <- _tiled_update_kernel  (B6, :358; one
+//                                     whole red-black sweep a launch)
+//   dense_tiled_kernel<T, N>       <- _tiled_update_kernel  (B6, :358; one
+//                                     Jacobi sweep a launch)
 //   dense_apply_tiled_kernel<T, N> <- _tiled_apply_kernel   (B7b, :236)
 // Layouts are stencil.cu's: U[2][L][L], phi/r/v/out[B][n][L][L],
-// D[B][5][n][n][L][L], D0inv[B][n][n][L][L], site (x, y) at x*L + y.
+// D[B][5][n][n][L][L], D0inv[B][n][n][L][L], site (x, y) at x*L + y. The
+// dense kernels take n in {1, 2, 4} and a batch axis with a stride per
+// operand (0: shared by the batch).
 //
 // What bounds them on the H100: bytes. At L=2048 the level-0 links set is
 // ~270 MB (c64) and level 1's dense D ~670 MB, far past the 50 MB L2, so
 // what one launch reads is gone before the next: every word of U, r, phi, D
-// and D0inv comes from HBM once per pass (a red/black half-sweep reads the
-// whole of U and phi and half of r, D and D0inv, whose sectors it still
-// fetches whole). The SpMVs move 5n^2 + 2n words a site (B7b: D, v in,
-// out) and 6 (B5c: U, v in, out); their neighbour reads of v come from
-// the staged tile, so each word of v crosses HBM once.
+// and D0inv comes from HBM once per launch. The SpMVs move 5n^2 + 2n words a
+// site (B7b: D, v in, out) and 6 (B5c: U, v in, out); their neighbour reads
+// of v come from the staged tile, so each word of v crosses HBM once.
 //
-// Design: each block of 32 x 8 threads owns a TX x TY tile of sites
-// (TX <= 16, TY <= 32). It stages that tile of phi, plus a one-site periodic
-// halo in x and y, into shared memory with coalesced row loads, and computes
-// every update of the tile from there. A thread owns two sites, (x, y) and
-// (x + 8, y); the 32 threads of a warp cover 32 consecutive y. U and r are
-// read once per site straight into registers (U_x at x-1 and U_y at y-1 for
-// the -x and -y hops, wrapped), issued before the barrier so that they are
-// in flight together with the staging; D and D0inv are read in the update.
-// Colour parity comes from the global (x + y), never from tile-local
-// coordinates. A tile is clipped to the lattice, so tiles need not divide L
-// and a lattice may be smaller than one tile.
+// Jacobi, residual and apply (links_tiled_kernel, dense_tiled_kernel,
+// dense_apply_tiled_kernel): each block of 32 x 8 threads owns a TX x TY
+// tile of sites (TX <= 16, TY <= 32). It stages that tile of phi, plus a
+// one-site periodic halo in x and y, into shared memory with coalesced row
+// loads, and computes every site of the tile from there. A thread owns two
+// sites, (x, y) and (x + 8, y); the 32 threads of a warp cover 32
+// consecutive y. U and r are read once per site straight into registers
+// (U_x at x-1 and U_y at y-1 for the -x and -y hops, wrapped), issued before
+// the barrier so that they are in flight together with the staging; D and
+// D0inv are read in the update. A tile is clipped to the lattice, so tiles
+// need not divide L and a lattice may be smaller than one tile. A first
+// version that also staged U, with one load and one store per staged element
+// (two integer divisions each), ran the links sweep at L=2048 1.6x slower
+// than stencil.cu's global kernel; this one is as fast or faster (PERF.md).
 //
-// A first version that also staged U, with one load and one store per
-// staged element (two integer divisions each), ran the links sweep at
-// L=2048 1.6x slower than stencil.cu's global kernel; this one is as fast
-// or faster (PERF.md).
+// Red-black (links_rb_tiled_kernel, dense_rb_tiled_kernel): one launch is
+// one whole sweep, red then black, in one pass over the operands; see the
+// note above links_rb_tiled_kernel.
 //
-// A red/black half-sweep writes only its colour, in place, as in stencil.cu:
-// with even L a site of one colour reads only the other colour, which no
-// block writes in that launch (a block may stage a neighbour's site of the
-// colour being written, but never reads it). The colour barrier across the
-// grid is the launch boundary.
-//
-// Kept simple on purpose: no TMA, no cp.async ring, no persistent blocks and
-// no fusing of sweeps.
+// Kept simple on purpose: no TMA, no persistent blocks and no fusing of
+// sweeps.
 
 #include "cplx.cuh"
 
 namespace {
 
+using tmg::cp_async;
 using tmg::cplx;
 using tmg::mk;
 using tmg::scale;
@@ -63,6 +62,14 @@ constexpr int kRows = 2;                       // sites a thread owns, along x
 constexpr int kMaxTX = kThreadsX * kRows;      // 16
 constexpr int kMaxTY = kThreadsY;              // 32
 constexpr int kHaloRows = (kMaxTX + 2 + kThreadsX - 1) / kThreadsX;  // 3
+
+// The red-black blocks: threadIdx.x a pair of sites (y, y + 1), threadIdx.y
+// an x row; TX rows (rounded up to even, so that warps are whole) by 16
+// pairs cover a tile of up to 16 x 32.
+constexpr int kPairs = kMaxTY / 2;             // 16
+constexpr int kRbThreads = kPairs * kMaxTX;    // 256
+// Shared memory one block may ask for on the H100 (227 KB).
+constexpr size_t kSmemBlockMax = 232448;
 
 struct Tile {
   int x0, y0;  // origin of the tile on the lattice
@@ -78,7 +85,7 @@ __device__ __forceinline__ Tile tile_of(int TX, int TY, int L) {
   return t;
 }
 
-// Periodic index of i in [-1, L].
+// Periodic index of i in [-L, 2L).
 __device__ __forceinline__ int wrap(int i, int L) {
   return i < 0 ? i + L : (i >= L ? i - L : i);
 }
@@ -123,24 +130,178 @@ __device__ __forceinline__ void stage_phi(cplx<T>* sm, int plane, int pitch,
   }
 }
 
+// Stage P planes of src over the tile and a TWO-site periodic halo: site
+// (x0 + i, y0 + j), i in [-2, tx + 1] and j in [-2, ty + 1], at
+// sm[p * plane + (i + 2) * pitch + j + 2], with cp.async (every copy in
+// flight at once; one commit group, which the caller waits for). Warp w of
+// the block takes rows w, w + nwarps, ...; lane l columns l and l + 32
+// (coalesced rows).
+template <typename T, int P>
+__device__ __forceinline__ void stage_phi2(cplx<T>* sm, int plane, int pitch,
+                                           const cplx<T>* __restrict__ src,
+                                           size_t LL, int L, const Tile& t) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int lane = tid & 31;
+  const int nwarps = (int)(blockDim.x * blockDim.y) >> 5;
+  for (int i = tid >> 5; i < t.tx + 4; i += nwarps) {
+    const cplx<T>* row = src + (size_t)wrap(t.x0 - 2 + i, L) * L;
+    for (int j = lane; j < t.ty + 4; j += 32) {
+      const cplx<T>* g = row + wrap(t.y0 - 2 + j, L);
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+        cp_async(sm + p * plane + i * pitch + j, g + p * LL);
+    }
+  }
+  tmg::cp_async_commit();
+}
+
+// ---- the update of one site, shared by the Jacobi and red-black kernels --
+
+// The links operands of one site: U_x and U_y there, U_x at x-1 and U_y at
+// y-1 (the -x and -y hops read the neighbour's link), and r's components.
+template <typename T>
+struct LinkSite {
+  cplx<T> ux, uxm, uy, uym, r0, r1;
+};
+
+template <typename T>
+__device__ __forceinline__ LinkSite<T> link_site(
+    const cplx<T>* __restrict__ U, const cplx<T>* __restrict__ r, int L,
+    size_t LL, int x, int y) {
+  const size_t s = (size_t)x * L + y;
+  LinkSite<T> o;
+  o.ux = U[s];
+  o.uxm = U[(size_t)wrap(x - 1, L) * L + y];
+  o.uy = U[LL + s];
+  o.uym = U[LL + (size_t)x * L + wrap(y - 1, L)];
+  o.r0 = r[s];
+  o.r1 = r[LL + s];
+  return o;
+}
+
+// Links smoother update at the staged site c0 (component 1 at c0 + vpl,
+// neighbours at +-vp along x and +-1 along y): (r - hop(phi)) / (2+m),
+// relaxed by omega.
+template <typename T>
+__device__ __forceinline__ void links_relax(const LinkSite<T>& o,
+                                            const cplx<T>* c0, int vp,
+                                            int vpl, T diag, T omega,
+                                            cplx<T> out[2]) {
+  const cplx<T>* c1 = c0 + vpl;
+  cplx<T> h[2];
+  tmg::wilson_hop_core(o.ux, o.uxm, o.uy, o.uym, c0[vp], c1[vp], c0[-vp],
+                       c1[-vp], c0[1], c1[1], c0[-1], c1[-1], h[0], h[1]);
+  const cplx<T> v[2] = {*c0, *c1};
+  const cplx<T> rv[2] = {o.r0, o.r1};
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const cplx<T> d = rv[k] - h[k];
+    cplx<T> upd = mk<T>(d.re / diag, d.im / diag);
+    if (omega != T(1)) upd = v[k] + scale(omega, upd - v[k]);
+    out[k] = upd;
+  }
+}
+
+// Where the dense operands of one site are read: D's hop block (d, p, q),
+// d = 0..3 for +x, -x, +y, -y, at hop[((d * N + p) * N + q) * stride];
+// D0inv's (p, q) at dinv[(p * N + q) * stride]; r's q at r[q * stride].
+// Global memory (stride L^2) or a thread's staged words (stride: threads).
+template <typename T>
+struct DenseSite {
+  const cplx<T>* hop;
+  const cplx<T>* dinv;
+  const cplx<T>* r;
+  size_t stride;
+};
+
+// Word w of a site's 5N^2 + N operands: D's hop blocks (w < 4N^2), then
+// D0inv's, then r's.
+template <typename T, int N>
+__device__ __forceinline__ const cplx<T>* word(const DenseSite<T>& o, int w) {
+  return w < 4 * N * N ? o.hop + w * o.stride
+         : w < 5 * N * N ? o.dinv + (w - 4 * N * N) * o.stride
+                         : o.r + (w - 5 * N * N) * o.stride;
+}
+
+// The dense operands of one site in registers, in word order.
+template <typename T, int N>
+struct DenseOps {
+  cplx<T> v[5 * N * N + N];
+};
+
+template <typename T, int N>
+__device__ __forceinline__ DenseOps<T, N> load_ops(const DenseSite<T>& o) {
+  DenseOps<T, N> a;
+#pragma unroll
+  for (int w = 0; w < 5 * N * N + N; ++w) a.v[w] = *word<T, N>(o, w);
+  return a;
+}
+
+// Dense smoother update at the staged site c (component p at c + p * vpl):
+//   upd = -D0inv (sum_{mu != 0} D_mu phi(x + mu) - r), relaxed by omega.
+template <typename T, int N>
+__device__ __forceinline__ void dense_relax(const DenseOps<T, N>& o,
+                                            const cplx<T>* c, int vp,
+                                            int vpl, T omega, cplx<T> out[N]) {
+  cplx<T> a[N];
+#pragma unroll
+  for (int p = 0; p < N; ++p) a[p] = mk<T>(T(0), T(0));
+#pragma unroll
+  for (int d = 0; d < 4; ++d) {  // +x, -x, +y, -y
+    const int off = d == 0 ? vp : d == 1 ? -vp : d == 2 ? 1 : -1;
+    cplx<T> v[N];
+#pragma unroll
+    for (int q = 0; q < N; ++q) v[q] = c[q * vpl + off];
+#pragma unroll
+    for (int p = 0; p < N; ++p)
+#pragma unroll
+      for (int q = 0; q < N; ++q)
+        a[p] = a[p] + o.v[(d * N + p) * N + q] * v[q];
+  }
+#pragma unroll
+  for (int q = 0; q < N; ++q) a[q] = a[q] - o.v[5 * N * N + q];
+#pragma unroll
+  for (int p = 0; p < N; ++p) {
+    cplx<T> acc = mk<T>(T(0), T(0));
+#pragma unroll
+    for (int q = 0; q < N; ++q) acc = acc + o.v[4 * N * N + p * N + q] * a[q];
+    cplx<T> upd = mk<T>(-acc.re, -acc.im);
+    const cplx<T> old = c[p * vpl];
+    if (omega != T(1)) upd = old + scale(omega, upd - old);
+    out[p] = upd;
+  }
+}
+
+// The global operands of site s of one batch entry.
+template <typename T, int N>
+__device__ __forceinline__ DenseSite<T> dense_site(const cplx<T>* Db,
+                                                   const cplx<T>* Dib,
+                                                   const cplx<T>* rb,
+                                                   size_t LL, size_t s) {
+  return DenseSite<T>{Db + (size_t)N * N * LL + s, Dib + s, rb + s, LL};
+}
+
+// ---- Jacobi sweep, residual, apply ----------------------------------------
+
 // What the links kernel writes at a site.
 enum LinksMode { kUpdate, kResid, kApply };
 
 // Links-only Wilson on one tile. kResid: out = r - (2+m) phi - hop(phi) at
 // every site; kApply: out = (2+m) phi + hop(phi) at every site (r is not
-// read). kUpdate: the smoother update (r - hop(phi)) / (2+m), relaxed by
-// omega: colour < 0 Jacobi into a separate out, colour 0/1 that colour's
-// sites in place (out == phi).
+// read); kUpdate: one Jacobi sweep of the smoother, (r - hop(phi)) / (2+m)
+// relaxed by omega, into a separate out.
 //
 // A thread owns sites (x0 + threadIdx.y + 8u, y0 + threadIdx.x), u < 2. It
-// loads their links (U_x at x and x-1, U_y at y and y-1: the -x and -y hops
-// read the neighbour's link) and r into registers before the barrier, so
-// those loads are in flight with the staging of phi [2][TX+2][TY+2].
+// loads their links (U_x at x and x-1, U_y at y and y-1) and r into
+// registers before the barrier, so those loads are in flight with the
+// staging of phi [2][TX+2][TY+2].
 template <typename T, int MODE>
 __global__ void __launch_bounds__(kThreads)
-    links_tiled_kernel(const cplx<T>* __restrict__ U, const cplx<T>* phi,
-                       const cplx<T>* __restrict__ r, cplx<T>* out, int L,
-                       T diag, T omega, int colour, int TX, int TY) {
+    links_tiled_kernel(const cplx<T>* __restrict__ U,
+                       const cplx<T>* __restrict__ phi,
+                       const cplx<T>* __restrict__ r,
+                       cplx<T>* __restrict__ out, int L, T diag, T omega,
+                       int TX, int TY) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Tile t = tile_of(TX, TY, L);
   const size_t LL = (size_t)L * L;
@@ -151,21 +312,21 @@ __global__ void __launch_bounds__(kThreads)
   const int y = t.y0 + j;
 
   bool act[kRows];
-  cplx<T> ux[kRows], uxm[kRows], uy[kRows], uym[kRows], rv[kRows][2];
+  LinkSite<T> o[kRows];
 #pragma unroll
   for (int u = 0; u < kRows; ++u) {
     const int i = threadIdx.y + u * kThreadsX;
-    const int x = t.x0 + i;
-    act[u] = i < t.tx && j < t.ty && (colour < 0 || ((x + y) & 1) == colour);
+    act[u] = i < t.tx && j < t.ty;
     if (act[u]) {
-      const size_t s = (size_t)x * L + y;
-      ux[u] = U[s];
-      uxm[u] = U[(size_t)wrap(x - 1, L) * L + y];
-      uy[u] = U[LL + s];
-      uym[u] = U[LL + (size_t)x * L + wrap(y - 1, L)];
-      if constexpr (MODE != kApply) {
-        rv[u][0] = r[s];
-        rv[u][1] = r[LL + s];
+      if constexpr (MODE == kApply) {
+        const int x = t.x0 + i;
+        const size_t s = (size_t)x * L + y;
+        o[u].ux = U[s];
+        o[u].uxm = U[(size_t)wrap(x - 1, L) * L + y];
+        o[u].uy = U[LL + s];
+        o[u].uym = U[LL + (size_t)x * L + wrap(y - 1, L)];
+      } else {
+        o[u] = link_site(U, r, L, LL, t.x0 + i, y);
       }
     }
   }
@@ -177,43 +338,44 @@ __global__ void __launch_bounds__(kThreads)
     if (!act[u]) continue;
     const int i = threadIdx.y + u * kThreadsX;
     const cplx<T>* c0 = sv + (i + 1) * vp + (j + 1);
-    const cplx<T>* c1 = c0 + vpl;
-    cplx<T> h[2];
-    tmg::wilson_hop_core(ux[u], uxm[u], uy[u], uym[u], c0[vp], c1[vp],
-                         c0[-vp], c1[-vp], c0[1], c1[1], c0[-1], c1[-1], h[0],
-                         h[1]);
     const size_t s = (size_t)(t.x0 + i) * L + y;
-    const cplx<T> v[2] = {*c0, *c1};
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
+    cplx<T> w[2];
+    if constexpr (MODE == kUpdate) {
+      links_relax(o[u], c0, vp, vpl, diag, omega, w);
+    } else {
+      const cplx<T>* c1 = c0 + vpl;
+      cplx<T> h[2];
+      tmg::wilson_hop_core(o[u].ux, o[u].uxm, o[u].uy, o[u].uym, c0[vp],
+                           c1[vp], c0[-vp], c1[-vp], c0[1], c1[1], c0[-1],
+                           c1[-1], h[0], h[1]);
+      const cplx<T> v[2] = {*c0, *c1};
       if constexpr (MODE == kResid) {
-        out[k * LL + s] = rv[u][k] - scale(diag, v[k]) - h[k];
-      } else if constexpr (MODE == kApply) {
-        out[k * LL + s] = scale(diag, v[k]) + h[k];
+        w[0] = o[u].r0 - scale(diag, v[0]) - h[0];
+        w[1] = o[u].r1 - scale(diag, v[1]) - h[1];
       } else {
-        const cplx<T> d = rv[u][k] - h[k];
-        cplx<T> upd = mk<T>(d.re / diag, d.im / diag);
-        if (omega != T(1)) upd = v[k] + scale(omega, upd - v[k]);
-        out[k * LL + s] = upd;
+        w[0] = scale(diag, v[0]) + h[0];
+        w[1] = scale(diag, v[1]) + h[1];
       }
     }
+    out[s] = w[0];
+    out[LL + s] = w[1];
   }
 }
 
-// Dense 5-point block stencil update on one tile of batch entry blockIdx.z:
-//   upd = -D0inv (sum_{mu != 0} D_mu phi(x + mu) - r), relaxed by omega;
-// colour < 0 Jacobi into a separate out, colour 0/1 in place. Sites per
+// One Jacobi sweep of the dense 5-point block smoother on one tile of
+// batch entry blockIdx.z, into a separate out (dense_relax). Sites per
 // thread as in links_tiled_kernel; phi [N][TX+2][TY+2] staged. D and D0inv
 // (5 n^2 words a site) are read in the update itself, where their loads
 // keep enough bytes in flight.
 template <typename T, int N>
 __global__ void __launch_bounds__(kThreads)
     dense_tiled_kernel(const cplx<T>* __restrict__ D,
-                       const cplx<T>* __restrict__ Dinv, const cplx<T>* phi,
-                       const cplx<T>* __restrict__ r, cplx<T>* out, int L,
+                       const cplx<T>* __restrict__ Dinv,
+                       const cplx<T>* __restrict__ phi,
+                       const cplx<T>* __restrict__ r,
+                       cplx<T>* __restrict__ out, int L,
                        long long d_bstride, long long dinv_bstride,
-                       long long r_bstride, int colour, T omega, int TX,
-                       int TY) {
+                       long long r_bstride, T omega, int TX, int TY) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Tile t = tile_of(TX, TY, L);
   const size_t LL = (size_t)L * L;
@@ -221,12 +383,11 @@ __global__ void __launch_bounds__(kThreads)
   const cplx<T>* Db = D + b * (size_t)d_bstride;
   const cplx<T>* Dib = Dinv + b * (size_t)dinv_bstride;
   const cplx<T>* rb = r + b * (size_t)r_bstride;
-  const cplx<T>* pb = phi + b * (N * LL);
   cplx<T>* ob = out + b * (N * LL);
   const int vp = TY + 2;
   const int vpl = (TX + 2) * vp;
   cplx<T>* sv = reinterpret_cast<cplx<T>*>(smem);
-  stage_phi<T, N>(sv, vpl, vp, pb, LL, L, t);
+  stage_phi<T, N>(sv, vpl, vp, phi + b * (N * LL), LL, L, t);
   __syncthreads();
 
   const int j = threadIdx.x;
@@ -234,41 +395,290 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int u = 0; u < kRows; ++u) {
     const int i = threadIdx.y + u * kThreadsX;
-    const int x = t.x0 + i;
     if (i >= t.tx || j >= t.ty) continue;
-    if (colour >= 0 && ((x + y) & 1) != colour) continue;
-    const cplx<T>* c = sv + (i + 1) * vp + (j + 1);
-    const size_t s = (size_t)x * L + y;
-    cplx<T> a[N];
+    const size_t s = (size_t)(t.x0 + i) * L + y;
+    cplx<T> w[N];
+    dense_relax<T, N>(load_ops<T, N>(dense_site<T, N>(Db, Dib, rb, LL, s)),
+                      sv + (i + 1) * vp + (j + 1), vp, vpl, omega, w);
 #pragma unroll
-    for (int p = 0; p < N; ++p) a[p] = mk<T>(T(0), T(0));
-#pragma unroll
-    for (int d = 1; d < 5; ++d) {  // +x, -x, +y, -y
-      const int o = d == 1 ? vp : d == 2 ? -vp : d == 3 ? 1 : -1;
-      cplx<T> v[N];
-#pragma unroll
-      for (int q = 0; q < N; ++q) v[q] = c[q * vpl + o];
-#pragma unroll
-      for (int p = 0; p < N; ++p)
-#pragma unroll
-        for (int q = 0; q < N; ++q)
-          a[p] = a[p] + Db[((size_t)(d * N + p) * N + q) * LL + s] * v[q];
-    }
-#pragma unroll
-    for (int q = 0; q < N; ++q) a[q] = a[q] - rb[q * LL + s];
-#pragma unroll
-    for (int p = 0; p < N; ++p) {
-      cplx<T> acc = mk<T>(T(0), T(0));
-#pragma unroll
-      for (int q = 0; q < N; ++q)
-        acc = acc + Dib[(size_t)(p * N + q) * LL + s] * a[q];
-      cplx<T> upd = mk<T>(-acc.re, -acc.im);
-      const cplx<T> old = c[p * vpl];
-      if (omega != T(1)) upd = old + scale(omega, upd - old);
-      ob[p * LL + s] = upd;
-    }
+    for (int p = 0; p < N; ++p) ob[p * LL + s] = w[p];
   }
 }
+
+// ---- the fused red-black sweep ---------------------------------------------
+//
+// links_rb_tiled_kernel replaces _u_update_tile_kernel (pallas_stencil.py
+// :711) and dense_rb_tiled_kernel _tiled_update_kernel (:358) for
+// red-black: the TPU kernels take one colour a call, a shape that suited
+// VMEM; here one launch is one whole sweep, red ((x + y) even) then black.
+//
+// What bounds them: bytes. The operators do not fit on chip (n=4 at L=1024:
+// D's hop planes, D0inv and r are ~0.7 GB c64, 13x the L2), so each launch
+// streams them from HBM. A launch a half-sweep read every operand twice a
+// sweep: the colours interleave along y, so every 32-byte sector holds
+// sites of both. One pass a sweep reads each once.
+//
+// The ring and its overlap: a block owns a TX x TY tile (<= 16 x 32) and
+// stages src phi over the tile and a two-site periodic halo,
+// [P][TX+4][TY+4], in shared memory. Red phase: it updates the red sites of
+// the tile AND of its one-site ring from the staged black sites (and the
+// site's own old value, for omega != 1), writing the new reds in place in
+// shared memory, which is safe because a red update reads only black sites
+// and itself. Barrier. Black phase: it updates the tile's black sites from
+// the new reds, then writes both colours of the tile (not the ring) to
+// dst. A ring red is a neighbour tile's site: its owner computes it from
+// the same inputs with the same arithmetic, so both agree bit for bit; its
+// operands come from sectors that the neighbour tile reads too, and the
+// tiles of a row of y tiles run next to each other in launch order
+// (blockIdx.x), so L2 serves most of that overlap (~(TX + TY) / (TX TY) of
+// the site reads, ~9% at 16 x 32). Colour is the global (x + y); with
+// even L the wrapped and unwrapped parities agree, so a halo that wraps
+// onto the tile's own sites (tiles that do not divide L, a tile past the
+// lattice) computes the same values twice.
+//
+// Out of place, never in place: a ring red reads black sites two away from
+// the tile, which a neighbouring block writes in the same launch. src is
+// read-only for the whole launch and dst must not overlap it; the host
+// function refuses an overlap (cudaErrorInvalidValue).
+//
+// A thread owns one pair of sites (x, y) and (x, y + 1), one of each
+// colour; lanes 0-15 of a warp take 16 pairs of one row, 16-31 the next.
+// Ring sites go to threads by their place in the ring. Every load of a
+// block is in flight before its first barrier: phi by cp.async, the
+// operands of the pair (and, in the links kernel, of the ring place) into
+// registers or, for the dense black site, shared memory.
+//
+// Measured (H100 80GB HBM3, 700 W; PERF.md, scripts/torch_smoother_ab.py,
+// rbgs x4 complex64, the first design's launch a half-sweep -> this): links
+// L=2048 0.801 -> 0.432 ms; dense n=4 L=1024 2.231 -> 1.480 ms (12 x 32
+// tiles, ~0.62 of the HBM peak for one pass a sweep), L=512 0.641 ->
+// 0.459, L=256 0.217 -> 0.153, n=2 L=2048 k=2 4.972 -> 2.411. A first
+// version of this pass, whose staging and red loads waited on each other
+// (one load then one store a staged word), took 2.90 ms at n=4 L=1024;
+// the black copies issued apart from the red loads (each sector then
+// crossed L2 -> SM twice) 1.64 ms. Without __launch_bounds__(256, 1) the
+// n=2 call took 3.24 ms (fewer of its operand loads in flight).
+//
+// -Xptxas -v (no spills; shared memory at the default tiles, rb_tile):
+//   links_rb_tiled_kernel   c64  64 registers, c128 127; 2 (TX+4)(TY+4)
+//                           words (11.3 KB c64 at 16 x 32)
+//   dense_rb_tiled_kernel   c64  n=1 72, n=2 95, n=4 204 registers;
+//                           c128 n=1 80, n=2 150, n=4 254; n (TX+4)(TY+4)
+//                           + (5n^2 + n) 16 TX words (n=4 c64 12 x 32:
+//                           144 KB, one block an SM; c128 6 x 32: 148.5 KB)
+
+// The tile sites of this thread: (x, y0 + jr) red and (x, y0 + jb) black,
+// each present if it lies in the (clipped) tile.
+struct RbPair {
+  int i, x, jr, jb;
+  bool red, black;
+};
+
+__device__ __forceinline__ RbPair rb_pair(const Tile& t) {
+  RbPair q;
+  q.i = threadIdx.y;
+  q.x = t.x0 + q.i;
+  const int j0 = 2 * threadIdx.x;
+  const int k = (q.x + t.y0 + j0) & 1;  // 0: (x, y0 + j0) is red
+  q.jr = j0 + k;
+  q.jb = j0 + 1 - k;
+  q.red = q.i < t.tx && q.jr < t.ty;
+  q.black = q.i < t.tx && q.jb < t.ty;
+  return q;
+}
+
+// Place k of the tile's one-site ring, 2 (tx + ty) + 4 places, in tile
+// coordinates: the row above (i = -1) and below (i = tx), j in [-1, ty],
+// then the columns left (j = -1) and right (j = ty), i in [0, tx).
+__device__ __forceinline__ void ring_place(int k, const Tile& t, int& i,
+                                           int& j) {
+  const int w = t.ty + 2;
+  if (k < 2 * w) {
+    i = k < w ? -1 : t.tx;
+    j = (k < w ? k : k - w) - 1;
+  } else {
+    k -= 2 * w;
+    i = k < t.tx ? k : k - t.tx;
+    j = k < t.tx ? -1 : t.ty;
+  }
+}
+
+// One red-black sweep of the links smoother (see above). The links and r
+// of the pair and of the thread's first ring place are loaded into
+// registers before the barrier, in flight with the cp.async staging of phi
+// [2][TX+4][TY+4].
+template <typename T>
+__global__ void __launch_bounds__(kRbThreads)
+    links_rb_tiled_kernel(const cplx<T>* __restrict__ U,
+                          const cplx<T>* __restrict__ src,
+                          const cplx<T>* __restrict__ r,
+                          cplx<T>* __restrict__ dst, int L, T diag, T omega,
+                          int TX, int TY) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Tile t = tile_of(TX, TY, L);
+  const size_t LL = (size_t)L * L;
+  const int vp = TY + 4;
+  const int vpl = (TX + 4) * vp;
+  cplx<T>* sv = reinterpret_cast<cplx<T>*>(smem);
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nth = blockDim.x * blockDim.y;
+  const RbPair q = rb_pair(t);
+  stage_phi2<T, 2>(sv, vpl, vp, src, LL, L, t);
+  LinkSite<T> red, black;
+  if (q.red) red = link_site(U, r, L, LL, q.x, t.y0 + q.jr);
+  if (q.black) black = link_site(U, r, L, LL, q.x, t.y0 + q.jb);
+  // ring place k = tid + u * nth of this thread: its links and r are read
+  // before the barrier too (the first; a block of few threads has more)
+  const int nring = 2 * (t.tx + t.ty) + 4;
+  int ri = 0, rj = 0;
+  bool ring = false;
+  LinkSite<T> ro;
+  if (tid < nring) {
+    ring_place(tid, t, ri, rj);
+    ring = !((t.x0 + ri + t.y0 + rj) & 1);
+    if (ring)
+      ro = link_site(U, r, L, LL, wrap(t.x0 + ri, L), wrap(t.y0 + rj, L));
+  }
+  tmg::cp_async_wait_group<0>();
+  __syncthreads();
+
+  cplx<T> vr[2];
+  if (q.red) {
+    cplx<T>* c = sv + (q.i + 2) * vp + q.jr + 2;
+    links_relax(red, c, vp, vpl, diag, omega, vr);
+    c[0] = vr[0];
+    c[vpl] = vr[1];
+  }
+  for (int k = tid; k < nring; k += nth) {
+    if (k != tid) {
+      ring_place(k, t, ri, rj);
+      ring = !((t.x0 + ri + t.y0 + rj) & 1);
+      if (ring)
+        ro = link_site(U, r, L, LL, wrap(t.x0 + ri, L), wrap(t.y0 + rj, L));
+    }
+    if (!ring) continue;
+    cplx<T>* c = sv + (ri + 2) * vp + rj + 2;
+    cplx<T> v[2];
+    links_relax(ro, c, vp, vpl, diag, omega, v);
+    c[0] = v[0];
+    c[vpl] = v[1];
+  }
+  __syncthreads();
+
+  if (q.black) {
+    cplx<T> v[2];
+    links_relax(black, sv + (q.i + 2) * vp + q.jb + 2, vp, vpl, diag, omega,
+                v);
+    const size_t s = (size_t)q.x * L + t.y0 + q.jb;
+    dst[s] = v[0];
+    dst[LL + s] = v[1];
+  }
+  if (q.red) {
+    const size_t s = (size_t)q.x * L + t.y0 + q.jr;
+    dst[s] = vr[0];
+    dst[LL + s] = vr[1];
+  }
+}
+
+// One red-black sweep of the dense 5-point block smoother on one tile of
+// batch entry blockIdx.z (see above). Shared memory: src phi
+// [N][TX+4][TY+4], then the black site's operands of every thread,
+// [5N^2 + N][threads] (D's 4N^2 hop blocks, D0inv's N^2, r's N), copied
+// with cp.async at the start, after phi's copies (two commit groups: the
+// red phase waits for phi's only). The red site's operands come from the
+// same 32-byte sectors (into registers before the barrier in complex64),
+// so each sector crosses HBM once and the black phase reads its operands
+// from shared memory; a ring red reads its own from global memory.
+template <typename T, int N>
+__global__ void __launch_bounds__(kRbThreads, 1)
+    dense_rb_tiled_kernel(const cplx<T>* __restrict__ D,
+                          const cplx<T>* __restrict__ Dinv,
+                          const cplx<T>* __restrict__ src,
+                          const cplx<T>* __restrict__ r,
+                          cplx<T>* __restrict__ dst, int L,
+                          long long d_bstride, long long dinv_bstride,
+                          long long r_bstride, T omega, int TX, int TY) {
+  constexpr int kW = 5 * N * N + N;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Tile t = tile_of(TX, TY, L);
+  const size_t LL = (size_t)L * L;
+  const size_t b = blockIdx.z;
+  const cplx<T>* Db = D + b * (size_t)d_bstride;
+  const cplx<T>* Dib = Dinv + b * (size_t)dinv_bstride;
+  const cplx<T>* rb = r + b * (size_t)r_bstride;
+  cplx<T>* ob = dst + b * (N * LL);
+  const int vp = TY + 4;
+  const int vpl = (TX + 4) * vp;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nth = blockDim.x * blockDim.y;
+  cplx<T>* sv = reinterpret_cast<cplx<T>*>(smem);
+  cplx<T>* so = sv + N * vpl;
+  const RbPair q = rb_pair(t);
+  stage_phi2<T, N>(sv, vpl, vp, src + b * (N * LL), LL, L, t);
+  // complex64: each word of the black site is copied right beside the
+  // load of the red site's same word, which lies in the same 32-byte
+  // sector (the pair is (y, y+1)), so that L1 serves the second request
+  // and each sector crosses from L2 once; the red words stay in registers,
+  // in flight with the copies. complex128 (whose 5n^2 + n words would not
+  // fit the registers as well) reads the red words after the barrier.
+  constexpr bool kEarly = sizeof(T) == 4;
+  const DenseSite<T> rg = dense_site<T, N>(Db, Dib, rb, LL,
+                                           (size_t)q.x * L + t.y0 + q.jr);
+  const DenseSite<T> bg = dense_site<T, N>(Db, Dib, rb, LL,
+                                           (size_t)q.x * L + t.y0 + q.jb);
+  DenseOps<T, N> ro;
+#pragma unroll
+  for (int w = 0; w < kW; ++w) {
+    if (q.black) cp_async(so + w * nth + tid, word<T, N>(bg, w));
+    if constexpr (kEarly) {
+      if (q.red) ro.v[w] = *word<T, N>(rg, w);
+    }
+  }
+  tmg::cp_async_commit();
+  tmg::cp_async_wait_group<1>();  // phi is staged
+  __syncthreads();
+
+  cplx<T> vr[N];
+  if (q.red) {
+    if constexpr (!kEarly) ro = load_ops<T, N>(rg);
+    cplx<T>* c = sv + (q.i + 2) * vp + q.jr + 2;
+    dense_relax<T, N>(ro, c, vp, vpl, omega, vr);
+#pragma unroll
+    for (int p = 0; p < N; ++p) c[p * vpl] = vr[p];
+  }
+  for (int k = tid; k < 2 * (t.tx + t.ty) + 4; k += nth) {
+    int i, j;
+    ring_place(k, t, i, j);
+    if ((t.x0 + i + t.y0 + j) & 1) continue;
+    cplx<T>* c = sv + (i + 2) * vp + j + 2;
+    const size_t s = (size_t)wrap(t.x0 + i, L) * L + wrap(t.y0 + j, L);
+    cplx<T> v[N];
+    dense_relax<T, N>(load_ops<T, N>(dense_site<T, N>(Db, Dib, rb, LL, s)),
+                      c, vp, vpl, omega, v);
+#pragma unroll
+    for (int p = 0; p < N; ++p) c[p * vpl] = v[p];
+  }
+  tmg::cp_async_wait_group<0>();  // the black sites' operands are staged
+  __syncthreads();
+
+  if (q.black) {
+    cplx<T> v[N];
+    const DenseSite<T> o{so + tid, so + 4 * N * N * nth + tid,
+                         so + 5 * N * N * nth + tid, (size_t)nth};
+    dense_relax<T, N>(load_ops<T, N>(o), sv + (q.i + 2) * vp + q.jb + 2, vp,
+                      vpl, omega, v);
+    const size_t s = (size_t)q.x * L + t.y0 + q.jb;
+#pragma unroll
+    for (int p = 0; p < N; ++p) ob[p * LL + s] = v[p];
+  }
+  if (q.red) {
+    const size_t s = (size_t)q.x * L + t.y0 + q.jr;
+#pragma unroll
+    for (int p = 0; p < N; ++p) ob[p * LL + s] = vr[p];
+  }
+}
+
+// ---- SpMV ------------------------------------------------------------------
 
 // Dense 5-point block SpMV on one tile of batch entry blockIdx.z (B7b):
 //   out = sum_{mu = 0..4} D_mu v(x + mu).
@@ -323,6 +733,8 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---- host side -------------------------------------------------------------
+
 // Grid over (y tiles, x tiles, batch), or cudaErrorInvalidValue for a tile
 // or batch the kernels do not take.
 inline int grid_of(int L, int TX, int TY, int B, dim3& grid) {
@@ -334,53 +746,106 @@ inline int grid_of(int L, int TX, int TY, int B, dim3& grid) {
   return 0;
 }
 
+// A smoother sweep reads src while other blocks write out: the two byte
+// ranges of `bytes` each must not overlap.
+inline bool overlap(const void* a, const void* b, size_t bytes) {
+  const char* x = static_cast<const char*>(a);
+  const char* y = static_cast<const char*>(b);
+  return x < y + bytes && y < x + bytes;
+}
+
+// Launch a kernel with `smem` bytes of dynamic shared memory, opting in
+// above the 48 KB default; the error of the launch, or of the opt-in.
+template <typename K, typename... Args>
+int launch(K kernel, dim3 grid, dim3 block, size_t smem, void* stream,
+           Args... args) {
+  if (smem > kSmemBlockMax) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<grid, block, smem, (cudaStream_t)stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+// The red-black blocks: 16 pairs by TX rows rounded up to even.
+inline dim3 rb_block(int TX) { return dim3(kPairs, TX + (TX & 1)); }
+
 template <typename T, int MODE>
 int links_tiled(const void* U, const void* phi, const void* r, void* out,
-                int L, double m, double omega, int colour, int TX, int TY,
-                void* stream) {
+                int L, double m, double omega, int TX, int TY, void* stream) {
   const size_t smem = sizeof(cplx<T>) * 2 * (size_t)(TX + 2) * (TY + 2);
   dim3 grid;
   const int err = grid_of(L, TX, TY, 1, grid);
   if (err) return err;
-  links_tiled_kernel<T, MODE>
-      <<<grid, dim3(kThreadsY, kThreadsX), smem, (cudaStream_t)stream>>>(
-          (const cplx<T>*)U, (const cplx<T>*)phi, (const cplx<T>*)r,
-          (cplx<T>*)out, L, T(2.0 + m), T(omega), colour, TX, TY);
-  return (int)cudaGetLastError();
+  return launch(links_tiled_kernel<T, MODE>, grid, dim3(kThreadsY, kThreadsX),
+                smem, stream, (const cplx<T>*)U, (const cplx<T>*)phi,
+                (const cplx<T>*)r, (cplx<T>*)out, L, T(2.0 + m), T(omega), TX,
+                TY);
+}
+
+// One smoother sweep: a whole red-black sweep (rb) or a Jacobi sweep, from
+// phi into out, which must not overlap it.
+template <typename T>
+int links_update(const void* U, const void* phi, const void* r, void* out,
+                 int L, double m, double omega, int rb, int TX, int TY,
+                 void* stream) {
+  if (overlap(phi, out, sizeof(cplx<T>) * 2 * (size_t)L * L) || (rb && L % 2))
+    return (int)cudaErrorInvalidValue;
+  if (!rb)
+    return links_tiled<T, kUpdate>(U, phi, r, out, L, m, omega, TX, TY,
+                                   stream);
+  dim3 grid;
+  const int err = grid_of(L, TX, TY, 1, grid);
+  if (err) return err;
+  const size_t smem = sizeof(cplx<T>) * 2 * (size_t)(TX + 4) * (TY + 4);
+  return launch(links_rb_tiled_kernel<T>, grid, rb_block(TX), smem, stream,
+                (const cplx<T>*)U, (const cplx<T>*)phi, (const cplx<T>*)r,
+                (cplx<T>*)out, L, T(2.0 + m), T(omega), TX, TY);
 }
 
 template <typename T, int N>
-int dense_tiled_n(const void* D, const void* Dinv, const void* phi,
-                  const void* r, void* out, int B, int L, long long d_bs,
-                  long long dinv_bs, long long r_bs, int colour,
-                  double omega, int TX, int TY, void* stream) {
-  const size_t smem = sizeof(cplx<T>) * N * (size_t)(TX + 2) * (TY + 2);
+int dense_update_n(const void* D, const void* Dinv, const void* phi,
+                   const void* r, void* out, int B, int L, long long d_bs,
+                   long long dinv_bs, long long r_bs, int rb, double omega,
+                   int TX, int TY, void* stream) {
+  if (overlap(phi, out, sizeof(cplx<T>) * (size_t)B * N * L * L) ||
+      (rb && L % 2))
+    return (int)cudaErrorInvalidValue;
   dim3 grid;
   const int err = grid_of(L, TX, TY, B, grid);
   if (err) return err;
-  dense_tiled_kernel<T, N>
-      <<<grid, dim3(kThreadsY, kThreadsX), smem, (cudaStream_t)stream>>>(
-          (const cplx<T>*)D, (const cplx<T>*)Dinv, (const cplx<T>*)phi,
-          (const cplx<T>*)r, (cplx<T>*)out, L, d_bs, dinv_bs, r_bs, colour,
-          T(omega), TX, TY);
-  return (int)cudaGetLastError();
+  const auto run = [&](auto kernel, dim3 block, size_t smem) {
+    return launch(kernel, grid, block, smem, stream, (const cplx<T>*)D,
+                  (const cplx<T>*)Dinv, (const cplx<T>*)phi,
+                  (const cplx<T>*)r, (cplx<T>*)out, L, d_bs, dinv_bs, r_bs,
+                  T(omega), TX, TY);
+  };
+  if (!rb)
+    return run(dense_tiled_kernel<T, N>, dim3(kThreadsY, kThreadsX),
+                sizeof(cplx<T>) * N * (size_t)(TX + 2) * (TY + 2));
+  const dim3 block = rb_block(TX);
+  const size_t words = (size_t)N * (TX + 4) * (TY + 4) +
+                       (size_t)(5 * N * N + N) * block.x * block.y;
+  return run(dense_rb_tiled_kernel<T, N>, block, sizeof(cplx<T>) * words);
 }
 
 template <typename T>
-int dense_tiled(const void* D, const void* Dinv, const void* phi,
-                const void* r, void* out, int B, int n, int L, long long d_bs,
-                long long dinv_bs, long long r_bs, int colour, double omega,
-                int TX, int TY, void* stream) {
+int dense_update(const void* D, const void* Dinv, const void* phi,
+                 const void* r, void* out, int B, int n, int L, long long d_bs,
+                 long long dinv_bs, long long r_bs, int rb, double omega,
+                 int TX, int TY, void* stream) {
   switch (n) {
     case 1:
-      return dense_tiled_n<T, 1>(D, Dinv, phi, r, out, B, L, d_bs, dinv_bs,
-                                 r_bs, colour, omega, TX, TY, stream);
+      return dense_update_n<T, 1>(D, Dinv, phi, r, out, B, L, d_bs, dinv_bs,
+                                  r_bs, rb, omega, TX, TY, stream);
     case 2:
-      return dense_tiled_n<T, 2>(D, Dinv, phi, r, out, B, L, d_bs, dinv_bs,
-                                 r_bs, colour, omega, TX, TY, stream);
+      return dense_update_n<T, 2>(D, Dinv, phi, r, out, B, L, d_bs, dinv_bs,
+                                  r_bs, rb, omega, TX, TY, stream);
     case 4:
-      return dense_tiled_n<T, 4>(D, Dinv, phi, r, out, B, L, d_bs, dinv_bs,
-                                 r_bs, colour, omega, TX, TY, stream);
+      return dense_update_n<T, 4>(D, Dinv, phi, r, out, B, L, d_bs, dinv_bs,
+                                  r_bs, rb, omega, TX, TY, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -394,11 +859,9 @@ int dense_apply_tiled_n(const void* D, const void* v, void* out, int B, int L,
   dim3 grid;
   const int err = grid_of(L, TX, TY, B, grid);
   if (err) return err;
-  dense_apply_tiled_kernel<T, N>
-      <<<grid, dim3(kThreadsY, kThreadsX), smem, (cudaStream_t)stream>>>(
-          (const cplx<T>*)D, (const cplx<T>*)v, (cplx<T>*)out, L, d_bs, v_bs,
-          TX, TY);
-  return (int)cudaGetLastError();
+  return launch(dense_apply_tiled_kernel<T, N>, grid,
+                dim3(kThreadsY, kThreadsX), smem, stream, (const cplx<T>*)D,
+                (const cplx<T>*)v, (cplx<T>*)out, L, d_bs, v_bs, TX, TY);
 }
 
 template <typename T>
@@ -424,64 +887,65 @@ int dense_apply_tiled(const void* D, const void* v, void* out, int B, int n,
 
 // Plain C interface, loaded with ctypes (ops/cuda_stencil.py). Each entry
 // launches on the given stream, does not synchronise, allocates nothing and
-// returns the CUDA error of its launch (cudaErrorInvalidValue for a tile the
-// kernel does not take).
+// returns the CUDA error of its launch (cudaErrorInvalidValue for a tile or
+// a shared-memory size the kernel does not take, an odd lattice for a
+// red-black sweep, or a smoother's out overlapping its phi).
 extern "C" {
 
 int tmg_links_residual_tiled_c64(const void* U, const void* phi,
                                  const void* r, void* out, int L, double m,
                                  int TX, int TY, void* stream) {
-  return links_tiled<float, kResid>(U, phi, r, out, L, m, 1.0, -1, TX, TY,
+  return links_tiled<float, kResid>(U, phi, r, out, L, m, 1.0, TX, TY,
                                     stream);
 }
 int tmg_links_residual_tiled_c128(const void* U, const void* phi,
                                   const void* r, void* out, int L, double m,
                                   int TX, int TY, void* stream) {
-  return links_tiled<double, kResid>(U, phi, r, out, L, m, 1.0, -1, TX, TY,
+  return links_tiled<double, kResid>(U, phi, r, out, L, m, 1.0, TX, TY,
                                      stream);
 }
 
+// rb = 1: one whole red-black sweep; rb = 0: one Jacobi sweep.
 int tmg_links_update_tiled_c64(const void* U, const void* phi, const void* r,
                                void* out, int L, double m, double omega,
-                               int colour, int TX, int TY, void* stream) {
-  return links_tiled<float, kUpdate>(U, phi, r, out, L, m, omega, colour, TX,
-                                     TY, stream);
+                               int rb, int TX, int TY, void* stream) {
+  return links_update<float>(U, phi, r, out, L, m, omega, rb, TX, TY,
+                             stream);
 }
 int tmg_links_update_tiled_c128(const void* U, const void* phi, const void* r,
                                 void* out, int L, double m, double omega,
-                                int colour, int TX, int TY, void* stream) {
-  return links_tiled<double, kUpdate>(U, phi, r, out, L, m, omega, colour, TX,
-                                      TY, stream);
+                                int rb, int TX, int TY, void* stream) {
+  return links_update<double>(U, phi, r, out, L, m, omega, rb, TX, TY,
+                              stream);
 }
 
 int tmg_dense_update_tiled_c64(const void* D, const void* Dinv,
                                const void* phi, const void* r, void* out,
                                int B, int n, int L, long long d_bs,
-                               long long dinv_bs, long long r_bs, int colour,
+                               long long dinv_bs, long long r_bs, int rb,
                                double omega, int TX, int TY, void* stream) {
-  return dense_tiled<float>(D, Dinv, phi, r, out, B, n, L, d_bs, dinv_bs,
-                            r_bs, colour, omega, TX, TY, stream);
+  return dense_update<float>(D, Dinv, phi, r, out, B, n, L, d_bs, dinv_bs,
+                             r_bs, rb, omega, TX, TY, stream);
 }
 int tmg_dense_update_tiled_c128(const void* D, const void* Dinv,
                                 const void* phi, const void* r, void* out,
                                 int B, int n, int L, long long d_bs,
-                                long long dinv_bs, long long r_bs,
-                                int colour, double omega, int TX, int TY,
-                                void* stream) {
-  return dense_tiled<double>(D, Dinv, phi, r, out, B, n, L, d_bs, dinv_bs,
-                             r_bs, colour, omega, TX, TY, stream);
+                                long long dinv_bs, long long r_bs, int rb,
+                                double omega, int TX, int TY, void* stream) {
+  return dense_update<double>(D, Dinv, phi, r, out, B, n, L, d_bs, dinv_bs,
+                              r_bs, rb, omega, TX, TY, stream);
 }
 
 int tmg_links_apply_tiled_c64(const void* U, const void* v, void* out, int L,
                               double m, int TX, int TY, void* stream) {
-  return links_tiled<float, kApply>(U, v, nullptr, out, L, m, 1.0, -1, TX,
-                                    TY, stream);
+  return links_tiled<float, kApply>(U, v, nullptr, out, L, m, 1.0, TX, TY,
+                                    stream);
 }
 int tmg_links_apply_tiled_c128(const void* U, const void* v, void* out,
                                int L, double m, int TX, int TY,
                                void* stream) {
-  return links_tiled<double, kApply>(U, v, nullptr, out, L, m, 1.0, -1, TX,
-                                     TY, stream);
+  return links_tiled<double, kApply>(U, v, nullptr, out, L, m, 1.0, TX, TY,
+                                     stream);
 }
 
 int tmg_dense_apply_tiled_c64(const void* D, const void* v, void* out, int B,

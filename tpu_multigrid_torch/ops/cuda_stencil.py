@@ -45,9 +45,11 @@ grid barrier separates the red/black half-sweeps (or the Jacobi sweeps),
 and each block owns a band of (batch, x) rows for all of them, its
 read-only operands staged once in shared memory where the band fits
 (`plan_band`; counted per launch in `band_launches`). The x-tiled
-smoothers make one launch per Jacobi sweep or red/black half-sweep (the
-launch boundary is their colour barrier). Red/black half-updates are
-written in place. In the SpMV and residual kernels one thread per site
+smoothers make one launch per sweep: a Jacobi sweep, or a whole red-black
+sweep (red, then black) in one pass over the operands, each block updating
+the red sites of its tile and of a one-site ring around it before its
+black sites. They write out of place, into buffers the wrapper allocates
+(`_sweeps`). In the SpMV and residual kernels one thread per site
 reads its neighbours from global memory and L2 serves the reuse; in the
 tiled ones a thread owns two sites of a tile whose phi sits in shared
 memory. An SpMV moves 5n^2 + 2n words a site (dense) or 6 (links), once
@@ -235,21 +237,29 @@ def _check_lattice(L: int, kind: str) -> None:
 
 
 def _sweeps(launch, phi, n_sweeps: int, kind: str):
-    """n_sweeps of launch(src, dst, colour) for the x-tiled smoothers.
-    Red-black: colours 0 then 1, in place on a copy of phi (the caller's
-    phi is left as it was); Jacobi: colour -1, ping-pong between two fresh
-    buffers."""
-    if kind == "rbgs":
-        out = phi.clone()
-        for _ in range(n_sweeps):
-            launch(out, out, 0)
-            launch(out, out, 1)
-        return out
-    src, bufs = phi, (torch.empty_like(phi), torch.empty_like(phi))
+    """n_sweeps launches of launch(src, dst, rb) for the x-tiled smoothers,
+    one a sweep: rb=1 a whole red-black sweep, rb=0 a Jacobi sweep. Out of
+    place, ping-pong between two buffers allocated here (phi -> A -> B ->
+    A ...): the caller's phi is never written. No sweeps: a copy of phi, no
+    launch."""
+    if n_sweeps <= 0:
+        return phi.clone()
+    bufs = [torch.empty_like(phi) for _ in range(min(n_sweeps, 2))]
+    src = phi
     for i in range(n_sweeps):
-        launch(src, bufs[i % 2], -1)
+        launch(src, bufs[i % 2], int(kind == "rbgs"))
         src = bufs[i % 2]
     return src
+
+
+def _check_out_of_place(src, dst) -> None:
+    """A tiled sweep reads src over a halo two sites deep, where other
+    blocks write dst in the same launch: dst must not overlap src."""
+    a, b = src.data_ptr(), dst.data_ptr()
+    if (a < b + dst.numel() * dst.element_size()
+            and b < a + src.numel() * src.element_size()):
+        raise ValueError("a tiled smoother sweep writes out of place: dst "
+                         "overlaps src")
 
 
 # --------------------------------------------------------------------------
@@ -398,8 +408,18 @@ def _smooth_once(name: str, band: Band, phi, n_sweeps: int, kind: str,
 
 
 # Largest tile of the tiled kernels: a block of 32 x 8 threads, two sites a
-# thread along x (csrc/stencil_tiled.cu).
+# thread along x; a red-black block of 16 pairs of sites along y by TX rows
+# (csrc/stencil_tiled.cu).
 MAX_TILE = (16, 32)
+
+
+def rb_smem_bytes(n: int, TX: int, TY: int, itemsize: int) -> int:
+    """Shared memory of one block of the dense red-black sweep
+    (dense_rb_tiled_kernel): phi's n planes over the tile and a two-site
+    halo, and the 5n^2 + n operand words (D's hop blocks, D0inv, r) of the
+    black site of each of its 16 x TX threads (TX rounded up to even)."""
+    threads = 16 * (TX + TX % 2)
+    return itemsize * (n * (TX + 4) * (TY + 4) + (5 * n * n + n) * threads)
 
 
 def default_tile(L: int):
@@ -409,11 +429,34 @@ def default_tile(L: int):
     return (16 if L >= 1024 else 8), 32
 
 
-def _tile(tile, L: int):
-    TX, TY = default_tile(L) if tile is None else map(int, tile)
+def rb_tile(L: int, n: int, itemsize: int):
+    """(TX, TY) of the dense red-black sweep (dense_rb_tiled_kernel): 12
+    x-rows by 32 from L=1024 (6 in complex128): one block an SM, with room
+    left in the SM's 228 KB for the L1 where a red load and the black copy
+    of the same sector meet; 16 below (one wave of 128 blocks at 256^2);
+    fewer where the block would not fit the shared memory."""
+    TX = 16 if L < 1024 else (12 if itemsize <= 8 else 6)
+    while rb_smem_bytes(n, TX, 32, itemsize) > SMEM_BLOCK_MAX:
+        TX -= 2
+    return TX, 32
+
+
+def _tile(tile, L: int, rb_n: int = 0, itemsize: int = 8):
+    """The (TX, TY) of a call: `tile`, else default_tile(L), or rb_tile for
+    a dense red-black sweep of rb_n components; refused (a ValueError)
+    outside MAX_TILE, or for a dense red-black sweep past the shared memory
+    of a block."""
+    if tile is None:
+        TX, TY = rb_tile(L, rb_n, itemsize) if rb_n else default_tile(L)
+    else:
+        TX, TY = map(int, tile)
     if not (1 <= TX <= MAX_TILE[0] and 1 <= TY <= MAX_TILE[1]):
         raise ValueError(f"tile {tile} outside 1..{MAX_TILE[0]} x "
                          f"1..{MAX_TILE[1]}")
+    if rb_n and rb_smem_bytes(rb_n, TX, TY, itemsize) > SMEM_BLOCK_MAX:
+        raise ValueError(f"tile {tile}: a red-black block of n={rb_n} would "
+                         f"need {rb_smem_bytes(rb_n, TX, TY, itemsize)} "
+                         f"bytes of shared memory, past {SMEM_BLOCK_MAX}")
     return TX, TY
 
 
@@ -493,22 +536,27 @@ def wilson_u_smooth_tiled(U, m: float, phi, r, n_sweeps: int,
     """wilson_u_smooth on (TX, TY) tiles (default: default_tile(L)).
 
     Replaces tpu_multigrid/ops/pallas_stencil.py _u_update_tile_kernel
-    (via wilson_u_smooth_pallas_tiled): one launch per Jacobi sweep or
-    red/black half-sweep."""
+    (via wilson_u_smooth_pallas_tiled): one launch per sweep, a red-black
+    sweep in one pass (U, r, phi in and out, 8 complex words per site once
+    per sweep). The result is a new tensor; phi is left as it was."""
     TX, TY = _tile(tile, phi.shape[-1])
     if not phi.is_cuda:
         return gauge_stencil.smooth_u("wilson", U, m, phi, r, n_sweeps, kind,
                                       omega)
     _check_links(U, phi, r)
-    L = phi.shape[-1]
-    _check_lattice(L, kind)
+    _check_lattice(phi.shape[-1], kind)
+    return _sweeps(functools.partial(_links_sweep, U, m, r, omega, TX, TY),
+                   phi, n_sweeps, kind)
 
-    def launch(src, dst, colour):
-        _launch("links_update_tiled", phi.dtype, phi.device, U.data_ptr(),
-                src.data_ptr(), r.data_ptr(), dst.data_ptr(), L, float(m),
-                float(omega), colour, TX, TY)
 
-    return _sweeps(launch, phi, n_sweeps, kind)
+def _links_sweep(U, m: float, r, omega: float, TX: int, TY: int, src, dst,
+                 rb: int) -> None:
+    """One launch of links_update_tiled, src -> dst: a whole red-black
+    sweep (rb=1) or a Jacobi sweep (rb=0); dst must not overlap src."""
+    _check_out_of_place(src, dst)
+    _launch("links_update_tiled", src.dtype, src.device, U.data_ptr(),
+            src.data_ptr(), r.data_ptr(), dst.data_ptr(), src.shape[-1],
+            float(m), float(omega), rb, TX, TY)
 
 
 def wilson_u_apply(U, m: float, v):
@@ -616,25 +664,33 @@ def dense_smooth(D, D0inv, phi, r, n_sweeps: int, kind: str = "rbgs",
 
 def dense_smooth_tiled(D, D0inv, phi, r, n_sweeps: int, kind: str = "rbgs",
                        omega: float = 1.0, tile=None):
-    """dense_smooth on (TX, TY) tiles (default: default_tile(L)), with the
-    same batch axis and per-operand batch strides.
+    """dense_smooth on (TX, TY) tiles (default: rb_tile for red-black,
+    default_tile(L) for Jacobi), with the same batch axis and per-operand
+    batch strides.
 
     Replaces tpu_multigrid/ops/pallas_stencil.py _tiled_update_kernel (via
-    _tiled_update_call / smooth_pallas_tiled): one launch per Jacobi sweep
-    or red/black half-sweep."""
-    TX, TY = _tile(tile, phi.shape[-1])
+    _tiled_update_call / smooth_pallas_tiled): one launch per sweep, a
+    red-black sweep in one pass (D's 4n^2 hop blocks, D0inv, r, phi in and
+    out once per sweep). The result is a new tensor; phi is left as it
+    was."""
+    TX, TY = _tile(tile, phi.shape[-1],
+                   phi.shape[-3] if kind == "rbgs" else 0, phi.element_size())
     if not phi.is_cuda:
         return smoothers.smooth_plain(D, D0inv, phi, r, n_sweeps, kind, omega)
-    B, n, L, d_bs, dinv_bs, r_bs = _dense_operands(
-        "dense_update_tiled", D, D0inv, phi, r, kind)
+    dims = _dense_operands("dense_update_tiled", D, D0inv, phi, r, kind)
+    return _sweeps(functools.partial(_dense_sweep, D, D0inv, r, dims, omega,
+                                     TX, TY), phi, n_sweeps, kind)
 
-    def launch(src, dst, colour):
-        _launch("dense_update_tiled", phi.dtype, phi.device, D.data_ptr(),
-                D0inv.data_ptr(), src.data_ptr(), r.data_ptr(),
-                dst.data_ptr(), B, n, L, d_bs, dinv_bs, r_bs, colour,
-                float(omega), TX, TY)
 
-    return _sweeps(launch, phi, n_sweeps, kind)
+def _dense_sweep(D, D0inv, r, dims, omega: float, TX: int, TY: int, src,
+                 dst, rb: int) -> None:
+    """One launch of dense_update_tiled, src -> dst: a whole red-black
+    sweep (rb=1) or a Jacobi sweep (rb=0); dims = (B, n, L, d_bs, dinv_bs,
+    r_bs) of _dense_operands; dst must not overlap src."""
+    _check_out_of_place(src, dst)
+    _launch("dense_update_tiled", src.dtype, src.device, D.data_ptr(),
+            D0inv.data_ptr(), src.data_ptr(), r.data_ptr(), dst.data_ptr(),
+            *dims, rb, float(omega), TX, TY)
 
 
 def _dense_apply(name, D, v, *tile):
