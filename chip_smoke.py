@@ -39,19 +39,37 @@ complex128 solve_ir to 1e-13, the fmg / fgmres / cgnr / eo_mr solvers,
 --resume, lexicographic GS with joint-QR setup at L=32) and
 tpu_multigrid_torch.scan (a two-point laplace mass scan at L=256).
 
+Then the batch axis and the other programs:
+
+- batched: 8 right-hand sides (complex normal from a seed) through
+  solve_batched on the flagship hierarchy, 10 cycles, and 2 through the
+  large flagship's, 8 cycles: each equal to its own unbatched solve, one
+  batched cycle making exactly the launches of an unbatched one (one
+  launch a call for the whole batch);
+- ensemble8: bench.py's ensemble phase (Wilson L=128, m=-0.005, 2 levels,
+  NTL, 8 gauge configurations, 18 cycles) through
+  build_hierarchies_batched and solve_ensemble;
+- chebyshev: eigs.chebyshev_config on the flagship hierarchy, then the
+  Chebyshev-smoothed solve to 1e-6, beside the plain path;
+- geo: the CLI's gen-1 program at the reference's own size (L=2048,
+  m=0.002, 9 levels, 20 sweeps) by --geo-ir to sum|r| < 1e-7, and the
+  gen-2 program at L=32 with lexicographic GS, t_flag 0 and 1.
+
 It checks convergence, that each solve went through every kernel of its
 path (launch counters, set to 0 before the path and read after it), that
 one flagship cycle launches the persistent smoothers exactly once per
 smooth call (2 links_update, 5 dense_update, no x-tiled smoother), that
 one large-flagship cycle launches the x-tiled smoothers exactly once per
 sweep (8 links_update_tiled, 24 dense_update_tiled: one fused red-black
-pass a sweep), that the plain path on the same hierarchy takes the same
+pass a sweep), that a batched or ensemble cycle launches as an unbatched
+one does, that the plain path on the same hierarchy takes the same
 number of cycles (within one), and that the kernel path agrees with the
 plain path on a small complex128 problem.
 
-Beside each kernel's main shape it computes the kernel's bound (the least
-bytes and flops of the call over the card's peak rates) and times one
-PyTorch call that computes the same function where there is one: for the
+Beside each kernel's main shape (and, for the links kernels, the batched
+main shape) it computes the kernel's bound (the least bytes and flops of
+the call over the card's peak rates), its device time a call
+(torch.profiler), and times one PyTorch call that computes the same function where there is one: for the
 SpMV and residual kernels torch.sparse.mm / torch.sparse.addmm on the
 operator assembled once as a CSR matrix (int32 indices); the smoothers
 have none. The port never calls these.
@@ -101,6 +119,15 @@ SPMV_KERNELS = ("dense_apply_tiled", "links_apply", "links_apply_tiled")
 KRYLOV_KERNELS = ("dense_apply",)
 CLI_KERNELS = ("links_update", "links_residual", "dense_update",
                "dense_apply")
+# the links kernels that take a batch of right-hand sides on shared links
+BATCHED_KERNELS = ("links_update", "links_residual", "links_update_tiled",
+                   "links_residual_tiled")
+ENSEMBLE_KERNELS = ("dense_update",)
+CHEBYSHEV_KERNELS = ("dense_apply", "links_residual")
+# the gen-2 program's cycles at L=32, m=0.5, 3 levels, 4 lexicographic
+# sweeps, t_flag 0 and 1 (the count tests/test_torch_cli.py holds the
+# port's CLI to on the CPU, which is the JAX CLI's)
+GEO2_CYCLES = 10
 L2_BYTES = 50 * 2**20
 BARS = {"complex64": 2e-5, "complex128": 1e-12}
 # Peak rates outside the tensor cores, H100 SXM (NVIDIA's data sheet): the
@@ -128,6 +155,7 @@ class Case:
     fg: object = None
     work: tuple = None
     library: object = None
+    batch: int = 1
 
 
 def stencil_csr(torch, D):
@@ -157,6 +185,11 @@ def stencil_csr(torch, D):
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+# Bytes rewritten to flush the L2 before a cold call: five times the
+# H100's 50 MB.
+L2_FLUSH_BYTES = 256 << 20
 
 
 def cuda_ms(torch, fn, reps=20):
@@ -210,9 +243,14 @@ def kernel_cases(torch, mgt, dev):
             "wilson", U, m))
 
     def links_cases(L, tag, dtype, tiled, tile=None, sweeps=4, omega=1.0,
-                    resid=True):
-        U, phi, r = links(L, dtype), c((2, L, L), dtype), c((2, L, L), dtype)
+                    resid=True, batch=1, shared_r=False):
+        """A batch > 1: phi [batch, 2, L, L] on the shared links, r batched
+        or shared (no library call)."""
+        lead = (batch,) if batch > 1 else ()
+        U, phi = links(L, dtype), c(lead + (2, L, L), dtype)
+        r = c((2, L, L) if shared_r else lead + (2, L, L), dtype)
         isz = phi.element_size()
+        r_copies = 1 if shared_r else batch
         if tiled:
             res = functools.partial(cs.wilson_u_residual_tiled, tile=tile)
             upd = functools.partial(cs.wilson_u_smooth_tiled, tile=tile)
@@ -234,7 +272,8 @@ def kernel_cases(torch, mgt, dev):
                             dtype, lambda: res(U, m, phi, r),
                             lambda: gs.residual_u("wilson", U, m, phi, r),
                             gres and (lambda: gres(U, m, phi, r)),
-                            work(kr, 2, L, isz), resid_call))
+                            work(kr, 2, L, isz, batch, r_copies),
+                            None if lead else resid_call, batch))
         om = "" if omega == 1.0 else f" omega={omega}"
         for kind in ("rbgs", "jacobi"):
             name = ("B5a" if tiled else "B1") + f" {kind} x{sweeps}{om} {tag}"
@@ -245,7 +284,7 @@ def kernel_cases(torch, mgt, dev):
                                            omega),
                 gupd and (lambda k=kind: gupd(U, m, phi, r, sweeps, k,
                                               omega)),
-                work(ku, 2, L, isz, n_sweeps=sweeps)))
+                work(ku, 2, L, isz, batch, r_copies, sweeps), batch=batch))
         return out
 
     def apply_cases(B, n, L, tag, dtype, tiled, tile=None):
@@ -385,6 +424,27 @@ def kernel_cases(torch, mgt, dev):
             cases += apply_cases(None, 2, 32, "n=2 " + tag, dtype,
                                  tiled=True, tile=tile)
             cases += links_apply_cases(32, tag, dtype, tiled=True, tile=tile)
+        # a batch of right-hand sides on shared links (B1, B2, B5a, B5b):
+        # the batched main shapes first (B=8 at L=256, B=2 at L=2048), then
+        # an odd batch, 1 and 3 sweeps, omega 0.8, r shared by the batch, a
+        # band over several x rows (L=8) and ragged tiles
+        cases += links_cases(256, "L=256 batch 8", dtype, tiled=False,
+                             batch=8)
+        cases += links_cases(2048, "L=2048 batch 2", dtype, tiled=True,
+                             batch=2)
+        for sweeps, omega in ((1, 1.0), (3, 1.0), (4, 0.8)):
+            cases += links_cases(256, "L=256 batch 3", dtype, tiled=False,
+                                 sweeps=sweeps, omega=omega, batch=3,
+                                 resid=sweeps == 1)
+            cases += links_cases(32, "L=32 batch 3 tile 6x12", dtype,
+                                 tiled=True, tile=(6, 12), sweeps=sweeps,
+                                 omega=omega, batch=3, resid=sweeps == 1)
+        cases += links_cases(256, "L=256 batch 3 shared r", dtype,
+                             tiled=False, batch=3, shared_r=True, sweeps=3)
+        cases += links_cases(8, "L=8 batch 8", dtype, tiled=False, batch=8)
+        cases += links_cases(32, "L=32 batch 8 shared r tile 3x5", dtype,
+                             tiled=True, tile=(3, 5), batch=8, shared_r=True,
+                             sweeps=3)
     return cases
 
 
@@ -435,16 +495,67 @@ def library_time(torch, case, want):
     return ms, what
 
 
+def device_us(torch, fn, calls=10, flush=None, tries=3):
+    """Microseconds of device time a call of fn under torch.profiler, or
+    None where none of `tries` profiles was whole. A profile of one call
+    gives fn's device events by name; a profile of `calls` calls is whole
+    when each of those names came back `calls` times as often and no other
+    did (the profiler has dropped events in some runs). flush: run before
+    every call and left out of the sum (its events, from a profile of it
+    alone, must share no name with fn's): each call then starts from a
+    cold L2, and its time can be held against a bound at the HBM rate."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def events(n, run_fn=True, run_flush=flush is not None):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as p:
+            for _ in range(n):
+                if run_flush:
+                    flush()
+                if run_fn:
+                    fn()
+            torch.cuda.synchronize()
+        return device_events(p)
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        one = events(1, run_flush=False)[1]
+        skip = (events(1, run_fn=False)[1] if flush is not None
+                else collections.Counter())
+        check(not set(one) & set(skip), f"the L2 flush shares a kernel with "
+              f"the call it flushes for: {set(one) & set(skip)}")
+        us, n = events(calls)
+        if one and n == collections.Counter(
+                {k: c * calls for k, c in (one + skip).items()}):
+            return sum(t for k, t in us.items() if k not in skip) / calls
+    return None
+
+
+def fmt_us(us):
+    return "not measured (events dropped)" if us is None else f"{us:.2f} us"
+
+
 def run_kernel_cases(torch, mgt, dev):
     """Each kernel against its plain version (and a tiled kernel beside the
     global one) at the paths' shapes. Returns the per-kernel entries of the
-    kernels line (complex64: the main shape's times, bound and library
-    call) and the tiled-vs-global times."""
+    kernels line (complex64: the main shape's times, device time, bound and
+    library call; for the links kernels also the batched main shape's
+    under "batched"), the tiled-vs-global times, and the rows of the
+    kernel table (B1 ... B8, and each batch of the links kernels): the
+    first complex64 case of each, with its device time and bound. Device
+    time is read twice: warm (calls back to back, operands that fit the
+    50 MB L2 stay there) and cold (the L2 flushed before each call by
+    rewriting L2_FLUSH_BYTES), the time that the bound at the HBM rate
+    holds for; rule 2's share is the bound over the cold time."""
     cs = mgt.ops.cuda_stencil
     peak = mgt.profiling.peak_bandwidth()
+    flush_buf = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.int32,
+                            device=dev)
     per_kernel = {k: {"max_abs_err": 0.0, "ms": None, "plain_ms": None}
                   for k in REPLACES}
     vs_global = []
+    rows = {}
     for case in kernel_cases(torch, mgt, dev):
         kern, label, fk, fp, fg = (case.kernel, case.label, case.fk, case.fp,
                                    case.fg)
@@ -472,34 +583,59 @@ def run_kernel_cases(torch, mgt, dev):
                               "ms": ms, "global_ms": g_ms,
                               "plain_ms": plain_ms})
         e = per_kernel[kern]
-        if dt == "complex64" and e["ms"] is None:   # the main shape
+        key = label.split()[0] + (f" batch {case.batch}" if case.batch > 1
+                                  else "")
+        if dt == "complex64" and key not in rows:   # a row's first case
             nbytes, flops = case.work
             bound_s, bound_by = mgt.profiling.bound_seconds(
                 nbytes, flops, peak, PEAK_FLOPS[dt])
-            lib_ms, lib = library_time(torch, case, want)
-            e.update(ms=ms, plain_ms=plain_ms, case=label,
-                     bound_ms=bound_s * 1e3, bound_by=bound_by,
-                     library_ms=lib_ms, library=lib)
-            line += (f"\n    main shape: bound {bound_s * 1e3:.4f} ms "
-                     f"({bound_by}); library "
-                     + (lib if lib_ms is None else f"{lib_ms:.4f} ms, {lib}"))
+            dev_us = device_us(torch, fk)
+            cold_us = device_us(torch, fk, flush=flush_buf.bitwise_not_)
+            share = None if cold_us is None else bound_s * 1e6 / cold_us
+            row = dict(ms=ms, plain_ms=plain_ms, case=label,
+                       device_us=dev_us, device_us_cold=cold_us,
+                       bound_ms=bound_s * 1e3, bound_by=bound_by,
+                       bound_share_cold=share)
+            rows[key] = dict(row, kernel=kern)
+            line += (f"\n    row {key}: device {fmt_us(dev_us)} a call "
+                     f"warm, {fmt_us(cold_us)} cold; bound "
+                     f"{bound_s * 1e3:.4f} ms ({bound_by})"
+                     + ("" if share is None else
+                        f", {share:.2f} of it cold"))
+        main = e["ms"] is None if case.batch == 1 else "batched" not in e
+        if dt == "complex64" and main:   # the (batched) main shape
+            row = {k: v for k, v in rows[key].items() if k != "kernel"}
+            if case.batch == 1:
+                lib_ms, lib = library_time(torch, case, want)
+                e.update(row, library_ms=lib_ms, library=lib)
+                what = "main shape"
+            else:
+                e["batched"] = dict(row, batch=case.batch)
+                what = "batched main shape"
+            line += f"\n    {what}" + ("" if case.batch > 1 else "; library "
+                                       + (lib if lib_ms is None
+                                          else f"{lib_ms:.4f} ms, {lib}"))
         if dt == "complex64":
             e["max_abs_err"] = max(e["max_abs_err"], abs_err)
         print(line)
-    return per_kernel, vs_global
+    del flush_buf
+    return per_kernel, vs_global, rows
 
 
 def cycle_launches(torch, mgt, dev, cfg, hier, ms_per_cycle, want, tag,
-                   first_design_ops=None):
+                   first_design_ops=None, b=None):
     """One cycle with the launch counters set to 0 just before it and read
     just after: exactly want[k] launches of each kernel k of `want`. The
     profiler gives the cycle's device ops and device time; the idle share
-    is taken against the unprofiled ms_per_cycle."""
+    is taken against the unprofiled ms_per_cycle. b: the right-hand side
+    (default the point source), [B, n, L, L] for a batched cycle."""
     from torch.profiler import ProfilerActivity, profile
     from torch.autograd import DeviceType
     cs = mgt.ops.cuda_stencil
-    b = mgt.point_source(cfg, device=dev)
-    phis, _ = mgt.cycle(hier, mgt.zero_fields(cfg, dev), b, cfg)
+    if b is None:
+        b = mgt.point_source(cfg, device=dev)
+    batch = b.shape[0] if b.dim() == 4 else None
+    phis, _ = mgt.cycle(hier, mgt.zero_fields(cfg, dev, batch), b, cfg)
     torch.cuda.synchronize()
     cs.reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
@@ -512,10 +648,12 @@ def cycle_launches(torch, mgt, dev, cfg, hier, ms_per_cycle, want, tag,
     events = [e for e in p.events() if e.device_type == DeviceType.CUDA]
     busy_us = sum(getattr(e, "device_time_total", None)
                   or getattr(e, "cuda_time_total", 0.0) for e in events)
+    top = device_time_by_name(p).most_common(8)
     out = {"port_launches": counts, "device_ops": len(events),
            "device_ms": busy_us / 1e3,
            "wall_ms_profiled": wall * 1e3,
-           "idle_share": 1 - busy_us / 1e3 / ms_per_cycle}
+           "idle_share": 1 - busy_us / 1e3 / ms_per_cycle,
+           "top_device_us": [[name[:80], us] for name, us in top]}
     if first_design_ops is not None:
         out["first_design_device_ops"] = first_design_ops
     print(f"  one {tag} cycle: kernel launches {counts}; profiler "
@@ -524,6 +662,8 @@ def cycle_launches(torch, mgt, dev, cfg, hier, ms_per_cycle, want, tag,
              f" (first design, on record: {first_design_ops})")
           + f", {busy_us / 1e3:.4f} ms of device time, idle "
           f"{out['idle_share']:.3f} of the {ms_per_cycle:.3f} ms cycle")
+    for name, us in top:
+        print(f"    {us:9.1f} us  {name[:80]}")
     check(all(counts.get(k, 0) == n for k, n in want.items()),
           f"a {tag} cycle launched {counts}: want {want}")
     return out
@@ -692,16 +832,22 @@ def spmv_phase(torch, mgt, dev, card):
     return {"rows": rows}, launches
 
 
-def device_time_by_name(prof_obj):
-    """Microseconds of device time (kernels, copies) by event name in a
-    torch.profiler run; one stream, so the events do not overlap."""
+def device_events(prof_obj):
+    """(microseconds, number) of device events (kernels, copies) by name
+    in a torch.profiler run; one stream, so the events do not overlap."""
     from torch.autograd import DeviceType
-    us = collections.Counter()
+    us, n = collections.Counter(), collections.Counter()
     for e in prof_obj.events():
         if e.device_type == DeviceType.CUDA:
             us[e.name] += (getattr(e, "device_time_total", None)
                            or getattr(e, "cuda_time_total", 0.0))
-    return us
+            n[e.name] += 1
+    return us, n
+
+
+def device_time_by_name(prof_obj):
+    """Microseconds of device time by event name in a torch.profiler run."""
+    return device_events(prof_obj)[0]
 
 
 def krylov_phase(torch, mgt, dev, flag_cfg, flag_hier):
@@ -1048,6 +1194,227 @@ def cli_phase(torch, mgt, dev, card, flag, phases):
     return out, launches
 
 
+def rel_diff(a, b):
+    """max |a - b| / max |b|."""
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def batched_phase(torch, mgt, dev, cfg, hier, n_rhs, n_cyc, reps, single,
+                  kernels, tag):
+    """solve_batched: n_rhs right-hand sides (complex normal from
+    default_rng(cfg.seed + n_rhs)) through n_cyc cycles of the one
+    hierarchy, with the launch counters set to 0 just before it and read
+    just after; each solution against its own unbatched n_cyc-cycle solve
+    (rel. 1e-4); ms a batched cycle; one profiled batched cycle launches
+    exactly what one unbatched cycle launched (`single`: the unbatched phase's
+    summary). Returns (summary, launches)."""
+    cs = mgt.ops.cuda_stencil
+    rng = np.random.default_rng(cfg.seed + n_rhs)
+    shape = (n_rhs, 2, cfg.L, cfg.L)
+    bs = torch.from_numpy(rng.normal(size=shape)
+                          + 1j * rng.normal(size=shape)).to(dev, cfg.cdtype)
+    cs.reset_launches()
+    (phi, res), sec = timed(torch, lambda: mgt.solve_batched(hier, bs, cfg,
+                                                             n_cyc))
+    launches = dict(cs.launches)
+    check(tuple(phi.shape) == shape
+          and bool(torch.isfinite(torch.view_as_real(phi)).all()),
+          f"batched {tag}: solutions not finite of shape {shape}")
+    check(bool(np.isfinite(res).all()) and float(res.max()) < 1e-3,
+          f"batched {tag}: relative residuals {res}")
+    for k in kernels:
+        check(launches[k] > 0, f"batched {tag}: never launched {k}")
+    worst = 0.0
+    for i in range(n_rhs):
+        phis = mgt.zero_fields(cfg, dev)
+        for _ in range(n_cyc):
+            phis, _ = mgt.cycle(hier, phis, bs[i], cfg)
+        worst = max(worst, rel_diff(phi[i], phis[0]))
+    check(worst < 1e-4, f"batched {tag}: a right-hand side differs from its "
+          f"own unbatched solve by {worst:.3e}")
+
+    def cycles():
+        phis = mgt.zero_fields(cfg, dev, n_rhs)
+        for _ in range(n_cyc):
+            phis, _ = mgt.cycle(hier, phis, bs, cfg)
+
+    ms = cuda_ms(torch, cycles, reps=reps) / n_cyc
+    want = single["cycle"]["port_launches"]
+    cyc = cycle_launches(torch, mgt, dev, cfg, hier, ms, want,
+                         f"batched x{n_rhs} {tag}", b=bs)
+    check(cyc["port_launches"] == want, f"batched {tag}: a cycle launched "
+          f"{cyc['port_launches']}, an unbatched cycle {want}")
+    out = {"L": cfg.L, "rhs": n_rhs, "cycles": n_cyc,
+           "max_rel_res": float(res.max()), "solve_s": sec,
+           "max_rel_diff_vs_unbatched": worst, "ms_per_cycle": ms,
+           "unbatched_ms_per_cycle": single["ms_per_cycle"],
+           "rhs_per_s": n_rhs * 1e3 / (ms * n_cyc), "cycle": cyc,
+           "launches": launches}
+    print(f"batched {tag} x{n_rhs} c64: {n_cyc} cycles, max rel residual "
+          f"{out['max_rel_res']:.3e}, max rel diff vs unbatched {worst:.3e}; "
+          f"{ms:.3f} ms a batched cycle vs {n_rhs} x "
+          f"{single['ms_per_cycle']:.3f} = "
+          f"{n_rhs * single['ms_per_cycle']:.3f} ms unbatched; "
+          f"{out['rhs_per_s']:.1f} RHS/s at {n_cyc} cycles")
+    return out, launches
+
+
+def chebyshev_phase(torch, mgt, dev, cfg, hier, max_cycles=40, n_cyc=10,
+                    reps=5):
+    """eigs.chebyshev_config on the flagship hierarchy (lambda_max of
+    D0^-1 D on every level by power iteration), then the Chebyshev-smoothed
+    solve_chunked(chunk=1) to the flagship's threshold, with the launch
+    counters set to 0 before the estimate; the plain path on the same
+    hierarchy within one cycle. Returns the summary."""
+    cs = mgt.ops.cuda_stencil
+    b = mgt.point_source(cfg, device=dev)
+    cs.reset_launches()
+    cc, t_eig = timed(torch, lambda: mgt.eigs.chebyshev_config(cfg, hier))
+    out, sec = timed(torch, lambda: mgt.solve_chunked(
+        hier, b, cc, max_iters=max_cycles, chunk=1))
+    launches = dict(cs.launches)
+    plain = mgt.solve_chunked(hier, b, cc.replace(pallas="off"),
+                              max_iters=max_cycles, chunk=1)
+
+    def cycles():
+        phis = mgt.zero_fields(cc, dev)
+        for _ in range(n_cyc):
+            phis, _ = mgt.cycle(hier, phis, b, cc)
+
+    ms = cuda_ms(torch, cycles, reps=reps) / n_cyc
+    print(f"chebyshev L={cfg.L}: lambda_max per level "
+          + ", ".join(f"{x:.4f}" for x in cc.cheby_lmax)
+          + f" ({t_eig:.3f} s); {out.iters} cycles to {out.resmag:.3e} in "
+          f"{sec:.3f} s, {ms:.3f} ms a cycle; plain path {plain.iters} "
+          f"cycles to {plain.resmag:.3e}; launches {launches}")
+    check(math.isfinite(out.resmag) and out.converged,
+          f"chebyshev did not reach {cfg.res_threshold} in {max_cycles} "
+          f"cycles ({out.iters}, {out.resmag:.3e})")
+    check(plain.converged and abs(plain.iters - out.iters) <= 1,
+          f"chebyshev: kernel path {out.iters} cycles, plain {plain.iters}")
+    for k in CHEBYSHEV_KERNELS:
+        check(launches[k] > 0, f"chebyshev never launched {k}")
+    return {"lmax": list(cc.cheby_lmax), "eig_s": t_eig,
+            "cycles": out.iters, "res": out.resmag, "solve_s": sec,
+            "ms_per_cycle": ms, "plain_cycles": plain.iters,
+            "launches": launches}
+
+
+def ensemble_phase(torch, mgt, dev, B=8, L=128, n_cyc=18):
+    """bench.py's ensemble phase on the card: Wilson L=128, m=-0.005, 2
+    levels, NTL, 4 sweeps, 60 near-null sweeps, complex64, B gauges of
+    phases 0.2 N(0,1) from default_rng(cfg.seed) (a second ensemble for
+    the warm setup), the point source, 18 cycles, through
+    build_hierarchies_batched and solve_ensemble with the launch counters
+    set to 0 before the setup. Max relative residual < 1e-5 (bench.py's
+    bar); each configuration equal to its own unbatched solve (rel. 1e-4);
+    one ensemble cycle launches what one configuration's cycle launches.
+    Returns the summary."""
+    cs = mgt.ops.cuda_stencil
+    ens = mgt.solver.ensemble
+    cfg = mgt.MGConfig(L=L, stencil="wilson", m=-0.005, nlevels=2, ntl=True,
+                       num_iters=4, null_iters=60, dtype="complex64",
+                       res_threshold=1e-6, smoother="rbgs")
+    rng = np.random.default_rng(cfg.seed)
+
+    def gauges():
+        ph = np.stack([0.2 * rng.normal(size=(2, L, L)) for _ in range(B)])
+        return mgt.models.gauge.gauge_from_phases(ph, cfg.cdtype, dev)
+
+    Us, Us2 = gauges(), gauges()
+    b = mgt.point_source(cfg, device=dev)
+    bs = b.expand(B, *b.shape).contiguous()
+    cs.reset_launches()
+    hier_b, t_setup = timed(torch, lambda: mgt.build_hierarchies_batched(
+        Us, cfg))
+    _, t_setup_warm = timed(torch, lambda: mgt.build_hierarchies_batched(
+        Us2, cfg))
+    (phi, res), t_cold = timed(torch, lambda: mgt.solve_ensemble(
+        hier_b, bs, cfg, n_cyc))
+    (phi, res), t_warm = timed(torch, lambda: mgt.solve_ensemble(
+        hier_b, bs, cfg, n_cyc))
+    launches = dict(cs.launches)
+    check(bool(np.isfinite(res).all()) and float(res.max()) < 1e-5,
+          f"ensemble: relative residuals {res} after {n_cyc} cycles")
+    for k in ENSEMBLE_KERNELS:
+        check(launches[k] > 0, f"ensemble never launched {k}")
+    worst = 0.0
+    for i in range(B):
+        h = ens.unstack_hierarchy(hier_b, i)
+        phis = mgt.zero_fields(cfg, dev)
+        for _ in range(n_cyc):
+            phis, _ = mgt.cycle(h, phis, b, cfg)
+        worst = max(worst, rel_diff(phi[i], phis[0]))
+    check(worst < 1e-4, f"ensemble: a configuration differs from its own "
+          f"solve by {worst:.3e}")
+    h0 = ens.unstack_hierarchy(hier_b, 0)
+    cs.reset_launches()
+    mgt.cycle(h0, mgt.zero_fields(cfg, dev), b, cfg)
+    want = {k: v for k, v in cs.launches.items() if v}
+    ms = cuda_ms(torch, lambda: mgt.cycle(
+        hier_b, mgt.zero_fields(cfg, dev, B), bs, cfg), reps=10)
+    cyc = cycle_launches(torch, mgt, dev, cfg, hier_b, ms, want,
+                         f"ensemble x{B}", b=bs)
+    check(cyc["port_launches"] == want, f"ensemble: a cycle launched "
+          f"{cyc['port_launches']}, one configuration's {want}")
+    out = {"B": B, "L": L, "n_cycles": n_cyc, "max_rel_res": float(res.max()),
+           "setup_s": t_setup, "setup_warm_s": t_setup_warm,
+           "solve_cold_s": t_cold, "solve_warm_s": t_warm,
+           "configs_per_s_warm": B / t_warm, "ms_per_cycle": ms,
+           "max_rel_diff_vs_single": worst, "cycle": cyc,
+           "launches": launches}
+    print(f"ensemble8 L={L} x{B} c64: setup {t_setup:.3f} s cold, "
+          f"{t_setup_warm:.3f} s warm; solve {n_cyc} cycles {t_cold:.3f} s "
+          f"cold, {t_warm:.3f} s warm ({B / t_warm:.2f} configs/s); max rel "
+          f"residual {out['max_rel_res']:.3e}; max rel diff vs one "
+          f"configuration's solve {worst:.3e}; {ms:.3f} ms a cycle")
+    return out
+
+
+def geo_phase(torch, mgt, dev):
+    """The CLI's geometric programs in process on the card: gen 1 at the
+    reference's own size by --geo-ir to sum|r| < 1e-7 (bench.py's geo2048;
+    at most 5 cycles: JAX's 4, the compiled C++ reference's 5), run twice
+    (cold, warm), and gen 2 at L=32 with lexicographic GS, t_flag 0 and 1
+    (GEO2_CYCLES each)."""
+    out = {}
+    with tempfile.TemporaryDirectory(dir=HERE) as tmpname:
+        tmp = Path(tmpname)
+        gen1 = ["--mode", "geo", "--geo-ir", "--L", "2048", "--m", "0.002",
+                "--nlevels", "9", "--num-iters", "20", "--res-threshold",
+                "1e-7", "--max-iters", "12", "--platform", str(dev)]
+        for run in ("cold", "warm"):
+            rc, _, s, *_ = run_cli(torch, mgt, gen1, tmp / f"geo_{run}")
+            row = {"rc": rc, "cycles": s["iters"], "res_l1": s["res_l1"],
+                   "seconds": s["seconds"],
+                   "s_per_cycle": s["seconds"] / s["iters"],
+                   "history": s["history"]}
+            print(f"geo L=2048 --geo-ir ({run}): exit {rc}, {s['iters']} "
+                  f"cycles to sum|r| {s['res_l1']:.3e} in {s['seconds']:.3f} "
+                  f"s ({row['s_per_cycle']:.4f} s a cycle); history "
+                  + ", ".join(f"{h:.3e}" for h in s["history"]))
+            check(rc == 0 and s["converged"] and s["iters"] <= 5,
+                  f"geo L=2048: exit {rc}, {s['iters']} cycles to "
+                  f"{s['res_l1']:.3e}")
+            out[f"geo2048_{run}"] = row
+        for t_flag in (0, 1):
+            argv = ["--mode", "geo2", "--L", "32", "--m", "0.5", "--nlevels",
+                    "3", "--num-iters", "4", "--smoother", "gs_lex",
+                    "--res-threshold", "1e-12", "--max-iters", "100",
+                    "--platform", str(dev)] + (["--ntl"] if t_flag else [])
+            rc, _, s, *_ = run_cli(torch, mgt, argv, tmp / f"geo2_{t_flag}")
+            print(f"geo2 L=32 gs_lex t_flag {t_flag}: exit {rc}, {s['iters']}"
+                  f" cycles to sum|r| {s['res_l1']:.3e} in {s['seconds']:.3f}"
+                  " s")
+            check(rc == 0 and s["iters"] == GEO2_CYCLES,
+                  f"geo2 t_flag {t_flag}: exit {rc}, {s['iters']} cycles "
+                  f"(the CPU count {GEO2_CYCLES})")
+            out[f"geo2_t{t_flag}"] = {"rc": rc, "cycles": s["iters"],
+                                      "res_l1": s["res_l1"],
+                                      "seconds": s["seconds"]}
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1070,7 +1437,7 @@ def main():
     built, t_build = timed(torch, lambda: (cs.build(), cs._library())[0])
     print(f"kernel build + load: {t_build:.2f} s ({built.name})")
 
-    per_kernel, vs_global = run_kernel_cases(torch, mgt, dev)
+    per_kernel, vs_global, kernel_rows = run_kernel_cases(torch, mgt, dev)
     print(f"kernel cases done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- the flagship (L=256) on the global kernels ----
@@ -1083,6 +1450,10 @@ def main():
         {"links_update": 2, "dense_update": 5, "links_update_tiled": 0,
          "dense_update_tiled": 0}, "flagship", FIRST_DESIGN_CYCLE_OPS)
     flag["solve_ir"] = ir_phase(torch, mgt, dev, cfg, gauges[0][0], hier)
+    batched, batched_launches = batched_phase(
+        torch, mgt, dev, cfg, hier, 8, 10, 5, flag, FLAGSHIP_KERNELS,
+        "L=256")
+    cheb = chebyshev_phase(torch, mgt, dev, cfg, hier)
     flag_cfg, flag_hier, flag_phases = cfg, hier, gauges[0][0]
     del gauges, hier
     print(f"flagship done at {time.perf_counter() - t_start:.1f} s")
@@ -1101,6 +1472,8 @@ def main():
         {"links_update_tiled": 8, "dense_update_tiled": 24},
         "large flagship")
     large["solve_ir"] = ir_phase(torch, mgt, dev, cfg, phases0, hier)
+    large_b, large_b_launches = batched_phase(
+        torch, mgt, dev, cfg, hier, 2, 8, 3, large, LARGE_KERNELS, "L=2048")
     del hier
     torch.cuda.synchronize()
     large["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
@@ -1123,25 +1496,46 @@ def main():
     cli["seconds"] = time.perf_counter() - t_cli
     print(f"cli done at {time.perf_counter() - t_start:.1f} s "
           f"({cli['seconds']:.1f} s)")
+
+    # ---- the ensemble, and the CLI's geometric programs ----
+    ensemble = ensemble_phase(torch, mgt, dev)
+    print(f"ensemble done at {time.perf_counter() - t_start:.1f} s")
+    geo = geo_phase(torch, mgt, dev)
+    print(f"geo done at {time.perf_counter() - t_start:.1f} s")
     phase_launches = {k: spmv_launches for k in SPMV_KERNELS}
     phase_launches.update({k: krylov_launches for k in KRYLOV_KERNELS})
     phase_launches.update({k: large_launches for k in LARGE_KERNELS
                            if k.endswith("_tiled")})
     phase_launches.update({k: flag_launches for k in FLAGSHIP_KERNELS})
 
+    batched_cycle = dict(batched["cycle"]["port_launches"],
+                         **large_b["cycle"]["port_launches"])
     kernels = [{"name": k, "route": "cuda", "source": SOURCES[k],
                 "replaces": REPLACES[k],
                 "launches": phase_launches[k][k],
                 "cli_launches": cli_launches[k],
                 **{f: per_kernel[k][f] for f in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms", "library", "case")}}
+                    "library_ms", "library", "case", "device_us",
+                    "device_us_cold", "bound_share_cold")},
+                **({"batched": dict(per_kernel[k]["batched"],
+                                    cycle_launches=batched_cycle.get(k, 0))}
+                   if k in BATCHED_KERNELS else {})}
                for k in REPLACES]
+    for k in BATCHED_KERNELS:
+        check((batched_launches if k in FLAGSHIP_KERNELS
+               else large_b_launches)[k] > 0, f"batched never launched {k}")
     print(json.dumps({"flagship": flag, "card": card}))
     print(json.dumps({"large_flagship": large, "card": card}))
     print(json.dumps({"tiled_vs_global": vs_global, "card": card}))
+    print(json.dumps({"kernel_rows": kernel_rows, "card": card}))
     print(json.dumps({"krylov": krylov, "card": card}))
     print(json.dumps({"cli": cli, "card": card}))
+    print(json.dumps({"batched": {"L256": batched, "L2048": large_b},
+                      "card": card}))
+    print(json.dumps({"chebyshev": cheb, "card": card}))
+    print(json.dumps({"ensemble8": ensemble, "card": card}))
+    print(json.dumps({"geo": geo, "card": card}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -28,6 +28,9 @@ hierarchy built by this checkout, runs of 4 cycles of each design's cycle
 code in three rounds of turns (5 runs a turn), one profiled cycle of
 each, and the warm setup seconds of each design's build_hierarchy on a
 second gauge (after one unmeasured build each), in one round of turns.
+Where both designs take a batch of right-hand sides (solve_batched), a
+batched cycle of each on the same hierarchy, 8 right-hand sides at L=256
+and 2 at L=2048, in turns, with one profiled batched cycle of each.
 Last, the links apply at L=256 (links_apply, B8) beside torch.sparse.mm
 on the operator as a CSR matrix (chip_smoke.stencil_csr): wrapper ms in
 turns, and device microseconds a call from the profiler (ten calls a turn,
@@ -133,6 +136,57 @@ def device_us_in_turns(torch, other, this, calls=10, rounds=3):
     return statistics.median(got[other]), statistics.median(got[this])
 
 
+def batched_cycles(torch, this, other, cfgs, hier, n_rhs, k, reps, dev):
+    """ms a batched cycle of each design on one hierarchy: n_rhs
+    right-hand sides (complex normal from default_rng(seed + n_rhs)), runs
+    of k cycles in three rounds of turns of `reps` runs; one profiled batched
+    cycle of each; the largest difference of their solutions. None when
+    the other design has no batch axis."""
+    if not hasattr(other, "solve_batched"):
+        return None
+    cfg = cfgs[this]
+    rng = np.random.default_rng(cfg.seed + n_rhs)
+    shape = (n_rhs, 2, cfg.L, cfg.L)
+    bs = torch.from_numpy(rng.normal(size=shape) + 1j * rng.normal(
+        size=shape)).to(dev, cfg.cdtype)
+
+    def cycles(p):
+        def run():
+            phis = this.zero_fields(cfg, dev, n_rhs)
+            for _ in range(k):
+                phis, _ = p.cycle(hier, phis, bs, cfgs[p])
+            return phis
+        return run
+
+    def one_cycle(p):
+        state = [this.zero_fields(cfg, dev, n_rhs)]
+
+        def run():
+            p.ops.cuda_stencil.reset_launches()
+            state[0], _ = p.cycle(hier, state[0], bs, cfgs[p])
+        return run
+
+    got_o, got_t = cycles(other)()[0], cycles(this)()[0]
+    diff = float((got_t - got_o).abs().max() / got_o.abs().max())
+    ms_o, ms_t, turns = in_turns(torch, cycles(other), cycles(this), reps)
+    out = {"rhs": n_rhs, "other_ms_per_cycle": ms_o / k,
+           "this_ms_per_cycle": ms_t / k, f"turns_ms_{k}_cycles": turns,
+           "rel_diff": diff,
+           "other_profile": profile_cycle(torch, other.ops.cuda_stencil,
+                                          one_cycle(other), ms_o / k),
+           "this_profile": profile_cycle(torch, this.ops.cuda_stencil,
+                                         one_cycle(this), ms_t / k)}
+    print(f"batched cycle L={cfg.L} x{n_rhs}: other {ms_o / k:.4f} ms, this "
+          f"{ms_t / k:.4f} ms ({k} cycles a run, 3 rounds of turns of {reps}"
+          f" runs); rel diff {diff:.2e}")
+    for key in ("other", "this"):
+        pr = out[f"{key}_profile"]
+        print(f"  {key}: {pr['device_ops']} device ops, "
+              f"{pr['device_ms']:.4f} ms of device time a cycle, idle "
+              f"{pr['idle_share']:.3f}; launches {pr['launches']}")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", type=Path)
@@ -220,6 +274,8 @@ def main():
         print(f"  {k}: {pr['device_ops']} device ops, {pr['device_ms']:.4f} "
               f"ms of device time a cycle, idle {pr['idle_share']:.3f} of the "
               f"unprofiled cycle; launches {pr['launches']}")
+    cycle["batched"] = batched_cycles(torch, this, other, cfgs, hier, 8, 10,
+                                      5, dev)
 
     rows = []
     U = torch.polar(torch.ones(2, 256, 256, dtype=torch.float64),
@@ -347,6 +403,8 @@ def large_flagship(torch, this, other, dev):
         print(f"  {k}: {pr['device_ops']} device ops, {pr['device_ms']:.4f} "
               f"ms of device time a cycle, idle {pr['idle_share']:.3f}; "
               f"launches {pr['launches']}")
+    out["batched"] = batched_cycles(torch, this, other, cfgs, hier, 2, 4, 3,
+                                    dev)
     del hier
 
     def setup(p):

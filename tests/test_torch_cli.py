@@ -3,8 +3,10 @@
 package's CLI where both can run the same problem: the files of a run,
 the reference's positional argv, a near-null checkpoint written by the
 JAX CLI read by the port's (same cycle count, results_phi.txt within
-1e-9), --resume, every --solver, the flags this port rejects (exit code
-2), and a two-point scan."""
+1e-9), --resume, every --solver, the gen-1 / gen-2 geometric programs
+(--mode geo|geo2, --geo-ir: the JAX CLI's lines, summary keys, counts and
+exit code), the flags this port rejects (exit code 2), and a two-point
+scan."""
 import json
 
 import numpy as np
@@ -142,16 +144,58 @@ def test_cli_gs_lex_joint_qr(tmp_path):
                                    ["--platform", "cuda"],
                                    ["--platform", "tpu"]])
 def test_cli_rejects_with_exit_2(tmp_path, flags, capsys):
-    if flags == ["--platform", "cuda"] and torch.cuda.is_available():
-        flags = ["--platform", f"cuda:{torch.cuda.device_count()}"]
+    """--mesh is not ported (ROADMAP A12); a missing or unknown device is
+    refused, by the geometric modes too (never a silent CPU run)."""
+    missing = ["--platform", "cuda"]
+    if torch.cuda.is_available():
+        missing = ["--platform", f"cuda:{torch.cuda.device_count()}"]
+    if flags == ["--platform", "cuda"]:
+        flags = missing
+    elif "--mode" in flags:
+        flags = flags + missing
     base = [a for a in LAPLACE if a not in ("--platform", "cpu")]
     with pytest.raises(SystemExit) as e:
         cli.main(base + flags + ["--out-dir", str(tmp_path)])
     assert e.value.code == 2
     err = capsys.readouterr().err
-    assert ("A10" in err if "--mode" in flags else
-            "A12" in err if "--mesh" in flags else "--platform" in err)
+    assert "A12" in err if "--mesh" in flags else "--platform" in err
     assert not (tmp_path / "solve_summary.json").exists()
+
+
+GEO = ["--L", "32", "--m", "0.5", "--nlevels", "3", "--num-iters", "4",
+       "--max-iters", "100", "--platform", "cpu"]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--mode", "geo", "--res-threshold", "1e-12"],
+    ["--mode", "geo", "--geo-ir", "--res-threshold", "1e-11"],
+    ["--mode", "geo2", "--smoother", "gs_lex", "--res-threshold", "1e-12"],
+    ["--mode", "geo2", "--smoother", "gs_lex", "--ntl",
+     "--res-threshold", "1e-12"],
+    ["--mode", "geo2", "--ntl", "--ntl-combine", "avg_coarse",
+     "--res-threshold", "1e-12"],
+    ["--mode", "geo", "--max-iters", "5"]])
+def test_cli_geometric_matches_jax(tmp_path, flags, capsys):
+    """The geometric programs through both CLIs at L=32: the same printed
+    lines (but sum|r|'s rounding and the seconds), summary keys, cycle
+    count, sum|r| history and exit code (1 where the cycles run out)."""
+    rc = cli.main(GEO + flags + ["--out-dir", str(tmp_path / "t")])
+    out = capsys.readouterr().out.splitlines()
+    jrc = jcli.main(GEO + flags + ["--out-dir", str(tmp_path / "j")])
+    jout = capsys.readouterr().out.splitlines()
+    s, js = _summary(tmp_path / "t"), _summary(tmp_path / "j")
+    assert rc == jrc == (0 if js["converged"] else 1)
+    assert s.keys() == js.keys()
+    for k in ("mode", "L", "m", "nlevels", "iters", "converged"):
+        assert s[k] == js[k], k
+    # float32 inner cycles (--geo-ir) round apart; float64 to its floor
+    rtol = 1e-5 if "--geo-ir" in flags else 1e-9
+    np.testing.assert_allclose(s["history"], js["history"], rtol=rtol,
+                               atol=1e-14)
+    assert out[0] == jout[0]
+    assert out[-1].split(" = ")[0] == jout[-1].split(" = ")[0]
+    if "gs_lex" in flags:       # the count chip_smoke.py holds the card to
+        assert s["iters"] == 10
 
 
 def test_debug_nans_raises():

@@ -212,6 +212,78 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
                         _c(rng, (3, L, L), torch.complex64, dev), 1, "rbgs")
 
 
+# ---- a batch of right-hand sides on shared links (B1, B2, B5a, B5b)
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,L,shared_r", [(3, 8, False), (8, 256, False),
+                                          (3, 256, True), (8, 8, True)])
+@pytest.mark.parametrize("tiled", [False, True])
+def test_batched_links(dev, dtype, B, L, shared_r, tiled):
+    """phi [B, 2, L, L] on the links U [2, L, L], r batched or shared: one
+    launch a call (the x-tiled smoother: one a sweep) for the whole batch;
+    the plain version's result, and each entry its own unbatched call's,
+    to rounding; the caller's phi untouched."""
+    rng = np.random.default_rng(40 + B + L)
+    U = _links(rng, L, dtype, dev)
+    phi = _c(rng, (B, 2, L, L), dtype, dev)
+    r = _c(rng, (2, L, L) if shared_r else (B, 2, L, L), dtype, dev)
+    keep = phi.clone()
+    tile = ((3, 5) if L == 8 else (6, 12)) if tiled else None
+    if tiled:
+        res = lambda p, q: cs.wilson_u_residual_tiled(U, -0.005, p, q,
+                                                      tile=tile)
+        upd = lambda p, q, *a: cs.wilson_u_smooth_tiled(U, -0.005, p, q, *a,
+                                                        tile=tile)
+        kr, ku = "links_residual_tiled", "links_update_tiled"
+    else:
+        res = lambda p, q: cs.wilson_u_residual(U, -0.005, p, q)
+        upd = lambda p, q, *a: cs.wilson_u_smooth(U, -0.005, p, q, *a)
+        kr, ku = "links_residual", "links_update"
+
+    def r_of(i):
+        return r if shared_r else r[i]
+
+    n0 = cs.launches[kr]
+    got = res(phi, r)
+    assert cs.launches[kr] == n0 + 1
+    assert _rel(got, gs.residual_u("wilson", U, -0.005, phi, r)) < BARS[dtype]
+    for i in range(B):
+        assert _rel(got[i], res(phi[i], r_of(i))) < BARS[dtype]
+    for kind, omega, sweeps in (("rbgs", 1.0, 1), ("rbgs", 0.8, 3),
+                                ("jacobi", 1.0, 3), ("jacobi", 0.8, 4)):
+        n0 = cs.launches[ku]
+        got = upd(phi, r, sweeps, kind, omega)
+        assert cs.launches[ku] == n0 + (sweeps if tiled else 1)
+        assert torch.equal(phi, keep)
+        want = gs.smooth_u("wilson", U, -0.005, phi, r, sweeps, kind, omega)
+        assert _rel(got, want) < BARS[dtype]
+        for i in range(B):
+            one = upd(phi[i], r_of(i), sweeps, kind, omega)
+            assert _rel(got[i], one) < BARS[dtype]
+
+
+def test_batched_links_refuse_what_the_kernels_do_not_take(dev):
+    """Links with a batch axis, an r whose batch is not phi's, a
+    non-contiguous batch: a ValueError, and no launch."""
+    rng = np.random.default_rng(46)
+    L = 8
+    U = _links(rng, L, torch.complex64, dev)
+    phi = _c(rng, (3, 2, L, L), torch.complex64, dev)
+    n0 = dict(cs.launches)
+    for fn in (cs.wilson_u_residual, cs.wilson_u_residual_tiled):
+        with pytest.raises(ValueError):
+            fn(U.expand(3, 2, L, L).contiguous(), 0.1, phi, phi)
+        with pytest.raises(ValueError):
+            fn(U, 0.1, phi, phi[:2].contiguous())
+        with pytest.raises(ValueError):
+            fn(U, 0.1, phi.transpose(0, 1).contiguous().transpose(0, 1), phi)
+    with pytest.raises(ValueError):
+        cs.wilson_u_smooth(U, 0.1, phi, phi[:2].contiguous(), 1, "rbgs")
+    with pytest.raises(ValueError):
+        cs.wilson_u_smooth_tiled(U, 0.1, phi, phi[:2].contiguous(), 1, "rbgs")
+    assert cs.launches == n0
+
+
 # ---- x-tiled kernels (csrc/stencil_tiled.cu)
 
 # (L, tile): several tiles with the periodic wrap, ragged tiles that do not
@@ -330,8 +402,9 @@ def test_fused_red_black_sweep(dev, dtype, form, L, tile):
 
         def raw(src, dst):
             return cs._entry(name, dtype)(
-                U.data_ptr(), src.data_ptr(), r.data_ptr(), dst.data_ptr(), L,
-                m, omega, 1, TX, TY, torch.cuda.current_stream().cuda_stream)
+                U.data_ptr(), src.data_ptr(), r.data_ptr(), dst.data_ptr(), 1,
+                L, m, omega, 1, 0, TX, TY,
+                torch.cuda.current_stream().cuda_stream)
     else:
         n = int(form.split()[1][2:])
         B = 2 if "k=2" in form else 3 if "batch" in form else None
@@ -520,6 +593,8 @@ def test_apply_wrappers_refuse_what_the_kernels_do_not_take(dev):
             fn(U.cpu(), 0.1, v)
         with pytest.raises(ValueError):
             fn(U, 0.1, v.transpose(-1, -2))
+        with pytest.raises(ValueError):     # the applies take no batch axis
+            fn(U, 0.1, v.expand(3, 2, L, L).contiguous())
     for fn in (cs.dense_apply, cs.dense_apply_tiled):
         with pytest.raises(TypeError):
             fn(D, v.to(torch.complex128))

@@ -34,7 +34,8 @@ def h100_occupancy(name):
 def plan(name, n, B, L, itemsize, sms=H100_SMS, occupancy=None):
     occupancy = occupancy or h100_occupancy(name)
     if name == "links_update":
-        return cs.plan_band(L, lambda k: cs.links_band_bytes(L, k, itemsize),
+        return cs.plan_band(B * L,
+                            lambda k: cs.links_band_bytes(L, k, itemsize, B),
                             sms, occupancy)
     return cs.plan_band(B * L,
                         lambda k: cs.dense_band_bytes(n, L, k, itemsize),
@@ -60,6 +61,11 @@ def plan(name, n, B, L, itemsize, sms=H100_SMS, occupancy=None):
     # fewer x-rows than blocks
     ("links_update", 2, 1, 8, 8, cs.Band(1, 8, True, 5 * 8 * 8)),
     ("dense_update", 4, 3, 8, 16, cs.Band(1, 24, True, 84 * 8 * 16)),
+    # a batch of right-hand sides on shared links: B L (x, batch entry)
+    # rows, one a block at B=8 L=256 (16 blocks an SM resident)
+    ("links_update", 2, 8, 256, 8, cs.Band(1, 2048, True, 5 * 256 * 8)),
+    ("links_update", 2, 3, 8, 16, cs.Band(1, 24, True, 5 * 8 * 16)),
+    ("links_update", 2, 2, 2048, 8, cs.Band(2, 2048, False, 0)),
 ])
 def test_plan_band_at_the_paths_shapes(name, n, B, L, itemsize, want):
     assert plan(name, n, B, L, itemsize) == want
@@ -71,6 +77,7 @@ def test_plan_band_at_the_paths_shapes(name, n, B, L, itemsize, want):
     ("links_update", 2, 1, 256, 8), ("links_update", 2, 1, 2048, 16),
     ("dense_update", 4, 1, 128, 8), ("dense_update", 4, 4, 32, 16),
     ("dense_update", 1, 3, 64, 8), ("dense_update", 2, 2, 256, 16),
+    ("links_update", 2, 8, 256, 8), ("links_update", 2, 3, 64, 16),
 ])
 def test_plan_band_grid_is_resident_and_covers_the_rows(sms, blocks, name,
                                                         n, B, L, itemsize):
@@ -79,11 +86,11 @@ def test_plan_band_grid_is_resident_and_covers_the_rows(sms, blocks, name,
     def occ(staged, smem):
         return blocks if smem <= cs.SMEM_BLOCK_MAX else 0
     band = plan(name, n, B, L, itemsize, sms, occ)
-    total = L if name == "links_update" else B * L
+    total = B * L
     assert band.grid <= blocks * sms
     assert band.grid * band.rows >= total > (band.grid - 1) * band.rows
     if band.staged:
-        size = (cs.links_band_bytes(L, band.rows, itemsize)
+        size = (cs.links_band_bytes(L, band.rows, itemsize, B)
                 if name == "links_update"
                 else cs.dense_band_bytes(n, L, band.rows, itemsize))
         assert band.smem_bytes == size <= cs.SMEM_BLOCK_MAX
@@ -108,6 +115,13 @@ def test_plan_band_refuses_a_kernel_that_cannot_be_resident():
 
 def test_band_bytes():
     assert cs.links_band_bytes(256, 1, 8) == 10240        # U_x 2 rows, U_y, r
+    # rows g = x B + b: a band of 8 rows at B=8 touches at most 2 x rows,
+    # whose U it stages once for the batch; r of each of its 8 rows
+    assert cs.links_band_bytes(256, 8, 8, B=8) == (2 * 2 + 1 + 16) * 256 * 8
+    assert cs.links_band_bytes(256, 8, 8, B=1) == (4 * 8 + 1) * 256 * 8
+    assert cs.band_xrows(1, 8, 256) == 1 and cs.band_xrows(9, 8, 256) == 2
+    assert cs.band_xrows(10, 8, 256) == 3
+    assert cs.band_xrows(600, 1, 256) == 256
     assert cs.dense_band_bytes(4, 128, 1, 8) == 86016     # 84 words a site
     assert cs.dense_band_bytes(4, 128, 1, 16) == 172032
     assert cs.dense_band_bytes(2, 256, 1, 8) == 45056     # 22 words a site
@@ -131,6 +145,12 @@ def test_band_bytes():
     ("dense_apply_tiled", 2, 2048, 1, 1, 240.4),          # B7b
     ("dense_apply_tiled", 4, 1024, 1, 1, 220.4),
     ("links_apply", 2, 256, 1, 1, 0.94),                  # B8
+    # batched links (U read once, r and the fields per right-hand side)
+    ("links_update", 2, 256, 8, 8, 7.83),                 # B1, B=8
+    ("links_residual", 2, 256, 8, 8, 7.83),               # B2, B=8
+    ("links_update_tiled", 2, 2048, 2, 2, 140.2),         # B5a, B=2
+    ("links_residual_tiled", 2, 2048, 2, 2, 140.2),       # B5b, B=2
+    ("links_residual", 2, 256, 3, 3, 3.13),               # B2, B=3
 ])
 def test_kernel_work_gives_the_bounds_of_the_kernel_table(kernel, n, L,
                                                           batch, op_batch,

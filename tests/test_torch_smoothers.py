@@ -95,8 +95,14 @@ def test_cpu_tensors_take_the_plain_versions():
     # plain sweeps on any device
     assert torch.equal(tsm.smooth(D, Dinv, phi, r, 2, "gs_lex"),
                        tsm.smooth_plain(D, Dinv, phi, r, 2, "gs_lex"))
+    # chebyshev has no kernel either: on CPU tensors its applies are the
+    # plain stencil's, 'auto' and 'off' alike; it needs its interval
+    assert torch.equal(
+        tsm.smooth(D, Dinv, phi, r, 2, "chebyshev", cheby_interval=(.5, 2.)),
+        tsm.smooth(D, Dinv, phi, r, 2, "chebyshev", pallas="off",
+                   cheby_interval=(.5, 2.)))
     assert cs.launches == before
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="cheby_interval"):
         tsm.smooth(D, Dinv, phi, r, 2, "chebyshev")
     with pytest.raises(NotImplementedError):     # no kernel takes gs_lex
         cs._check_lattice(8, "gs_lex")

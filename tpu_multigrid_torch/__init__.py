@@ -33,6 +33,19 @@ complex128 defect correction::
     b = torch.zeros((2, 128, 128), dtype=torch.complex128, device="cuda")
     b[0, 2, 2] = 5.0
     out = mgt.cgnr_solve_ir(D128.to(torch.complex64), D128, b, tol=1e-8)
+
+A batch of right-hand sides on one hierarchy (one kernel launch a call
+for the whole batch), an ensemble of gauge configurations, and the
+Chebyshev smoother on intervals from the spectral estimators::
+
+    phi, res = mgt.solve_batched(hier, bs, cfg, n_cycles=10)   # bs [B, 2, L, L]
+    hier_b = mgt.build_hierarchies_batched(Us, cfg)            # Us [B, 2, L, L]
+    phi, res = mgt.solve_ensemble(hier_b, bs, cfg, n_cycles=18)
+    out = mgt.solve(hier, b, mgt.eigs.chebyshev_config(cfg, hier))
+
+The gen-1 / gen-2 geometric programs are `mgt.geometric` (also
+`python -m tpu_multigrid_torch.cli --mode geo|geo2`), the 1D solvers
+`mgt.one_d`.
 """
 from . import config, models, ops, profiling, solver, utils  # noqa: F401
 from . import testing  # noqa: F401
@@ -44,9 +57,12 @@ from .solver.hierarchy import (Hierarchy, LevelOps, NTLOps, build_hierarchy,
 from .solver.cycles import (v_cycle, ntl_cycle, gamma_cycle, cycle,
                             fmg_init, min_res_weights)
 from .solver.driver import (solve, solve_chunked, solve_ir, solve_fmg,
-                            solve_with_history, mr_solve, SolveResult)
+                            solve_with_history, solve_batched, mr_solve,
+                            SolveResult)
+from .solver.ensemble import build_hierarchies_batched, solve_ensemble
 from .solver.eo import eo_mr_solve
 from .solver.krylov import fgmres_solve, cgnr_solve, cgnr_solve_ir
+from .solver import eigs, geometric, one_d  # noqa: F401
 
 __version__ = "0.1.0"
 

@@ -12,20 +12,21 @@ The flags, printed lines, files and exit code are the JAX CLI's. Where
 torch differs: --platform names the torch device (default cuda; a missing
 device is an error, never a silent CPU run); --debug-nans raises
 FloatingPointError at the first non-finite residual read back;
---no-compile-cache does nothing. --mode geo|geo2 and --mesh are not
-ported yet and are rejected.
+--no-compile-cache does nothing. --mode geo|geo2 run the gen-1 / gen-2
+geometric programs (solver/geometric.py) in float64 on that device.
+--mesh is not ported yet and is rejected.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import math
+import os
 import sys
 import time
 
-# ROADMAP items that will bring the flags this port rejects for now
-_NOT_PORTED = {"mode": "A10 (solver/geometric.py, solver/one_d.py)",
-               "mesh": "A12 (parallel/ on torch.distributed)"}
+# the ROADMAP item that will bring the flag this port rejects for now
+_NOT_PORTED = {"mesh": "A12 (parallel/ on torch.distributed)"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -35,10 +36,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mode", choices=["adaptive", "geo", "geo2"],
                    default="adaptive",
                    help="adaptive: final-generation program (default); "
-                        "geo / geo2 (the gen-1 / gen-2 geometric programs) "
-                        f"are not ported yet: {_NOT_PORTED['mode']}")
+                        "geo: gen-1 geometric MG (2D_laplace_Mgrid.cpp); "
+                        "geo2: gen-2 geometric non-telescoping prototype "
+                        "(--ntl sets its t_flag, --ntl-combine avg_coarse "
+                        "selects the single-interpolation variant)")
     p.add_argument("--geo-ir", action="store_true", dest="geo_ir",
-                   help="geo mode only (not ported yet)")
+                   help="geo mode: mixed-precision solve (float32 V-cycles "
+                        "inside a float64 defect-correction loop)")
     p.add_argument("--L", type=int, default=64)
     p.add_argument("--stencil", choices=["laplace", "wilson"],
                    default="wilson")
@@ -170,14 +174,56 @@ def _check_finite(x: float, what: str):
         raise FloatingPointError(f"--debug-nans: non-finite {what} ({x})")
 
 
+def _run_geometric(ns, dev) -> int:
+    """The gen-1 / gen-2 geometric programs (real scalar field, no gauge,
+    no hierarchy; the sum|r| norm), with the JAX CLI's lines, summary and
+    exit code."""
+    from .solver import geometric as geo
+
+    if ns.mode == "geo":
+        cfg = geo.GeoConfig(L=ns.L, m=ns.m, nlevels=ns.nlevels,
+                            num_iters=ns.num_iters,
+                            res_threshold=ns.res_threshold,
+                            smoother=ns.smoother)
+        b = geo.geo_source(cfg, dev)
+        solve = geo.geo_solve_ir if ns.geo_ir else geo.geo_solve
+    else:
+        combine = "single" if ns.ntl_combine == "avg_coarse" else "divide"
+        cfg = geo.Geo2Config(L=ns.L, m=ns.m, nlevels=ns.nlevels,
+                             num_iters=ns.num_iters,
+                             res_threshold=ns.res_threshold,
+                             smoother=ns.smoother, t_flag=ns.ntl,
+                             n_copies=min(ns.n_copies, 4), quad=ns.quad,
+                             combine=combine)
+        b = geo.geo2_source(cfg, dev)
+        solve = geo.geo2_solve
+    print(f"mode={ns.mode} L={cfg.L} m={cfg.m} nlevels={cfg.nlevels} "
+          f"num_iters={cfg.num_iters} smoother={cfg.smoother}")
+    t0 = time.time()
+    _, iters, res, hist = solve(b, cfg, max_iters=ns.max_iters)
+    _sync(dev)
+    dt = time.time() - t0
+    converged = res < cfg.res_threshold
+    status = "converged" if converged else "NOT converged"
+    print(f"{status} in {iters} cycles, sum|r| = {res:.3e}, {dt:.1f}s")
+    os.makedirs(ns.out_dir, exist_ok=True)
+    with open(f"{ns.out_dir}/solve_summary.json", "w") as f:
+        json.dump({"mode": ns.mode, "L": cfg.L, "m": cfg.m,
+                   "nlevels": cfg.nlevels, "iters": iters,
+                   "res_l1": res, "converged": bool(converged),
+                   "seconds": dt, "history": list(map(float, hist))}, f)
+    return 0 if converged else 1
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     cfg, ns = parse_args(argv)
-    for flag, on in (("mode", ns.mode != "adaptive"), ("mesh", ns.mesh)):
-        if on:
-            build_parser().error(f"--{flag} {getattr(ns, flag)} is not "
-                                 f"ported yet: ROADMAP {_NOT_PORTED[flag]}")
+    if ns.mesh:
+        build_parser().error(f"--mesh {ns.mesh} is not ported yet: "
+                             f"ROADMAP {_NOT_PORTED['mesh']}")
     dev = _device(ns)
+    if ns.mode != "adaptive":
+        return _run_geometric(ns, dev)
 
     import torch
     import tpu_multigrid_torch as mgt

@@ -12,7 +12,9 @@
 //   U[2][L][L], phi/r/v/out[B][n][L][L], D[B][5][n][n][L][L],
 //   D0inv[B][n][n][L][L]
 // with site (x, y) at x*L + y and directions 0=same, 1=+x, 2=-x, 3=+y, 4=-y.
-// A batch stride of 0 shares D, D0inv, r or v across the batch.
+// A batch stride of 0 shares D, D0inv, r or v across the batch. The links
+// U are always shared by the batch (a batch of right-hand sides on one
+// gauge configuration).
 //
 // Complex numbers are interleaved (re, im) pairs, i.e. torch's complex64 /
 // complex128 storage (csrc/cplx.cuh); every kernel is a template on the real
@@ -159,19 +161,26 @@ __device__ __forceinline__ void wilson_hop(const cplx<T>* __restrict__ U,
 
 // APPLY (B8): out = (2+m) v + hop(v), the links-only D_U v (r is not
 // read). Else (B2) the residual out = r - (2+m) v - hop(v). One thread per
-// site; 6 complex words a site for the apply (U 2, v 2, out 2), the
-// neighbour reads of v served by L2.
+// (batch entry, site); 6 complex words a site for the apply (U 2, v 2,
+// out 2), the neighbour reads of v served by L2. phi and out [B][2][L][L],
+// r batched (r_bstride 2 L^2) or shared (0), U shared by the batch: its
+// words are read once from HBM and B times from L2.
 template <typename T, bool APPLY>
 __global__ void links_out_kernel(const cplx<T>* __restrict__ U,
                                  const cplx<T>* __restrict__ phi,
                                  const cplx<T>* __restrict__ r,
-                                 cplx<T>* __restrict__ out, int L, T diag) {
+                                 cplx<T>* __restrict__ out, int L, T diag,
+                                 int B, long long r_bstride) {
   const size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const size_t LL = (size_t)L * L;
-  if (t >= LL) return;
+  if (t >= (size_t)B * LL) return;
+  const size_t b = t / LL;
   int x, y;
-  site_of(t, L, x, y);
+  site_of(t - b * LL, L, x, y);
   const Nbrs n = neighbours(x, y, L);
+  phi += b * 2 * LL;
+  out += b * 2 * LL;
+  if constexpr (!APPLY) r += b * (size_t)r_bstride;
   cplx<T> h0, h1;
   wilson_hop(U, phi, LL, n, h0, h1);
   if constexpr (APPLY) {
@@ -199,17 +208,24 @@ __global__ void links_out_kernel(const cplx<T>* __restrict__ U,
 // time); this one 0.0614 ms (22.1 us), same H100 80GB HBM3 at 700 W, in
 // turns (scripts/torch_smoother_ab.py; PERF.md).
 //
-// Design: one cooperative launch. Block g owns `rows` consecutive x-rows
-// for every sweep; a grid barrier (cooperative_groups grid sync) takes the
-// place of the launch boundary between half-sweeps. STAGED: the block
-// first copies, with cp.async, its rows of U_y, r_0 and r_1 and the rows
-// x0-1 .. x0+rows-1 of U_x (the -x hop reads U_x(x-1)) into shared memory,
-// (4 rows + 1) L words, and reads them from there in every sweep. Else
-// (a band past the shared memory) it reads them from global memory each
-// sweep, in the same launch. One thread per site, 128 a block; at L=256 the
-// 256 one-row blocks (10 KB of shared memory each in c64) give every SM
-// work. phi is read through L2 only. Registers (-Xptxas -v, staged /
-// streamed): 40 / 32 in c64, 52 / 52 in c128, no spills.
+// Design: one cooperative launch. Block g owns `rows` consecutive rows
+// g = x B + b of the B L (x, batch entry) rows for every sweep, the batch
+// entries of one x next to each other, so that a band reads the shared U's
+// rows once for all of its batch entries; a grid barrier
+// (cooperative_groups grid sync) takes the place of the launch boundary
+// between half-sweeps. STAGED: the block first copies, with cp.async, the
+// U_y rows x_lo .. x_hi of its band, the U_x rows x_lo-1 .. x_hi (the -x
+// hop reads U_x(x-1)) and r_0, r_1 of each of its rows into shared memory,
+// (2 nx + 1 + 2 rows) L words with nx <= (rows + B - 2) / B + 1 the x rows
+// a band of `rows` can touch ((4 rows + 1) L at B = 1), and reads them from
+// there in every sweep. Else (a band past the shared memory) it reads them
+// from global memory each sweep, in the same launch. One thread per site,
+// 128 a block; at L=256 the 256 one-row blocks (10 KB of shared memory
+// each in c64) give every SM work. phi is read through L2 only. Registers
+// (-Xptxas -v, staged / streamed): 40 / 43 in c64, 58 / 56 in c128, no
+// spills. A batch of 8 right-hand sides at L=256 (2048 rows, one a block)
+// takes 73 us of device time a rbgs x4 call against 22 us unbatched, same
+// H100 (chip_smoke.py; PERF.md).
 //
 // Red/black half-updates are written in place in out: with even L a site of
 // one colour reads only the other colour (its four neighbours) and itself,
@@ -217,34 +233,49 @@ __global__ void links_out_kernel(const cplx<T>* __restrict__ U,
 // barrier separates the colours. Half-sweep 0 reads the caller's phi and
 // also copies the other colour into out (the copy the first design made
 // with a separate clone).
+// The most x rows a band of `rows` consecutive (x, batch entry) rows
+// touches (at most L).
+__host__ __device__ __forceinline__ int band_xrows(int rows, int B, int L) {
+  const int nx = (rows + B - 2) / B + 1;
+  return nx < L ? nx : L;
+}
+
 template <typename T, bool STAGED>
 __global__ void __launch_bounds__(128)
     links_update_kernel(const cplx<T>* __restrict__ U, const cplx<T>* phi,
                         const cplx<T>* __restrict__ r, cplx<T>* out,
                         cplx<T>* scratch, int L, T diag, T omega, int rb,
-                        int n_sweeps, int rows) {
+                        int n_sweeps, int rows, int B, long long r_bstride) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  cplx<T>* const sux = reinterpret_cast<cplx<T>*>(smem_raw);  // rows + 1
-  cplx<T>* const suy = sux + (size_t)(rows + 1) * L;          // rows
-  cplx<T>* const sr = suy + (size_t)rows * L;                 // 2 x rows
+  const int nx_cap = band_xrows(rows, B, L);
+  cplx<T>* const sux = reinterpret_cast<cplx<T>*>(smem_raw);  // nx_cap + 1
+  cplx<T>* const suy = sux + (size_t)(nx_cap + 1) * L;        // nx_cap
+  cplx<T>* const sr = suy + (size_t)nx_cap * L;               // 2 x rows
   const size_t LL = (size_t)L * L;
   const int row0 = blockIdx.x * rows;
-  const int nrows = min(rows, L - row0);
+  const int nrows = min(rows, B * L - row0);
+  const int x_lo = row0 / B;  // the band's first x row
 
   if constexpr (STAGED) {
-    const int nux = (nrows + 1) * L;  // U_x rows x0-1 .., then U_y, r_0, r_1
-    for (int k = threadIdx.x; k < nux + 3 * nrows * L; k += blockDim.x) {
+    const int nx = (row0 + nrows - 1) / B - x_lo + 1;
+    const int nux = (nx + 1) * L, nuy = nx * L;  // U_x, U_y; then r_0, r_1
+    for (int k = threadIdx.x; k < nux + nuy + 2 * nrows * L;
+         k += blockDim.x) {
       if (k < nux) {
         const int j = k / L, y = k - j * L;
-        const int x = (row0 - 1 + j + L) % L;
+        const int x = (x_lo - 1 + j + L) % L;
         cp_async(sux + k, U + (size_t)x * L + y);
+      } else if (k < nux + nuy) {
+        const int q = k - nux;
+        cp_async(suy + q, U + LL + (size_t)x_lo * L + q);
       } else {
-        const int q = k - nux;  // plane (U_y, r_0, r_1), row, y
+        const int q = k - nux - nuy;  // plane (r_0, r_1), row, y
         const int p = q / (nrows * L), rem = q - p * (nrows * L);
-        const size_t g = (size_t)row0 * L + rem;
-        const cplx<T>* src =
-            p == 0 ? U + LL + g : r + (size_t)(p - 1) * LL + g;
-        cp_async((p == 0 ? suy : sr + (size_t)(p - 1) * rows * L) + rem, src);
+        const int j = rem / L, y = rem - j * L;
+        const int g = row0 + j, x = g / B, b = g - x * B;
+        cp_async(sr + (size_t)p * rows * L + rem,
+                 r + b * (size_t)r_bstride + (size_t)p * LL +
+                     (size_t)x * L + y);
       }
     }
     cp_async_wait();
@@ -260,36 +291,39 @@ __global__ void __launch_bounds__(128)
     const int per_row = ps.colour < 0 ? L : L / 2;
     if (red_black && h == 0) {  // the other colour, phi -> out
       for (int t = threadIdx.x; t < nrows * per_row; t += blockDim.x) {
-        const int j = t / per_row, x = row0 + j;
+        const int j = t / per_row, g = row0 + j, x = g / B, b = g - x * B;
         const int y = 2 * (t - j * per_row) + ((x + 1) & 1);
-        const size_t s = (size_t)x * L + y;
+        const size_t s = b * 2 * LL + (size_t)x * L + y;
         out[s] = ld_cg(phi + s);
         out[LL + s] = ld_cg(phi + LL + s);
       }
     }
     for (int t = threadIdx.x; t < nrows * per_row; t += blockDim.x) {
-      const int j = t / per_row, x = row0 + j;
+      const int j = t / per_row, g = row0 + j, x = g / B, b = g - x * B;
       const int idx = t - j * per_row;
       const int y = ps.colour < 0 ? idx : 2 * idx + ((x + ps.colour) & 1);
       const Nbrs n = neighbours(x, y, L);
       const int ym = (y == 0) ? L - 1 : y - 1;
       cplx<T> ux, uxm, uy, uym, r0, r1;
       if constexpr (STAGED) {
-        ux = sux[(size_t)(j + 1) * L + y];
-        uxm = sux[(size_t)j * L + y];
-        uy = suy[(size_t)j * L + y];
-        uym = suy[(size_t)j * L + ym];
+        const int i = x - x_lo;  // the x row in the band
+        ux = sux[(size_t)(i + 1) * L + y];
+        uxm = sux[(size_t)i * L + y];
+        uy = suy[(size_t)i * L + y];
+        uym = suy[(size_t)i * L + ym];
         r0 = sr[(size_t)j * L + y];
         r1 = sr[(size_t)(rows + j) * L + y];
       } else {
+        const cplx<T>* rr = r + b * (size_t)r_bstride;
         ux = ld_nc(U + n.s);
         uxm = ld_nc(U + n.xm);
         uy = ld_nc(U + LL + n.s);
         uym = ld_nc(U + LL + n.ym);
-        r0 = ld_nc(r + n.s);
-        r1 = ld_nc(r + LL + n.s);
+        r0 = ld_nc(rr + n.s);
+        r1 = ld_nc(rr + LL + n.s);
       }
-      const cplx<T>* v = ps.src;
+      const cplx<T>* v = ps.src + b * 2 * LL;
+      cplx<T>* dst = ps.dst + b * 2 * LL;
       cplx<T> h0, h1;
       tmg::wilson_hop_core(ux, uxm, uy, uym, ld_cg(v + n.xp),
                            ld_cg(v + LL + n.xp), ld_cg(v + n.xm),
@@ -304,8 +338,8 @@ __global__ void __launch_bounds__(128)
         u0 = p0 + scale(omega, u0 - p0);
         u1 = p1 + scale(omega, u1 - p1);
       }
-      ps.dst[n.s] = u0;
-      ps.dst[LL + n.s] = u1;
+      dst[n.s] = u0;
+      dst[LL + n.s] = u1;
     }
   }
 }
@@ -546,12 +580,13 @@ int launch_cooperative(const void* kernel, unsigned grid, int threads,
 
 template <typename T, bool APPLY>
 int links_out(const void* U, const void* phi, const void* r, void* out,
-              int L, double m, void* stream) {
+              int B, int L, double m, long long r_bs, void* stream) {
+  if (B < 1 || L < 1) return (int)cudaErrorInvalidValue;
   const size_t LL = (size_t)L * L;
-  links_out_kernel<T, APPLY><<<blocks_for(LL), kThreads, 0,
+  links_out_kernel<T, APPLY><<<blocks_for((size_t)B * LL), kThreads, 0,
                                (cudaStream_t)stream>>>(
       (const cplx<T>*)U, (const cplx<T>*)phi, (const cplx<T>*)r,
-      (cplx<T>*)out, L, T(2.0 + m));
+      (cplx<T>*)out, L, T(2.0 + m), B, r_bs);
   return (int)cudaGetLastError();
 }
 
@@ -563,24 +598,25 @@ const void* links_update_fn(int staged) {
 
 template <typename T>
 int links_update(const void* U, const void* phi, const void* r, void* out,
-                 void* scratch, int L, double m, double omega, int rb,
-                 int n_sweeps, int rows, int staged, long long smem,
-                 void* stream) {
-  if (rows < 1 || n_sweeps < 1 || L < 2 || (rb && L % 2)) {
+                 void* scratch, int B, int L, double m, double omega, int rb,
+                 int n_sweeps, long long r_bs, int rows, int staged,
+                 long long smem, void* stream) {
+  if (rows < 1 || n_sweeps < 1 || B < 1 || L < 2 || (rb && L % 2)) {
     return (int)cudaErrorInvalidValue;
   }
-  if (staged && smem < (long long)(4 * rows + 1) * L * sizeof(cplx<T>)) {
+  if (staged && smem < (long long)(2 * band_xrows(rows, B, L) + 1 +
+                                   2 * rows) * L * sizeof(cplx<T>)) {
     return (int)cudaErrorInvalidValue;
   }
-  const unsigned grid = (unsigned)((L + rows - 1) / rows);
+  const unsigned grid = (unsigned)((B * L + rows - 1) / rows);
   const cplx<T>* Up = (const cplx<T>*)U;
   const cplx<T>* pp = (const cplx<T>*)phi;
   const cplx<T>* rp = (const cplx<T>*)r;
   cplx<T>* op = (cplx<T>*)out;
   cplx<T>* sp = (cplx<T>*)scratch;
   T diag = T(2.0 + m), om = T(omega);
-  void* args[] = {&Up, &pp, &rp, &op, &sp, &L, &diag, &om, &rb, &n_sweeps,
-                  &rows};
+  void* args[] = {&Up, &pp, &rp, &op,       &sp,   &L, &diag,
+                  &om, &rb, &n_sweeps, &rows, &B, &r_bs};
   return launch_cooperative(links_update_fn<T>(staged), grid, kLinksThreads,
                             staged ? smem : 0, stream, args);
 }
@@ -670,37 +706,42 @@ int dense_apply(const void* D, const void* v, void* out, int B, int n, int L,
 // sizes it with the *_occupancy entries.
 extern "C" {
 
+// The links entries take phi, out [B][2][L][L], U [2][L][L] shared by the
+// batch, and r batched (r_bs = 2 L^2) or shared (0).
 int tmg_links_residual_c64(const void* U, const void* phi, const void* r,
-                           void* out, int L, double m, void* stream) {
-  return links_out<float, false>(U, phi, r, out, L, m, stream);
+                           void* out, int B, int L, double m, long long r_bs,
+                           void* stream) {
+  return links_out<float, false>(U, phi, r, out, B, L, m, r_bs, stream);
 }
 int tmg_links_residual_c128(const void* U, const void* phi, const void* r,
-                            void* out, int L, double m, void* stream) {
-  return links_out<double, false>(U, phi, r, out, L, m, stream);
+                            void* out, int B, int L, double m,
+                            long long r_bs, void* stream) {
+  return links_out<double, false>(U, phi, r, out, B, L, m, r_bs, stream);
 }
 
-int tmg_links_apply_c64(const void* U, const void* v, void* out, int L,
-                        double m, void* stream) {
-  return links_out<float, true>(U, v, nullptr, out, L, m, stream);
+int tmg_links_apply_c64(const void* U, const void* v, void* out, int B,
+                        int L, double m, void* stream) {
+  return links_out<float, true>(U, v, nullptr, out, B, L, m, 0, stream);
 }
-int tmg_links_apply_c128(const void* U, const void* v, void* out, int L,
-                         double m, void* stream) {
-  return links_out<double, true>(U, v, nullptr, out, L, m, stream);
+int tmg_links_apply_c128(const void* U, const void* v, void* out, int B,
+                         int L, double m, void* stream) {
+  return links_out<double, true>(U, v, nullptr, out, B, L, m, 0, stream);
 }
 
 int tmg_links_update_c64(const void* U, const void* phi, const void* r,
-                         void* out, void* scratch, int L, double m,
-                         double omega, int rb, int n_sweeps, int rows,
-                         int staged, long long smem, void* stream) {
-  return links_update<float>(U, phi, r, out, scratch, L, m, omega, rb,
-                             n_sweeps, rows, staged, smem, stream);
+                         void* out, void* scratch, int B, int L, double m,
+                         double omega, int rb, int n_sweeps, long long r_bs,
+                         int rows, int staged, long long smem, void* stream) {
+  return links_update<float>(U, phi, r, out, scratch, B, L, m, omega, rb,
+                             n_sweeps, r_bs, rows, staged, smem, stream);
 }
 int tmg_links_update_c128(const void* U, const void* phi, const void* r,
-                          void* out, void* scratch, int L, double m,
-                          double omega, int rb, int n_sweeps, int rows,
-                          int staged, long long smem, void* stream) {
-  return links_update<double>(U, phi, r, out, scratch, L, m, omega, rb,
-                              n_sweeps, rows, staged, smem, stream);
+                          void* out, void* scratch, int B, int L, double m,
+                          double omega, int rb, int n_sweeps, long long r_bs,
+                          int rows, int staged, long long smem,
+                          void* stream) {
+  return links_update<double>(U, phi, r, out, scratch, B, L, m, omega, rb,
+                              n_sweeps, r_bs, rows, staged, smem, stream);
 }
 int tmg_links_update_occupancy_c64(int staged, long long smem, int* blocks) {
   return occupancy(links_update_fn<float>(staged), kLinksThreads, smem,

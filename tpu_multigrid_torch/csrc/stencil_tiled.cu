@@ -15,7 +15,9 @@
 // Layouts are stencil.cu's: U[2][L][L], phi/r/v/out[B][n][L][L],
 // D[B][5][n][n][L][L], D0inv[B][n][n][L][L], site (x, y) at x*L + y. The
 // dense kernels take n in {1, 2, 4} and a batch axis with a stride per
-// operand (0: shared by the batch).
+// operand (0: shared by the batch); the links kernels a batch axis on phi,
+// out and r (r's stride 0: shared), with U shared by the batch. The batch
+// entry is blockIdx.z.
 //
 // What bounds them on the H100: bytes. At L=2048 the level-0 links set is
 // ~270 MB (c64) and level 1's dense D ~670 MB, far past the 50 MB L2, so
@@ -301,10 +303,14 @@ __global__ void __launch_bounds__(kThreads)
                        const cplx<T>* __restrict__ phi,
                        const cplx<T>* __restrict__ r,
                        cplx<T>* __restrict__ out, int L, T diag, T omega,
-                       int TX, int TY) {
+                       long long r_bstride, int TX, int TY) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Tile t = tile_of(TX, TY, L);
   const size_t LL = (size_t)L * L;
+  const size_t b = blockIdx.z;
+  phi += b * 2 * LL;
+  out += b * 2 * LL;
+  if constexpr (MODE != kApply) r += b * (size_t)r_bstride;
   const int vp = TY + 2;
   const int vpl = (TX + 2) * vp;
   cplx<T>* sv = reinterpret_cast<cplx<T>*>(smem);
@@ -513,10 +519,14 @@ __global__ void __launch_bounds__(kRbThreads)
                           const cplx<T>* __restrict__ src,
                           const cplx<T>* __restrict__ r,
                           cplx<T>* __restrict__ dst, int L, T diag, T omega,
-                          int TX, int TY) {
+                          long long r_bstride, int TX, int TY) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Tile t = tile_of(TX, TY, L);
   const size_t LL = (size_t)L * L;
+  const size_t b = blockIdx.z;
+  src += b * 2 * LL;
+  dst += b * 2 * LL;
+  r += b * (size_t)r_bstride;
   const int vp = TY + 4;
   const int vpl = (TX + 4) * vp;
   cplx<T>* sv = reinterpret_cast<cplx<T>*>(smem);
@@ -774,35 +784,38 @@ inline dim3 rb_block(int TX) { return dim3(kPairs, TX + (TX & 1)); }
 
 template <typename T, int MODE>
 int links_tiled(const void* U, const void* phi, const void* r, void* out,
-                int L, double m, double omega, int TX, int TY, void* stream) {
+                int B, int L, double m, double omega, long long r_bs, int TX,
+                int TY, void* stream) {
   const size_t smem = sizeof(cplx<T>) * 2 * (size_t)(TX + 2) * (TY + 2);
   dim3 grid;
-  const int err = grid_of(L, TX, TY, 1, grid);
+  const int err = grid_of(L, TX, TY, B, grid);
   if (err) return err;
   return launch(links_tiled_kernel<T, MODE>, grid, dim3(kThreadsY, kThreadsX),
                 smem, stream, (const cplx<T>*)U, (const cplx<T>*)phi,
-                (const cplx<T>*)r, (cplx<T>*)out, L, T(2.0 + m), T(omega), TX,
-                TY);
+                (const cplx<T>*)r, (cplx<T>*)out, L, T(2.0 + m), T(omega),
+                r_bs, TX, TY);
 }
 
-// One smoother sweep: a whole red-black sweep (rb) or a Jacobi sweep, from
-// phi into out, which must not overlap it.
+// One smoother sweep of a batch: a whole red-black sweep (rb) or a Jacobi
+// sweep, from phi into out, which must not overlap it.
 template <typename T>
 int links_update(const void* U, const void* phi, const void* r, void* out,
-                 int L, double m, double omega, int rb, int TX, int TY,
-                 void* stream) {
-  if (overlap(phi, out, sizeof(cplx<T>) * 2 * (size_t)L * L) || (rb && L % 2))
+                 int B, int L, double m, double omega, int rb, long long r_bs,
+                 int TX, int TY, void* stream) {
+  if (B < 1 ||
+      overlap(phi, out, sizeof(cplx<T>) * 2 * (size_t)B * L * L) ||
+      (rb && L % 2))
     return (int)cudaErrorInvalidValue;
   if (!rb)
-    return links_tiled<T, kUpdate>(U, phi, r, out, L, m, omega, TX, TY,
-                                   stream);
+    return links_tiled<T, kUpdate>(U, phi, r, out, B, L, m, omega, r_bs, TX,
+                                   TY, stream);
   dim3 grid;
-  const int err = grid_of(L, TX, TY, 1, grid);
+  const int err = grid_of(L, TX, TY, B, grid);
   if (err) return err;
   const size_t smem = sizeof(cplx<T>) * 2 * (size_t)(TX + 4) * (TY + 4);
   return launch(links_rb_tiled_kernel<T>, grid, rb_block(TX), smem, stream,
                 (const cplx<T>*)U, (const cplx<T>*)phi, (const cplx<T>*)r,
-                (cplx<T>*)out, L, T(2.0 + m), T(omega), TX, TY);
+                (cplx<T>*)out, L, T(2.0 + m), T(omega), r_bs, TX, TY);
 }
 
 template <typename T, int N>
@@ -892,31 +905,37 @@ int dense_apply_tiled(const void* D, const void* v, void* out, int B, int n,
 // red-black sweep, or a smoother's out overlapping its phi).
 extern "C" {
 
+// The links entries: phi, out [B][2][L][L], U [2][L][L] shared by the
+// batch, r batched (r_bs = 2 L^2) or shared (0).
 int tmg_links_residual_tiled_c64(const void* U, const void* phi,
-                                 const void* r, void* out, int L, double m,
-                                 int TX, int TY, void* stream) {
-  return links_tiled<float, kResid>(U, phi, r, out, L, m, 1.0, TX, TY,
-                                    stream);
+                                 const void* r, void* out, int B, int L,
+                                 double m, long long r_bs, int TX, int TY,
+                                 void* stream) {
+  return links_tiled<float, kResid>(U, phi, r, out, B, L, m, 1.0, r_bs, TX,
+                                    TY, stream);
 }
 int tmg_links_residual_tiled_c128(const void* U, const void* phi,
-                                  const void* r, void* out, int L, double m,
-                                  int TX, int TY, void* stream) {
-  return links_tiled<double, kResid>(U, phi, r, out, L, m, 1.0, TX, TY,
-                                     stream);
+                                  const void* r, void* out, int B, int L,
+                                  double m, long long r_bs, int TX, int TY,
+                                  void* stream) {
+  return links_tiled<double, kResid>(U, phi, r, out, B, L, m, 1.0, r_bs, TX,
+                                     TY, stream);
 }
 
 // rb = 1: one whole red-black sweep; rb = 0: one Jacobi sweep.
 int tmg_links_update_tiled_c64(const void* U, const void* phi, const void* r,
-                               void* out, int L, double m, double omega,
-                               int rb, int TX, int TY, void* stream) {
-  return links_update<float>(U, phi, r, out, L, m, omega, rb, TX, TY,
-                             stream);
+                               void* out, int B, int L, double m,
+                               double omega, int rb, long long r_bs, int TX,
+                               int TY, void* stream) {
+  return links_update<float>(U, phi, r, out, B, L, m, omega, rb, r_bs, TX,
+                             TY, stream);
 }
 int tmg_links_update_tiled_c128(const void* U, const void* phi, const void* r,
-                                void* out, int L, double m, double omega,
-                                int rb, int TX, int TY, void* stream) {
-  return links_update<double>(U, phi, r, out, L, m, omega, rb, TX, TY,
-                              stream);
+                                void* out, int B, int L, double m,
+                                double omega, int rb, long long r_bs, int TX,
+                                int TY, void* stream) {
+  return links_update<double>(U, phi, r, out, B, L, m, omega, rb, r_bs, TX,
+                              TY, stream);
 }
 
 int tmg_dense_update_tiled_c64(const void* D, const void* Dinv,
@@ -936,16 +955,16 @@ int tmg_dense_update_tiled_c128(const void* D, const void* Dinv,
                               r_bs, rb, omega, TX, TY, stream);
 }
 
-int tmg_links_apply_tiled_c64(const void* U, const void* v, void* out, int L,
-                              double m, int TX, int TY, void* stream) {
-  return links_tiled<float, kApply>(U, v, nullptr, out, L, m, 1.0, TX, TY,
-                                    stream);
+int tmg_links_apply_tiled_c64(const void* U, const void* v, void* out, int B,
+                              int L, double m, int TX, int TY, void* stream) {
+  return links_tiled<float, kApply>(U, v, nullptr, out, B, L, m, 1.0, 0, TX,
+                                    TY, stream);
 }
 int tmg_links_apply_tiled_c128(const void* U, const void* v, void* out,
-                               int L, double m, int TX, int TY,
+                               int B, int L, double m, int TX, int TY,
                                void* stream) {
-  return links_tiled<double, kApply>(U, v, nullptr, out, L, m, 1.0, TX, TY,
-                                     stream);
+  return links_tiled<double, kApply>(U, v, nullptr, out, B, L, m, 1.0, 0, TX,
+                                     TY, stream);
 }
 
 int tmg_dense_apply_tiled_c64(const void* D, const void* v, void* out, int B,

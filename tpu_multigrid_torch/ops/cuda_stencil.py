@@ -171,20 +171,21 @@ _P, _I, _D, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_double,
                    ctypes.c_longlong)
 _PI = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
-    "links_residual": (_P, _P, _P, _P, _I, _D, _P),
-    "links_update": (_P, _P, _P, _P, _P, _I, _D, _D, _I, _I, _I, _I, _LL,
-                     _P),
+    "links_residual": (_P, _P, _P, _P, _I, _I, _D, _LL, _P),
+    "links_update": (_P, _P, _P, _P, _P, _I, _I, _D, _D, _I, _I, _LL, _I, _I,
+                     _LL, _P),
     "links_update_occupancy": (_I, _LL, _PI),
     "dense_update": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _I,
                      _I, _D, _I, _I, _LL, _P),
     "dense_update_occupancy": (_I, _I, _LL, _PI),
-    "links_residual_tiled": (_P, _P, _P, _P, _I, _D, _I, _I, _P),
-    "links_update_tiled": (_P, _P, _P, _P, _I, _D, _D, _I, _I, _I, _P),
+    "links_residual_tiled": (_P, _P, _P, _P, _I, _I, _D, _LL, _I, _I, _P),
+    "links_update_tiled": (_P, _P, _P, _P, _I, _I, _D, _D, _I, _LL, _I, _I,
+                           _P),
     "dense_update_tiled": (_P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _LL,
                            _I, _D, _I, _I, _P),
-    "links_apply": (_P, _P, _P, _I, _D, _P),
+    "links_apply": (_P, _P, _P, _I, _I, _D, _P),
     "dense_apply": (_P, _P, _P, _I, _I, _I, _LL, _LL, _P),
-    "links_apply_tiled": (_P, _P, _P, _I, _D, _I, _I, _P),
+    "links_apply_tiled": (_P, _P, _P, _I, _I, _D, _I, _I, _P),
     "dense_apply_tiled": (_P, _P, _P, _I, _I, _I, _LL, _LL, _I, _I, _P),
 }
 
@@ -323,10 +324,20 @@ class Band:
     smem_bytes: int
 
 
-def links_band_bytes(L: int, rows: int, itemsize: int) -> int:
-    """Shared memory of a links band: U_x of its rows and of the row before
-    (the -x hop reads U_x(x-1)), U_y, r_0 and r_1 of its rows."""
-    return (4 * rows + 1) * L * itemsize
+def band_xrows(rows: int, B: int, L: int) -> int:
+    """The most x rows that `rows` consecutive rows g = x B + b of a batch
+    of B touch (csrc/stencil.cu band_xrows)."""
+    return min(L, (rows + B - 2) // B + 1)
+
+
+def links_band_bytes(L: int, rows: int, itemsize: int, B: int = 1) -> int:
+    """Shared memory of a links band of `rows` (x, batch entry) rows, the B
+    entries of one x next to each other: U_x of its x rows and of the row
+    before (the -x hop reads U_x(x-1)) and U_y of its x rows, each once for
+    the whole batch (U is shared), and r_0, r_1 of each of its rows;
+    (4 rows + 1) L words at B = 1."""
+    nx = band_xrows(rows, B, L)
+    return (2 * nx + 1 + 2 * rows) * L * itemsize
 
 
 def dense_band_bytes(n: int, L: int, rows: int, itemsize: int) -> int:
@@ -385,8 +396,8 @@ def _band(name: str, dtype: torch.dtype, n: int, B: int, L: int,
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     size = torch.empty((), dtype=dtype).element_size()
     if name == "links_update":
-        return plan_band(L, lambda k: links_band_bytes(L, k, size), sms,
-                         _occupancy(name, dtype))
+        return plan_band(B * L, lambda k: links_band_bytes(L, k, size, B),
+                         sms, _occupancy(name, dtype))
     return plan_band(B * L, lambda k: dense_band_bytes(n, L, k, size), sms,
                      _occupancy(name, dtype, n))
 
@@ -464,31 +475,50 @@ def _tile(tile, L: int, rb_n: int = 0, itemsize: int = 8):
 # links-only Wilson level 0 (B1, B2; x-tiled B5a, B5b)
 # --------------------------------------------------------------------------
 
-def _check_links(U, phi, r):
+def _links_operands(U, phi, r):
+    """Checks of a links kernel call: phi [B?, 2, L, L] (an optional batch
+    axis), U [2, L, L] shared by the batch, r [2, L, L] shared or batched
+    like phi; (B, L, r's batch stride)."""
     L = phi.shape[-1]
-    _check("phi", phi, phi, (2, L, L))
+    batched = phi.dim() == 4
+    B = phi.shape[0] if batched else 1
+    _check("phi", phi, phi, ((B,) if batched else ()) + (2, L, L))
     _check("U", U, phi, (2, L, L))
-    _check("r", r, phi, (2, L, L))
+    r_bs = _batch_stride(r, 3, B) if batched else 0
+    _check("r", r, phi, ((B,) if r_bs else ()) + (2, L, L))
+    return B, L, r_bs
+
+
+def _apply_operands(U, v) -> int:
+    """Checks of a links apply call: v and U [2, L, L]; returns L."""
+    L = v.shape[-1]
+    _check("v", v, v, (2, L, L))
+    _check("U", U, v, (2, L, L))
+    return L
 
 
 def wilson_u_residual(U, m: float, phi, r):
-    """r - D_U phi, D_U = (2+m) + links-only Wilson hop.
+    """r - D_U phi, D_U = (2+m) + links-only Wilson hop; phi and r [B?, 2,
+    L, L] with an optional batch axis (r shared or batched), U [2, L, L]
+    shared by the batch: one launch for the whole batch.
 
     Replaces tpu_multigrid/ops/pallas_stencil.py _u_resid_vmem_kernel
-    (via wilson_u_residual_pallas). Bound by bytes: U, phi and r read once,
-    out written once (8 complex words per site)."""
+    (via wilson_u_residual_pallas). Bound by bytes: U once, phi and r read
+    once, out written once (8 complex words per site, 2 + 6 B in a
+    batch)."""
     if not phi.is_cuda:
         return gauge_stencil.residual_u("wilson", U, m, phi, r)
-    _check_links(U, phi, r)
+    B, L, r_bs = _links_operands(U, phi, r)
     out = torch.empty_like(phi)
     _launch("links_residual", phi.dtype, phi.device, U.data_ptr(),
-            phi.data_ptr(), r.data_ptr(), out.data_ptr(), phi.shape[-1],
-            float(m))
+            phi.data_ptr(), r.data_ptr(), out.data_ptr(), B, L, float(m),
+            r_bs)
     return out
 
 
 def wilson_u_residual_tiled(U, m: float, phi, r, tile=None):
-    """r - D_U phi on (TX, TY) tiles (default: default_tile(L)).
+    """r - D_U phi on (TX, TY) tiles (default: default_tile(L)), with
+    wilson_u_residual's batch axis (the batch entry a grid axis).
 
     Replaces tpu_multigrid/ops/pallas_stencil.py _u_resid_tile_kernel (via
     wilson_u_residual_pallas(mode='tiled')). Same bytes as
@@ -497,35 +527,37 @@ def wilson_u_residual_tiled(U, m: float, phi, r, tile=None):
     TX, TY = _tile(tile, L)
     if not phi.is_cuda:
         return gauge_stencil.residual_u("wilson", U, m, phi, r)
-    _check_links(U, phi, r)
+    B, L, r_bs = _links_operands(U, phi, r)
     out = torch.empty_like(phi)
     _launch("links_residual_tiled", phi.dtype, phi.device, U.data_ptr(),
-            phi.data_ptr(), r.data_ptr(), out.data_ptr(), L, float(m), TX,
-            TY)
+            phi.data_ptr(), r.data_ptr(), out.data_ptr(), B, L, float(m),
+            r_bs, TX, TY)
     return out
 
 
 def wilson_u_smooth(U, m: float, phi, r, n_sweeps: int, kind: str = "rbgs",
                     omega: float = 1.0):
-    """n_sweeps links-only Wilson smoother sweeps (Jacobi or red-black).
+    """n_sweeps links-only Wilson smoother sweeps (Jacobi or red-black);
+    phi and r [B?, 2, L, L] with an optional batch axis (r shared or
+    batched), U [2, L, L] shared by the batch.
 
     Replaces tpu_multigrid/ops/pallas_stencil.py _u_smooth_vmem_kernel
-    (via wilson_u_smooth_pallas): one cooperative launch runs every sweep,
-    each block on its band of x-rows (plan_band). Bound by bytes: U, r,
-    phi in and out, 8 complex words per site once per smooth. The result
-    is a new tensor; phi is left as it was."""
+    (via wilson_u_smooth_pallas): one cooperative launch runs every sweep
+    of the whole batch, each block on its band of (x, batch entry) rows
+    (plan_band over B L rows). Bound by bytes: U, r, phi in and out, 8
+    complex words per site once per smooth (U once for the batch). The
+    result is a new tensor; phi is left as it was."""
     if not phi.is_cuda:
         return gauge_stencil.smooth_u("wilson", U, m, phi, r, n_sweeps, kind,
                                       omega)
-    _check_links(U, phi, r)
-    L = phi.shape[-1]
+    B, L, r_bs = _links_operands(U, phi, r)
     _check_lattice(L, kind)
-    band = _band("links_update", phi.dtype, 2, 1, L, phi.device)
+    band = _band("links_update", phi.dtype, 2, B, L, phi.device)
 
     def launch(out, scratch, rb):
         _launch("links_update", phi.dtype, phi.device, U.data_ptr(),
-                phi.data_ptr(), r.data_ptr(), out, scratch, L, float(m),
-                float(omega), rb, n_sweeps, band.rows, int(band.staged),
+                phi.data_ptr(), r.data_ptr(), out, scratch, B, L, float(m),
+                float(omega), rb, n_sweeps, r_bs, band.rows, int(band.staged),
                 band.smem_bytes)
 
     return _smooth_once("links_update", band, phi, n_sweeps, kind, launch)
@@ -533,17 +565,19 @@ def wilson_u_smooth(U, m: float, phi, r, n_sweeps: int, kind: str = "rbgs",
 
 def wilson_u_smooth_tiled(U, m: float, phi, r, n_sweeps: int,
                           kind: str = "rbgs", omega: float = 1.0, tile=None):
-    """wilson_u_smooth on (TX, TY) tiles (default: default_tile(L)).
+    """wilson_u_smooth on (TX, TY) tiles (default: default_tile(L)), with
+    its batch axis (the batch entry a grid axis).
 
     Replaces tpu_multigrid/ops/pallas_stencil.py _u_update_tile_kernel
-    (via wilson_u_smooth_pallas_tiled): one launch per sweep, a red-black
-    sweep in one pass (U, r, phi in and out, 8 complex words per site once
-    per sweep). The result is a new tensor; phi is left as it was."""
+    (via wilson_u_smooth_pallas_tiled): one launch per sweep of the whole
+    batch, a red-black sweep in one pass (U, r, phi in and out, 8 complex
+    words per site once per sweep). The result is a new tensor; phi is
+    left as it was."""
     TX, TY = _tile(tile, phi.shape[-1])
     if not phi.is_cuda:
         return gauge_stencil.smooth_u("wilson", U, m, phi, r, n_sweeps, kind,
                                       omega)
-    _check_links(U, phi, r)
+    _links_operands(U, phi, r)
     _check_lattice(phi.shape[-1], kind)
     return _sweeps(functools.partial(_links_sweep, U, m, r, omega, TX, TY),
                    phi, n_sweeps, kind)
@@ -551,31 +585,35 @@ def wilson_u_smooth_tiled(U, m: float, phi, r, n_sweeps: int,
 
 def _links_sweep(U, m: float, r, omega: float, TX: int, TY: int, src, dst,
                  rb: int) -> None:
-    """One launch of links_update_tiled, src -> dst: a whole red-black
-    sweep (rb=1) or a Jacobi sweep (rb=0); dst must not overlap src."""
+    """One launch of links_update_tiled over the batch of src [B?, 2, L, L]
+    (r shared or batched), src -> dst: a whole red-black sweep (rb=1) or a
+    Jacobi sweep (rb=0); dst must not overlap src."""
     _check_out_of_place(src, dst)
+    B = src.shape[0] if src.dim() == 4 else 1
+    L, r_bs = src.shape[-1], (r[0].numel() if r.dim() == 4 else 0)
     _launch("links_update_tiled", src.dtype, src.device, U.data_ptr(),
-            src.data_ptr(), r.data_ptr(), dst.data_ptr(), src.shape[-1],
-            float(m), float(omega), rb, TX, TY)
+            src.data_ptr(), r.data_ptr(), dst.data_ptr(), B, L, float(m),
+            float(omega), rb, r_bs, TX, TY)
 
 
 def wilson_u_apply(U, m: float, v):
-    """D_U v = (2+m) v + links-only Wilson hop (v).
+    """D_U v = (2+m) v + links-only Wilson hop (v), v [2, L, L] (no batch
+    axis: the kernel's batch entry is held at 1).
 
     Replaces tpu_multigrid/ops/pallas_stencil.py _u_apply_vmem_kernel (via
     apply_wilson_u_pallas_vmem). Bound by bytes: U, v in and out, 6
     complex words per site. Plain version: gauge_stencil.apply_wilson_u."""
     if not v.is_cuda:
         return gauge_stencil.apply_wilson_u(U, m, v)
-    _check_links(U, v, v)
+    L = _apply_operands(U, v)
     out = torch.empty_like(v)
     _launch("links_apply", v.dtype, v.device, U.data_ptr(), v.data_ptr(),
-            out.data_ptr(), v.shape[-1], float(m))
+            out.data_ptr(), 1, L, float(m))
     return out
 
 
 def wilson_u_apply_tiled(U, m: float, v, tile=None):
-    """D_U v on (TX, TY) tiles (default: default_tile(L)).
+    """D_U v on (TX, TY) tiles (default: default_tile(L)), v [2, L, L].
 
     Replaces tpu_multigrid/ops/pallas_stencil.py _u_apply_tile_kernel (via
     apply_wilson_u_pallas). Same bytes as wilson_u_apply, each word of v
@@ -584,10 +622,10 @@ def wilson_u_apply_tiled(U, m: float, v, tile=None):
     TX, TY = _tile(tile, L)
     if not v.is_cuda:
         return gauge_stencil.apply_wilson_u(U, m, v)
-    _check_links(U, v, v)
+    L = _apply_operands(U, v)
     out = torch.empty_like(v)
     _launch("links_apply_tiled", v.dtype, v.device, U.data_ptr(),
-            v.data_ptr(), out.data_ptr(), L, float(m), TX, TY)
+            v.data_ptr(), out.data_ptr(), 1, L, float(m), TX, TY)
     return out
 
 

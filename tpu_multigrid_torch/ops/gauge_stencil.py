@@ -9,7 +9,8 @@ so a sweep streams U[2, L, L] instead of the dense D[5, 2, 2, L, L].
 These are the plain torch versions of the links kernels
 (ops/cuda_stencil.py: links_update for smooth_u, links_residual for
 residual_u); identical math to models.operators.assemble +
-ops.stencil.apply_D.
+ops.stencil.apply_D. Fields are [..., n, L, L] with any leading batch
+axes; the links U [2, L, L] are shared by the batch.
 """
 from __future__ import annotations
 
@@ -37,14 +38,14 @@ def wilson_hop_u(U: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
                                U_mu(x-mu)^*(1+g_mu)v(x-mu)]
     (the hop sign is PLUS, as in the reference's stored stencil)."""
     ux, uy = U[0], U[1]
-    v0, v1 = v[0], v[1]
+    v0, v1 = v[..., 0, :, :], v[..., 1, :, :]
     ha = ux * _xp(v0 - v1)
     hb = torch.conj(_xm(ux)) * _xm(v0 + v1)
     hc = uy * _yp(v0 + 1j * v1)
     hd = torch.conj(_ym(uy)) * _ym(v0 - 1j * v1)
     out0 = 0.5 * (ha + hb + hc + hd)
     out1 = 0.5 * (-ha + hb - 1j * hc + 1j * hd)
-    return torch.stack([out0, out1])
+    return torch.stack([out0, out1], dim=-3)
 
 
 def apply_wilson_u(U: torch.Tensor, m: float, v: torch.Tensor) -> torch.Tensor:
@@ -53,10 +54,10 @@ def apply_wilson_u(U: torch.Tensor, m: float, v: torch.Tensor) -> torch.Tensor:
 
 def laplace_hop_u(U: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Hopping part of the gauged Laplace (n=1): sum_mu U v(x+mu) + h.c."""
-    w = v[0]
+    w = v[..., 0, :, :]
     out = (U[0] * _xp(w) + torch.conj(_xm(U[0])) * _xm(w)
            + U[1] * _yp(w) + torch.conj(_ym(U[1])) * _ym(w))
-    return out[None]
+    return out[..., None, :, :]
 
 
 def apply_laplace_u(U: torch.Tensor, m: float, v: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
-"""Stationary smoothers: Jacobi, red-black Gauss-Seidel and lexicographic
-Gauss-Seidel (counterpart of tpu_multigrid/ops/smoothers.py; Chebyshev is
-not ported yet).
+"""Stationary smoothers: Jacobi, red-black Gauss-Seidel, lexicographic
+Gauss-Seidel and the Chebyshev polynomial (counterpart of
+tpu_multigrid/ops/smoothers.py).
 
 Update rule (reference Level::f_relax, level.h:100-128):
     phi(x) <- -D0(x)^{-1} ( sum_{mu != 0} D_mu(x) phi(x+mu) - r(x) )
@@ -11,15 +11,19 @@ here are the plain torch versions of the dense_update and
 dense_update_tiled kernels (ops/cuda_stencil.py), which `smooth` runs for
 CUDA tensors. `gs_lex` has no kernel, here as in the JAX package (which
 runs it on plain XLA): `smooth` runs its plain sweeps on any device.
+`chebyshev` has no kernel of its own either: each step's operator apply
+goes through cuda_stencil.apply_D (the dense SpMV kernels) on CUDA
+tensors, its site matvec and axpys are plain torch.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .gauge_stencil import parity_mask
-from .stencil import apply_hop, _site_matvec
+from .stencil import apply_D, apply_hop, _site_matvec
 
-KINDS = ("jacobi", "rbgs", "gs_lex")
+KINDS = ("jacobi", "rbgs", "gs_lex", "chebyshev")
 KERNEL_KINDS = ("jacobi", "rbgs")        # the kinds with a CUDA kernel
 
 
@@ -61,19 +65,62 @@ def gs_lex_sweep(D, D0inv, phi, r, omega: float = 1.0):
     return phi
 
 
+def _apply_full(D, v, pallas: str = "auto"):
+    """D v, the full stencil (JAX smoothers._apply_full): the SpMV kernel
+    (cuda_stencil.apply_D) on CUDA tensors unless pallas='off', else the
+    plain stencil.apply_D."""
+    if v.is_cuda and pallas != "off":
+        from . import cuda_stencil
+        return cuda_stencil.apply_D(D, v)
+    return apply_D(D, v)
+
+
+def chebyshev_smooth(D, D0inv, phi, r, degree: int, lmin: float,
+                     lmax: float, pallas: str = "auto"):
+    """Degree-`degree` Chebyshev iteration on A e = f with A = D0^{-1} D,
+    f = D0^{-1} r, eigenvalues of A assumed in [lmin, lmax] (positive).
+
+    The classic three-term recurrence (Saad, Iterative Methods §12.2), as
+    the JAX package's chebyshev_smooth: the error is multiplied by the
+    scaled-and-shifted Chebyshev polynomial that is minimal on [lmin, lmax].
+    Each step costs one stencil apply, as a Jacobi sweep does. The scalar
+    recurrence runs on the host, rounded to the field's real dtype as the
+    JAX package's is."""
+    theta = 0.5 * (lmax + lmin)
+    delta = 0.5 * (lmax - lmin)
+    sigma1 = theta / delta
+    real = np.float64 if phi.dtype == torch.complex128 else np.float32
+
+    def A(v):
+        return _site_matvec(D0inv, _apply_full(D, v, pallas))
+
+    f = _site_matvec(D0inv, r)
+    d = (f - A(phi)) / theta
+    x = phi + d
+    rho_prev = real(1.0 / sigma1)
+    for _ in range(degree - 1):
+        rho = real(1.0) / (real(2.0 * sigma1) - rho_prev)
+        d = (complex(rho * rho_prev) * d
+             + complex(real(2.0) * rho / real(delta)) * (f - A(x)))
+        x = x + d
+        rho_prev = rho
+    return x
+
+
 _SWEEPS = {"jacobi": jacobi_sweep, "rbgs": rbgs_sweep, "gs_lex": gs_lex_sweep}
 
 
 def _check_kind(kind: str):
     if kind not in KINDS:
-        raise NotImplementedError(
-            f"smoother {kind!r} is not ported yet (have {KINDS})")
+        raise NotImplementedError(f"no smoother {kind!r} (have {KINDS})")
 
 
 def smooth_plain(D, D0inv, phi, r, n_sweeps: int, kind: str = "rbgs",
                  omega: float = 1.0):
-    """n_sweeps plain torch sweeps on any device."""
-    _check_kind(kind)
+    """n_sweeps plain torch sweeps on any device (jacobi, rbgs, gs_lex)."""
+    if kind not in _SWEEPS:
+        _check_kind(kind)
+        raise ValueError(f"{kind} is not a sweep: use smooth")
     sweep = _SWEEPS[kind]
     for _ in range(n_sweeps):
         phi = sweep(D, D0inv, phi, r, omega)
@@ -81,7 +128,7 @@ def smooth_plain(D, D0inv, phi, r, n_sweeps: int, kind: str = "rbgs",
 
 
 def smooth(D, D0inv, phi, r, n_sweeps: int, kind: str = "rbgs",
-           omega: float = 1.0, pallas: str = "auto"):
+           omega: float = 1.0, pallas: str = "auto", cheby_interval=None):
     """Run n_sweeps smoother sweeps (reference f_relax's num_iter loop).
 
     pallas='auto' (MGConfig.pallas) runs the CUDA kernels on CUDA tensors:
@@ -89,8 +136,18 @@ def smooth(D, D0inv, phi, r, n_sweeps: int, kind: str = "rbgs",
     says the level is past the L2; 'off' runs the plain torch sweeps
     everywhere. A kind without a kernel (gs_lex) runs its plain sweeps on
     any device, as the JAX package runs it on plain XLA.
+
+    kind='chebyshev' runs ONE degree-n_sweeps Chebyshev polynomial (the
+    stencil-apply count of n_sweeps Jacobi sweeps) on its spectral
+    interval `cheby_interval` = (lmin, lmax) (solver.eigs).
     """
     _check_kind(kind)
+    if kind == "chebyshev":
+        if cheby_interval is None:
+            raise ValueError("chebyshev smoother needs cheby_interval="
+                             "(lmin, lmax); see solver.eigs")
+        return chebyshev_smooth(D, D0inv, phi, r, n_sweeps, *cheby_interval,
+                                pallas=pallas)
     if pallas == "off" or kind not in KERNEL_KINDS:
         return smooth_plain(D, D0inv, phi, r, n_sweeps, kind, omega)
     from . import cuda_stencil as cs

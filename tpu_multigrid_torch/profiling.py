@@ -58,21 +58,23 @@ def kernel_work(kernel: str, n: int, L: int, itemsize: int, batch: int = 1,
     each input word read once and each output word written once, whatever
     the kernel reads again. `kernel` is a cuda_stencil.launches key (the
     x-tiled kernels do the same work as the global ones); `batch` fields,
-    `op_batch` copies of the operator (1: shared by the batch); a smoother
-    call runs `n_sweeps` sweeps. Words a site:
-    - links smoother / residual: U 2, phi 2, r 2, out 2 (8);
-    - links apply: U 2, v 2, out 2 (6);
+    `op_batch` copies of the operator (1: shared by the batch; for the
+    links kernels, of r, the links U being always shared); a smoother call
+    runs `n_sweeps` sweeps. Words a site:
+    - links smoother / residual: U 2, r 2 a copy, phi 2 and out 2 a field
+      (8 unbatched);
+    - links apply: U 2, v 2 and out 2 a field (6 unbatched);
     - dense smoother: per operator copy D's 4n^2 hop blocks, D0inv's n^2
       and r's n; per field phi in and out (2n): 92 at n=4;
     - dense apply: 5n^2 per operator copy, v in and out per field."""
     LL = L * L
     base = kernel.removesuffix("_tiled")
     if base in ("links_update", "links_residual", "links_apply"):
-        words = 6 if base == "links_apply" else 8
+        words = 2 + 4 * batch + (0 if base == "links_apply" else 2 * op_batch)
         flops = {"links_update": (_HOP_FLOPS + 8) * n_sweeps,
                  "links_residual": _HOP_FLOPS + 12,
                  "links_apply": _HOP_FLOPS + 8}[base]
-        return words * LL * itemsize, flops * LL
+        return words * LL * itemsize, flops * batch * LL
     if base == "dense_update":
         words = (5 * n * n + n) * op_batch + 2 * n * batch
         flops = (_CMAC_FLOPS * 5 * n * n + 2 * n) * n_sweeps * batch

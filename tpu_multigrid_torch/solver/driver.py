@@ -7,7 +7,9 @@ divergence (> cfg.div_threshold) or a non-finite residual.
 mixed-precision iterative refinement; `solve_fmg` starts the cycles from
 the full-multigrid guess; `solve_with_history` records the residual and
 the NTL weights of every cycle (and the reference's results files through
-a utils.io.ResultsWriter); `mr_solve` is the unpreconditioned baseline.
+a utils.io.ResultsWriter); `solve_batched` runs a batch of right-hand sides
+through one hierarchy for a fixed number of cycles; `mr_solve` is the
+unpreconditioned baseline.
 """
 from __future__ import annotations
 
@@ -175,6 +177,26 @@ def solve_with_history(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
                        converged=resmag < cfg.res_threshold,
                        history=np.asarray(history),
                        ntl_weights=np.asarray(weights))
+
+
+def solve_batched(hier: Hierarchy, bs: torch.Tensor, cfg: MGConfig,
+                  n_cycles: int):
+    """Batched multi-RHS solve (counterpart of the JAX package's
+    solve_batched, which vmaps the whole fixed-cycle solve over a leading
+    right-hand-side axis): bs [batch, n, L, L] through `n_cycles` cycles on
+    the one hierarchy, each kernel call covering the whole batch in one
+    launch (the level-0 links kernels with the links shared when the
+    hierarchy carries them). No per-RHS early exit, as in JAX. The
+    hierarchy may itself carry the batch axis (one per right-hand side:
+    solver.ensemble.solve_ensemble).
+
+    Returns (phi [batch, n, L, L] on bs's device, the per-RHS relative
+    residuals as a numpy array)."""
+    phis = zero_fields(cfg, bs.device, batch=bs.shape[0])
+    for _ in range(n_cycles):
+        phis, _ = cycle(hier, phis, bs, cfg)
+    res = residual_norm_ratio0(hier, phis[0], bs, cfg)
+    return phis[0], res.cpu().numpy()
 
 
 def mr_solve(D, b, tol: float = 1e-8, max_iters: int = 100000,

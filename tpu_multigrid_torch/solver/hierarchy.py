@@ -185,10 +185,13 @@ def cast_hierarchy(hier: Hierarchy, cdtype) -> Hierarchy:
     return Hierarchy(levels=levels, ntl=ntl, gauge=c(hier.gauge))
 
 
-def zero_fields(cfg: MGConfig, device=None) -> Tuple[torch.Tensor, ...]:
-    """Zero solution vectors, one per level."""
+def zero_fields(cfg: MGConfig, device=None,
+                batch: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
+    """Zero solution vectors, one per level; [batch, n, S, S] each for a
+    batch of fields."""
+    lead = () if batch is None else (batch,)
     return tuple(
-        torch.zeros((cfg.n_dof[l], cfg.sizes[l], cfg.sizes[l]),
+        torch.zeros(lead + (cfg.n_dof[l], cfg.sizes[l], cfg.sizes[l]),
                     dtype=cfg.cdtype, device=device)
         for l in range(cfg.nlevels + 1))
 

@@ -1,7 +1,9 @@
 """State bridge from the JAX package, in plain Python and numpy: a JAX
-`MGConfig` as `dataclasses.asdict`, and a JAX hierarchy's leaves as numpy
-arrays, become the port's config and `Hierarchy`. Tests use it to run
-both packages on the same hierarchy."""
+`MGConfig` (or a geometric `GeoConfig` / `Geo2Config`) as
+`dataclasses.asdict`, and a JAX hierarchy's leaves as numpy arrays (a
+batched ensemble hierarchy with its leading batch axis), become the port's
+config and `Hierarchy`. Tests use it to run both packages on the same
+hierarchy."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -21,6 +23,13 @@ def config_from_dict(d: dict) -> MGConfig:
     return MGConfig(**d)
 
 
+def geo_config_from_dict(d: dict):
+    """solver.geometric.Geo2Config (when the dict has gen 2's fields) or
+    GeoConfig from `dataclasses.asdict` of the JAX package's."""
+    from ..solver.geometric import Geo2Config, GeoConfig
+    return (Geo2Config if "t_flag" in d else GeoConfig)(**d)
+
+
 def _tensor(a, device, dtype):
     return None if a is None else torch.from_numpy(
         np.array(a, order="C")).to(device=device, dtype=dtype)
@@ -30,7 +39,9 @@ def hierarchy_from_numpy(levels: Sequence, ntl: Optional[Sequence],
                          gauge: Optional[np.ndarray], device=None,
                          dtype=torch.complex128) -> Hierarchy:
     """levels: one (D, D0inv, phi_null or None) per level; ntl: None or
-    (phi_null, D, D0inv) with the copy axis first; gauge: None or U."""
+    (phi_null, D, D0inv) with the copy axis first; gauge: None or U. A
+    batched (ensemble) hierarchy's arrays keep their leading batch axis
+    (the copy axis is then second), as solver.ensemble's do."""
     lv = tuple(LevelOps(D=_tensor(D, device, dtype),
                         D0inv=_tensor(Dinv, device, dtype),
                         phi_null=_tensor(pn, device, dtype))
