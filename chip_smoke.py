@@ -57,14 +57,16 @@ Then the batch axis and the other programs:
 
 It checks convergence, that each solve went through every kernel of its
 path (launch counters, set to 0 before the path and read after it), that
-one flagship cycle launches the persistent smoothers exactly once per
-smooth call (2 links_update, 5 dense_update, no x-tiled smoother), that
-one large-flagship cycle launches the x-tiled smoothers exactly once per
-sweep (8 links_update_tiled, 24 dense_update_tiled: one fused red-black
-pass a sweep), that a batched or ensemble cycle launches as an unbatched
-one does, that the plain path on the same hierarchy takes the same
-number of cycles (within one), and that the kernel path agrees with the
-plain path on a small complex128 problem.
+one flagship cycle launches exactly FLAGSHIP_CYCLE (the persistent
+smoothers once per smooth call, level 0's residual fused with its
+restriction, the two coarse residuals on the dense residual kernel, the
+min-res apply on the SpMV kernel, no x-tiled kernel) and one
+large-flagship cycle exactly LARGE_CYCLE (the x-tiled smoothers once per
+sweep, the coarse residuals x-tiled past the L2 and global within it),
+that a batched or ensemble cycle launches as an unbatched one does, that
+the plain path on the same hierarchy takes the same number of cycles
+(within one), and that the kernel path agrees with the plain path on a
+small complex128 problem.
 
 Beside each kernel's main shape (and, for the links kernels, the batched
 main shape) it computes the kernel's bound (the least bytes and flops of
@@ -72,7 +74,9 @@ the call over the card's peak rates), its device time a call
 (torch.profiler), and times one PyTorch call that computes the same function where there is one: for the
 SpMV and residual kernels torch.sparse.mm / torch.sparse.addmm on the
 operator assembled once as a CSR matrix (int32 indices); the smoothers
-have none. The port never calls these.
+and the fused residual-restriction have none. The port never calls these.
+Beside the fused residual-restriction it times the unfused path it
+replaces (B2, then the plain restriction).
 
 Any failed check raises, and the exit code is then non-zero. The last
 line of standard output is one JSON object, {"ok": true, "device": ...};
@@ -99,30 +103,37 @@ HERE = Path(__file__).resolve().parent
 REPLACES = {
     "links_update": "tpu_multigrid/ops/pallas_stencil.py:669",
     "links_residual": "tpu_multigrid/ops/pallas_stencil.py:662",
+    "links_residual_restrict": "tpu_multigrid/ops/pallas_stencil.py:662",
     "dense_update": "tpu_multigrid/ops/pallas_stencil.py:125",
     "links_update_tiled": "tpu_multigrid/ops/pallas_stencil.py:711",
     "links_residual_tiled": "tpu_multigrid/ops/pallas_stencil.py:703",
     "dense_update_tiled": "tpu_multigrid/ops/pallas_stencil.py:358",
     "links_apply": "tpu_multigrid/ops/pallas_stencil.py:656",
     "dense_apply": "tpu_multigrid/ops/pallas_stencil.py:64",
+    "dense_residual": "tpu_multigrid/ops/pallas_stencil.py:64",
     "links_apply_tiled": "tpu_multigrid/ops/pallas_stencil.py:695",
     "dense_apply_tiled": "tpu_multigrid/ops/pallas_stencil.py:236",
+    "dense_residual_tiled": "tpu_multigrid/ops/pallas_stencil.py:236",
 }
 SOURCES = {k: "tpu_multigrid_torch/csrc/" + ("stencil_tiled.cu" if
                                              k.endswith("_tiled") else
                                              "stencil.cu")
            for k in REPLACES}
-FLAGSHIP_KERNELS = ("links_update", "links_residual", "dense_update")
+FLAGSHIP_KERNELS = ("links_update", "links_residual", "dense_update",
+                    "links_residual_restrict", "dense_residual", "dense_apply")
 LARGE_KERNELS = ("links_update_tiled", "links_residual_tiled",
-                 "dense_update_tiled", "dense_update")
+                 "dense_update_tiled", "dense_update", "dense_residual_tiled",
+                 "dense_residual", "dense_apply")
 SPMV_KERNELS = ("dense_apply_tiled", "links_apply", "links_apply_tiled")
 KRYLOV_KERNELS = ("dense_apply",)
 CLI_KERNELS = ("links_update", "links_residual", "dense_update",
                "dense_apply")
-# the links kernels that take a batch of right-hand sides on shared links
+# the kernels that take a batch of right-hand sides on shared links (and
+# near-null rows) or a shared D
 BATCHED_KERNELS = ("links_update", "links_residual", "links_update_tiled",
-                   "links_residual_tiled")
-ENSEMBLE_KERNELS = ("dense_update",)
+                   "links_residual_tiled", "links_residual_restrict",
+                   "dense_residual", "dense_residual_tiled")
+ENSEMBLE_KERNELS = ("dense_update", "dense_residual", "dense_apply")
 CHEBYSHEV_KERNELS = ("dense_apply", "links_residual")
 # the gen-2 program's cycles at L=32, m=0.5, 3 levels, 4 lexicographic
 # sweeps, t_flag 0 and 1 (the count tests/test_torch_cli.py holds the
@@ -135,9 +146,28 @@ BARS = {"complex64": 2e-5, "complex128": 1e-12}
 PEAK_FLOPS = {"complex64": 67e12, "complex128": 34e12}
 NO_LIBRARY = ("none: no single PyTorch call computes a red-black or Jacobi "
               "sweep")
+NO_LIBRARY_RESTRICT = ("none: no single PyTorch call computes the residual "
+                       "and its restriction")
 # Device ops of one flagship cycle on record for the first design of the
 # smoothers (one launch per half-sweep; PERF.md).
 FIRST_DESIGN_CYCLE_OPS = 313
+# Launches of one flagship cycle: rbgs x4 down and up at level 0 (links)
+# and at levels 1-2 and once on the NTL copies (dense); level 0's residual
+# fused with its restriction, levels 1-2's on the dense residual kernel,
+# the min-res apply on the SpMV kernel.
+FLAGSHIP_CYCLE = {"links_update": 2, "dense_update": 5,
+                  "links_update_tiled": 0, "dense_update_tiled": 0,
+                  "links_residual_restrict": 1, "links_residual": 0,
+                  "dense_residual": 2, "dense_apply": 1}
+# One large-flagship cycle: one fused red-black launch a sweep (rbgs x4 at
+# level 0, 2 calls, and at levels 1-3, 2 calls each); level 0's residual on
+# B5b (then the plain restriction); the dense residuals of levels 1-2
+# (L=1024, 512) x-tiled, of levels 3-5 (L=256, 128, 64) global
+# (apply_mode); the min-res apply at level 5.
+LARGE_CYCLE = {"links_update_tiled": 8, "dense_update_tiled": 24,
+               "links_residual_tiled": 1, "links_residual_restrict": 0,
+               "dense_residual_tiled": 2, "dense_residual": 3,
+               "dense_apply": 1}
 
 
 @dataclasses.dataclass
@@ -156,6 +186,7 @@ class Case:
     work: tuple = None
     library: object = None
     batch: int = 1
+    no_library: str = NO_LIBRARY
 
 
 def stencil_csr(torch, D):
@@ -287,25 +318,78 @@ def kernel_cases(torch, mgt, dev):
                 work(ku, 2, L, isz, batch, r_copies, sweeps), batch=batch))
         return out
 
-    def apply_cases(B, n, L, tag, dtype, tiled, tile=None):
-        """The dense SpMV: B7a (global) or B7b (x-tiled), D and v batched
-        by B when B is given."""
-        D, v = stencil(B, n, L, dtype), c(((B,) if B else ()) + (n, L, L),
-                                          dtype)
-        fn = (functools.partial(cs.dense_apply_tiled, tile=tile) if tiled
-              else cs.dense_apply)
-        kern = "dense_apply_tiled" if tiled else "dense_apply"
+    def apply_cases(E, B, n, L, tag, dtype, tiled, tile=None, resid=False,
+                    batch=1, row=None):
+        """The dense SpMV (B7a global, B7b x-tiled) or, resid, its residual
+        r - D v: E copies of D (None: one, shared by the batch) for B
+        entries of v (None: one), in groups of B / E (dense_groups).
+        batch: the Case's batch, > 1 for a batched main shape; row: the
+        label's first word (its row in the kernel table) where it is not
+        the kernel's own."""
+        D = stencil(E, n, L, dtype)
+        v = c(((B,) if B else ()) + (n, L, L), dtype)
+        r = c(tuple(v.shape), dtype) if resid else None
+        if resid:
+            fn = (functools.partial(cs.dense_residual_tiled, tile=tile)
+                  if tiled else cs.dense_residual)
+            kern = "dense_residual_tiled" if tiled else "dense_residual"
+            call = functools.partial(fn, D, v, r)
+            glob = functools.partial(cs.dense_residual, D, v, r)
+        else:
+            fn = (functools.partial(cs.dense_apply_tiled, tile=tile) if tiled
+                  else cs.dense_apply)
+            kern = "dense_apply_tiled" if tiled else "dense_apply"
+            call = functools.partial(fn, D, v)
+            glob = functools.partial(cs.dense_apply, D, v)
 
-        def spmm():
+        def plain():
+            out = cs.grouped_apply(D, v)
+            return out if r is None else r - out
+
+        def sparse():
+            """One CSR SpMM for the shared D: the entries of v as columns,
+            the result a (transposed) view; addmm for the residual."""
             A = stencil_csr(torch, D)
-            return lambda: torch.sparse.mm(A, v.reshape(-1, 1))
+            V = v.reshape(B or 1, -1).T
+            if r is None:
+                return lambda: torch.sparse.mm(A, V).T
+            R = r.reshape(B or 1, -1).T
+            return lambda: torch.sparse.addmm(R, A, V, alpha=-1).T
 
-        return [Case(kern, f"{'B7b' if tiled else 'B7a'} apply {tag}", dtype,
-                     lambda: fn(D, v), lambda: mgt.ops.stencil.apply_D(D, v),
-                     (lambda: cs.dense_apply(D, v)) if tiled and tile is None
-                     else None,
-                     work(kern, n, L, v.element_size(), B or 1, B or 1),
-                     None if B else spmm)]
+        name = row or f"{'B7b' if tiled else 'B7a'}{'-r' if resid else ''}"
+        entries = B or E or 1
+        return [Case(kern, f"{name} {'residual' if resid else 'apply'} {tag}",
+                     dtype, call, plain,
+                     glob if tiled and tile is None else None,
+                     work(kern, n, L, v.element_size(), entries, E or 1),
+                     None if E else sparse, batch)]
+
+    def restrict_cases(L, tag, dtype, nc=4, bx=2, by=2, quads=(1,),
+                       batch=1, shared_r=False):
+        """B2 fused with the restriction of its output, at each quadrant of
+        `quads`: phi [batch?, 2, L, L], r batched or shared, U and phi_null
+        [nc, 2, L, L] shared; beside it (fg) the unfused path, B2 then the
+        plain restriction."""
+        lead = (batch,) if batch > 1 else ()
+        U, phi = links(L, dtype), c(lead + (2, L, L), dtype)
+        r = c((2, L, L) if shared_r else lead + (2, L, L), dtype)
+        pn = c((nc, 2, L, L), dtype)
+        out = []
+        for quad in quads:
+            out.append(Case(
+                "links_residual_restrict",
+                f"B2+R residual-restrict {tag} nc={nc} {bx}x{by} quad {quad}",
+                dtype,
+                functools.partial(cs.wilson_u_residual_restrict, U, m, phi, r,
+                                  pn, quad, bx, by),
+                lambda q=quad: mgt.ops.transfer.restrict(
+                    pn, gs.residual_u("wilson", U, m, phi, r), q, bx, by),
+                lambda q=quad: mgt.ops.transfer.restrict(
+                    pn, cs.wilson_u_residual(U, m, phi, r), q, bx, by),
+                work("links_residual_restrict", 2, L, phi.element_size(),
+                     batch, 1 if shared_r else batch, nc=nc, block=bx * by),
+                None, batch, NO_LIBRARY_RESTRICT))
+        return out
 
     def links_apply_cases(L, tag, dtype, tiled, tile=None):
         """The links SpMV D_U v: B8 (global) or B5c (x-tiled)."""
@@ -351,7 +435,25 @@ def kernel_cases(torch, mgt, dev):
 
     cases = []
     for dtype in (torch.complex64, torch.complex128):
-        # the flagship (L=256) on the global kernels
+        # the flagship (L=256) on the global kernels: level 0's residual
+        # fused with its restriction (unbatched, then the batch of 8), the
+        # dense residual of level 1 (then level 2 and the batch of 8 on the
+        # shared D) and the min-res apply on the 4 copies (then the SpMV of
+        # MR and CGNR and an ensemble's min-res, 4 copies a configuration)
+        cases += restrict_cases(256, "L=256", dtype)
+        cases += restrict_cases(256, "L=256 batch 8", dtype, batch=8)
+        cases += apply_cases(None, None, 4, 128, "n=4 L=128 (level 1)", dtype,
+                             tiled=False, resid=True)
+        cases += apply_cases(None, None, 4, 64, "n=4 L=64 (level 2)", dtype,
+                             tiled=False, resid=True)
+        cases += apply_cases(None, 8, 4, 128, "n=4 L=128 batch 8 shared D",
+                             dtype, tiled=False, resid=True, batch=8)
+        cases += apply_cases(None, 4, 4, 64, "n=4 L=64 x4 shared D (min-res)",
+                             dtype, tiled=False)
+        cases += apply_cases(None, None, 2, 256, "n=2 L=256 (MR, CGNR)",
+                             dtype, tiled=False, row="B7a@MR")
+        cases += apply_cases(8, 32, 4, 64, "n=4 L=64 x32 on 8 D (ensemble "
+                             "min-res)", dtype, tiled=False)
         cases += links_cases(256, "L=256", dtype, tiled=False)
         # (batch, n, L, D shared by the batch?, label, kinds)
         for B, n, L, shared, tag, kinds in [
@@ -404,26 +506,55 @@ def kernel_cases(torch, mgt, dev):
                                  ("rbgs", "jacobi"), dtype, tiled=True,
                                  tile=(3, 5), sweeps=sweeps, omega=omega)
         # the SpMV path: the first case of each kernel is its main shape
-        cases += apply_cases(None, 2, 256, "n=2 L=256 (MR, CGNR)", dtype,
-                             tiled=False)
-        cases += apply_cases(4, 4, 32, "n=4 L=32 batch 4", dtype,
+        cases += apply_cases(4, 4, 4, 32, "n=4 L=32 batch 4", dtype,
                              tiled=False)
         cases += links_apply_cases(256, "L=256", dtype, tiled=False)
-        cases += apply_cases(None, 2, 2048, "n=2 L=2048 (stencil stream)",
-                             dtype, tiled=True)
-        cases += apply_cases(None, 4, 1024, "n=4 L=1024", dtype, tiled=True)
+        cases += apply_cases(None, None, 2, 2048,
+                             "n=2 L=2048 (stencil stream)", dtype, tiled=True)
+        cases += apply_cases(None, None, 4, 1024, "n=4 L=1024", dtype,
+                             tiled=True)
         cases += links_apply_cases(2048, "L=2048", dtype, tiled=True)
         if dtype == torch.complex64:
-            cases += apply_cases(None, 2, 4096, "n=2 L=4096", dtype,
+            cases += apply_cases(None, None, 2, 4096, "n=2 L=4096", dtype,
                                  tiled=True)
             cases += links_apply_cases(4096, "L=4096", dtype, tiled=True)
+        # the large flagship's x-tiled dense residuals (levels 1-2), then
+        # groups: 4 entries a copy of D, and D shared by a batch
+        cases += apply_cases(None, None, 4, 1024, "n=4 L=1024 (level 1)",
+                             dtype, tiled=True, resid=True)
+        cases += apply_cases(None, None, 4, 512, "n=4 L=512 (level 2)", dtype,
+                             tiled=True, resid=True)
+        cases += apply_cases(None, 2, 4, 1024, "n=4 L=1024 batch 2 shared D",
+                             dtype, tiled=True, resid=True, batch=2)
         for tile in ((8, 8), (6, 12)):
             tag = f"L=32 tile {tile[0]}x{tile[1]}"
-            cases += apply_cases(4, 4, 32, "n=4 batch 4 " + tag, dtype,
+            cases += apply_cases(4, 4, 4, 32, "n=4 batch 4 " + tag, dtype,
                                  tiled=True, tile=tile)
-            cases += apply_cases(None, 2, 32, "n=2 " + tag, dtype,
+            cases += apply_cases(None, None, 2, 32, "n=2 " + tag, dtype,
                                  tiled=True, tile=tile)
+            cases += apply_cases(2, 8, 4, 32, "n=4 x8 on 2 D " + tag, dtype,
+                                 tiled=True, tile=tile, resid=True)
+            cases += apply_cases(None, 3, 2, 30, "n=2 x3 shared D L=30 "
+                                 + tag, dtype, tiled=True, tile=tile,
+                                 resid=True)
             cases += links_apply_cases(32, tag, dtype, tiled=True, tile=tile)
+        # the fused residual-restriction at every quadrant, nc 1 and 2,
+        # 4 x 4 and 4 x 2 blocks, ragged coarse tiles (L=36: 18 coarse
+        # columns; L=68: 17), r shared by a batch; the dense residual and
+        # apply in groups of 1, 4 and the whole batch, n = 1 and 2
+        cases += restrict_cases(256, "L=256", dtype, quads=(2, 3, 4))
+        cases += restrict_cases(36, "L=36 batch 3 shared r", dtype, nc=2,
+                                quads=(1, 2, 3, 4), batch=3, shared_r=True)
+        cases += restrict_cases(68, "L=68", dtype, nc=1, bx=4, by=4,
+                                quads=(1, 3))
+        cases += restrict_cases(24, "L=24 batch 2", dtype, bx=4, by=2,
+                                quads=(2, 4), batch=2)
+        for E, B, n, L in ((None, 8, 2, 64), (2, 8, 4, 32), (16, 16, 4, 32),
+                           (3, 6, 1, 10)):
+            for resid in (False, True):
+                cases += apply_cases(E, B, n, L, f"n={n} L={L} x{B} on "
+                                     f"{E or 1} D", dtype, tiled=False,
+                                     resid=resid)
         # a batch of right-hand sides on shared links (B1, B2, B5a, B5b):
         # the batched main shapes first (B=8 at L=256, B=2 at L=2048), then
         # an odd batch, 1 and 3 sweeps, omega 0.8, r shared by the batch, a
@@ -479,7 +610,7 @@ def library_time(torch, case, want):
     """(ms, what) of the one PyTorch call that computes the case's function
     (built outside the timing), or (None, why there is none)."""
     if case.library is None:
-        return None, NO_LIBRARY
+        return None, case.no_library
     try:
         call = case.library()
         got = call()
@@ -591,17 +722,33 @@ def run_kernel_cases(torch, mgt, dev):
                 nbytes, flops, peak, PEAK_FLOPS[dt])
             dev_us = device_us(torch, fk)
             cold_us = device_us(torch, fk, flush=flush_buf.bitwise_not_)
+            # cold from a flush that only reads: the L2 then holds clean
+            # lines, and the call's misses write nothing back
+            clean_us = device_us(torch, fk, flush=flush_buf.sum)
             share = None if cold_us is None else bound_s * 1e6 / cold_us
             row = dict(ms=ms, plain_ms=plain_ms, case=label,
                        device_us=dev_us, device_us_cold=cold_us,
+                       device_us_cold_clean=clean_us,
                        bound_ms=bound_s * 1e3, bound_by=bound_by,
                        bound_share_cold=share)
+            if kern == "links_residual_restrict":
+                # the unfused path it replaces: B2, then the restriction
+                row.update(unfused_ms=cuda_ms(torch, fg),
+                           unfused_device_us=device_us(torch, fg),
+                           unfused_device_us_cold=device_us(
+                               torch, fg, flush=flush_buf.bitwise_not_))
             rows[key] = dict(row, kernel=kern)
             line += (f"\n    row {key}: device {fmt_us(dev_us)} a call "
-                     f"warm, {fmt_us(cold_us)} cold; bound "
+                     f"warm, {fmt_us(cold_us)} cold ({fmt_us(clean_us)} "
+                     f"after a read-only flush); bound "
                      f"{bound_s * 1e3:.4f} ms ({bound_by})"
                      + ("" if share is None else
                         f", {share:.2f} of it cold"))
+            if "unfused_ms" in row:
+                line += (f"\n    unfused (B2 + restrict): "
+                         f"{row['unfused_ms']:.4f} ms, device "
+                         f"{fmt_us(row['unfused_device_us'])} warm, "
+                         f"{fmt_us(row['unfused_device_us_cold'])} cold")
         main = e["ms"] is None if case.batch == 1 else "batched" not in e
         if dt == "complex64" and main:   # the (batched) main shape
             row = {k: v for k, v in rows[key].items() if k != "kernel"}
@@ -1446,9 +1593,8 @@ def main():
         torch, mgt, dev, cfg, gauges, FLAGSHIP_KERNELS, max_cycles=30,
         n_cyc=10, reps=5, warm_check=True)
     flag["cycle"] = cycle_launches(
-        torch, mgt, dev, cfg, hier, flag["ms_per_cycle"],
-        {"links_update": 2, "dense_update": 5, "links_update_tiled": 0,
-         "dense_update_tiled": 0}, "flagship", FIRST_DESIGN_CYCLE_OPS)
+        torch, mgt, dev, cfg, hier, flag["ms_per_cycle"], FLAGSHIP_CYCLE,
+        "flagship", FIRST_DESIGN_CYCLE_OPS)
     flag["solve_ir"] = ir_phase(torch, mgt, dev, cfg, gauges[0][0], hier)
     batched, batched_launches = batched_phase(
         torch, mgt, dev, cfg, hier, 8, 10, 5, flag, FLAGSHIP_KERNELS,
@@ -1465,11 +1611,8 @@ def main():
         n_cyc=4, reps=3, warm_check=False)
     phases0 = gauges[0][0]
     del gauges
-    # one fused red-black launch a sweep: rbgs x4 at level 0 (2 calls) and
-    # at levels 1-3 (2 calls each)
     large["cycle"] = cycle_launches(
-        torch, mgt, dev, cfg, hier, large["ms_per_cycle"],
-        {"links_update_tiled": 8, "dense_update_tiled": 24},
+        torch, mgt, dev, cfg, hier, large["ms_per_cycle"], LARGE_CYCLE,
         "large flagship")
     large["solve_ir"] = ir_phase(torch, mgt, dev, cfg, phases0, hier)
     large_b, large_b_launches = batched_phase(
@@ -1485,7 +1628,7 @@ def main():
     # ---- the SpMV path: the stencil stream, then the Krylov solvers ----
     spmv, spmv_launches = spmv_phase(torch, mgt, dev, card)
     print(f"spmv done at {time.perf_counter() - t_start:.1f} s")
-    krylov, krylov_launches = krylov_phase(torch, mgt, dev, flag_cfg,
+    krylov, _ = krylov_phase(torch, mgt, dev, flag_cfg,
                                            flag_hier)
     del flag_hier
     print(f"krylov done at {time.perf_counter() - t_start:.1f} s")
@@ -1502,8 +1645,9 @@ def main():
     print(f"ensemble done at {time.perf_counter() - t_start:.1f} s")
     geo = geo_phase(torch, mgt, dev)
     print(f"geo done at {time.perf_counter() - t_start:.1f} s")
+    # each kernel's launches on the main path that runs it: the flagship's
+    # solve, else the large flagship's, else the SpMV phase
     phase_launches = {k: spmv_launches for k in SPMV_KERNELS}
-    phase_launches.update({k: krylov_launches for k in KRYLOV_KERNELS})
     phase_launches.update({k: large_launches for k in LARGE_KERNELS
                            if k.endswith("_tiled")})
     phase_launches.update({k: flag_launches for k in FLAGSHIP_KERNELS})
@@ -1517,7 +1661,10 @@ def main():
                 **{f: per_kernel[k][f] for f in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "library", "case", "device_us",
-                    "device_us_cold", "bound_share_cold")},
+                    "device_us_cold", "device_us_cold_clean",
+                    "bound_share_cold", "unfused_ms",
+                    "unfused_device_us", "unfused_device_us_cold")
+                   if f in per_kernel[k]},
                 **({"batched": dict(per_kernel[k]["batched"],
                                     cycle_launches=batched_cycle.get(k, 0))}
                    if k in BATCHED_KERNELS else {})}

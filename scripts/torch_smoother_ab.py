@@ -31,10 +31,24 @@ second gauge (after one unmeasured build each), in one round of turns.
 Where both designs take a batch of right-hand sides (solve_batched), a
 batched cycle of each on the same hierarchy, 8 right-hand sides at L=256
 and 2 at L=2048, in turns, with one profiled batched cycle of each.
+The single calls also take the cycle's residuals at the flagship's
+shapes as each design makes them: level 0's residual and its restriction
+(nc=4, 2 x 2 blocks), the dense residual at n=4 L=128 and L=64, and the
+min-res apply on the 4 copies at n=4 L=64 (launches: all of the call's).
 Last, the links apply at L=256 (links_apply, B8) beside torch.sparse.mm
 on the operator as a CSR matrix (chip_smoke.stencil_csr): wrapper ms in
 turns, and device microseconds a call from the profiler (ten calls a turn,
 three rounds of turns).
+
+With --residuals-only it runs only those residual calls, and where both
+designs take the dense SpMV's groups (cuda_stencil.dense_groups) also the
+batched ones: level 0's fused residual-restriction of 8 right-hand sides,
+the level-1 residual of 8 right-hand sides on one D (n=4 L=128), and the
+min-res apply on the 32 copies of 8 right-hand sides on one D and on the
+32 copies of an ensemble of 8 configurations, 4 a D (n=4 L=64). For each
+call, wrapper ms and device microseconds a call in three rounds of turns,
+warm and cold (the L2 flushed before each call, as chip_smoke.py's kernel
+table reads it).
 
 Prints one JSON object (with the card's name and power limit) as its last
 line, and writes it to FILE too when --out is given.
@@ -191,6 +205,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", type=Path)
     ap.add_argument("--out", type=Path, default=None)
+    ap.add_argument("--residuals-only", action="store_true",
+                    help="only the cycle's residual calls, warm and cold")
     ns = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -223,6 +239,19 @@ def main():
             D, Dinv = D[0], Dinv[0]
         return (D, Dinv, c(lead + (n, L, L)),
                 c((n, L, L) if shared or B is None else lead + (n, L, L)))
+
+    if ns.residuals_only:
+        cases = residual_cases(this, other, c, dense, rng, dev)
+        if all(hasattr(p.ops.cuda_stencil, "dense_groups")
+               for p in (this, other)):
+            cases += batched_residual_cases(c, dense, rng, dev)
+        out = {"card": card,
+               "residual_calls": residual_calls(torch, this, other, cases)}
+        if ns.out is not None:
+            ns.out.parent.mkdir(parents=True, exist_ok=True)
+            ns.out.write_text(json.dumps(out, indent=1))
+        print(json.dumps(out))
+        return
 
     # the flagship cycle first (one hierarchy, each package's cycle
     # code), then the single calls
@@ -314,6 +343,7 @@ def main():
         cases.append((tag, "dense_update_tiled",
                       lambda p, o=ops: p.ops.cuda_stencil.dense_smooth_tiled(
                           *o, 4, "rbgs")))
+    cases += residual_cases(this, other, c, dense, rng, dev)
     for tag, kernel, fn in cases:
         got_o, got_t = fn(other), fn(this)
         torch.cuda.synchronize()
@@ -322,8 +352,8 @@ def main():
             pkg.ops.cuda_stencil.reset_launches()
         fn(other)
         fn(this)
-        n_o = other.ops.cuda_stencil.launches[kernel]
-        n_t = this.ops.cuda_stencil.launches[kernel]
+        n_o = sum(other.ops.cuda_stencil.launches.values())
+        n_t = sum(this.ops.cuda_stencil.launches.values())
         ms_o, ms_t, turns = in_turns(torch, lambda: fn(other),
                                      lambda: fn(this), reps=21)
         dev_o = profiled(torch, lambda: fn(other), 10)[1] * 1e5
@@ -345,6 +375,130 @@ def main():
         ns.out.parent.mkdir(parents=True, exist_ok=True)
         ns.out.write_text(json.dumps(out, indent=1))
     print(json.dumps(out))
+
+
+def residual_cases(this, other, c, dense, rng, dev):
+    """The cycle's residual calls at the flagship's shapes, as each design
+    makes them (a `cases` row: tag, kernel, fn(package)): level 0's
+    residual and its restriction (the fused kernel where the package has
+    it, else B2 then the plain restriction), the dense residual at n=4
+    L=128 and L=64 (cuda_stencil.residual where the package has it, else
+    the plain stencil.residual), and the min-res apply on the 4 copies at
+    n=4 L=64 on a shared D (dense_apply)."""
+    import torch
+    m, L = -0.005, 256
+    U = torch.polar(torch.ones(2, L, L, dtype=torch.float64),
+                    torch.from_numpy(0.2 * rng.normal(size=(2, L, L)))
+                    ).to(dev, torch.complex64)
+    phi, r, pn = c((2, L, L)), c((2, L, L)), c((4, 2, L, L))
+
+    def fused(p):
+        cs = p.ops.cuda_stencil
+        if hasattr(cs, "wilson_u_residual_restrict"):
+            return cs.wilson_u_residual_restrict(U, m, phi, r, pn, 1, 2, 2)
+        return p.ops.transfer.restrict(pn, cs.wilson_u_residual(U, m, phi, r),
+                                       1, 2, 2)
+
+    def dense_residual(ops):
+        D, _, v, rr = ops
+
+        def run(p):
+            if hasattr(p.ops.cuda_stencil, "residual"):
+                return p.ops.cuda_stencil.residual(D, v, rr)
+            return p.ops.stencil.residual(D, v, rr)
+        return run
+
+    D64, _, _, _ = dense(None, 4, 64, False)
+    xs = c((4, 4, 64, 64))
+    return [("B2 residual + restrict L=256 nc=4 2x2", "links_residual",
+             fused),
+            ("B7a residual n=4 L=128 (level 1)", "dense_residual",
+             dense_residual(dense(None, 4, 128, False))),
+            ("B7a residual n=4 L=64 (level 2)", "dense_residual",
+             dense_residual(dense(None, 4, 64, False))),
+            ("B7a min-res apply x4 n=4 L=64 shared D", "dense_apply",
+             lambda p: p.ops.cuda_stencil.dense_apply(D64, xs))]
+
+
+def batched_residual_cases(c, dense, rng, dev):
+    """The residual calls of a batched cycle (8 right-hand sides on the
+    flagship's hierarchy) and of an ensemble's (8 configurations, 4 copies
+    a configuration at the min-res), as `cases` rows."""
+    import torch
+    m, L = -0.005, 256
+    U = torch.polar(torch.ones(2, L, L, dtype=torch.float64),
+                    torch.from_numpy(0.2 * rng.normal(size=(2, L, L)))
+                    ).to(dev, torch.complex64)
+    phi, r, pn = c((8, 2, L, L)), c((8, 2, L, L)), c((4, 2, L, L))
+    D128, _, _, _ = dense(None, 4, 128, False)
+    v128, r128 = c((8, 4, 128, 128)), c((8, 4, 128, 128))
+    D64, _, _, _ = dense(None, 4, 64, False)
+    D64e, _, _, _ = dense(8, 4, 64, False)
+    xs = c((32, 4, 64, 64))
+    return [("B2 residual + restrict L=256 nc=4 2x2 batch 8",
+             "links_residual_restrict",
+             lambda p: p.ops.cuda_stencil.wilson_u_residual_restrict(
+                 U, m, phi, r, pn, 1, 2, 2)),
+            ("B7a residual n=4 L=128 batch 8 shared D", "dense_residual",
+             lambda p: p.ops.cuda_stencil.residual(D128, v128, r128)),
+            ("B7a min-res apply x32 n=4 L=64 shared D", "dense_apply",
+             lambda p: p.ops.cuda_stencil.dense_apply(D64, xs)),
+            ("B7a min-res apply x32 n=4 L=64 on 8 D", "dense_apply",
+             lambda p: p.ops.cuda_stencil.dense_apply(D64e, xs))]
+
+
+def residual_calls(torch, this, other, cases, rounds=3):
+    """Each case of each design: the largest difference of their results,
+    the launches of a call, wrapper ms (in_turns) and device microseconds
+    a call, warm and cold (chip_smoke.device_us, with and without an L2
+    flush before each call), in `rounds` rounds of turns other, this,
+    this, other; the median of each design's turns."""
+    sys.path.insert(0, str(HERE))
+    from chip_smoke import L2_FLUSH_BYTES, device_us
+    flush = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.int32,
+                        device="cuda").bitwise_not_
+    rows = []
+    for tag, kernel, fn in cases:
+        got_o, got_t = fn(other), fn(this)
+        torch.cuda.synchronize()
+        diff = float((got_t - got_o).abs().max() / got_o.abs().max())
+        launches = {}
+        for p in (other, this):
+            p.ops.cuda_stencil.reset_launches()
+            fn(p)
+            launches[p] = sum(p.ops.cuda_stencil.launches.values())
+        ms_o, ms_t, _ = in_turns(torch, lambda: fn(other), lambda: fn(this),
+                                 reps=21)
+        us = {(p, cold): [] for p in (other, this) for cold in (False, True)}
+        for _ in range(rounds):
+            for p in (other, this, this, other):
+                for cold in (False, True):
+                    us[p, cold].append(device_us(
+                        torch, lambda p=p: fn(p), flush=flush if cold
+                        else None))
+
+        def med(p, cold):
+            got = [u for u in us[p, cold] if u is not None]
+            return statistics.median(got) if got else None
+
+        row = {"case": tag, "kernel": kernel, "rel_diff": diff,
+               "other_launches": launches[other],
+               "this_launches": launches[this], "other_ms": ms_o,
+               "this_ms": ms_t, "other_device_us": med(other, False),
+               "this_device_us": med(this, False),
+               "other_device_us_cold": med(other, True),
+               "this_device_us_cold": med(this, True),
+               "turns_device_us": {f"{'this' if p is this else 'other'}_"
+                                   f"{'cold' if cold else 'warm'}": v
+                                   for (p, cold), v in us.items()}}
+        rows.append(row)
+        print(f"{tag:48s} device us warm other {row['other_device_us']} / "
+              f"this {row['this_device_us']}, cold other "
+              f"{row['other_device_us_cold']} / this "
+              f"{row['this_device_us_cold']}; ms {ms_o:.4f} / {ms_t:.4f}; "
+              f"launches {launches[other]} / {launches[this]}; rel diff "
+              f"{diff:.2e}", flush=True)
+    return rows
 
 
 def large_flagship(torch, this, other, dev):

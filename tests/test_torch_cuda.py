@@ -7,6 +7,8 @@ machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -613,6 +615,210 @@ def test_apply_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         cs.dense_apply_tiled(D, v, tile=(17, 32))
     assert cs.launches == n0
+
+
+# ---- B2 fused with its restriction; B7a / B7b residual and groups ----
+
+from tpu_multigrid_torch.ops import transfer as tr  # noqa: E402
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("quad", [1, 2, 3, 4])
+@pytest.mark.parametrize("L,nc,bx,by,B,shared_r", [
+    (256, 4, 2, 2, None, False),            # the flagship's level 0
+    (256, 4, 2, 2, 8, False),               # its batch of 8 right-hand sides
+    (36, 2, 2, 2, 3, True),                 # ragged: 18 coarse columns
+    (68, 1, 4, 4, None, False),             # ragged: 17 x 17 coarse sites
+    (24, 4, 4, 2, 2, False),                # bx != by
+    (8, 2, 2, 4, None, False),              # a lattice under one block
+])
+def test_links_residual_restrict(dev, dtype, quad, L, nc, bx, by, B,
+                                 shared_r):
+    """One launch; the plain composition's result (restrict of the plain
+    links residual), every quadrant, ragged coarse tiles, a batch on shared
+    links and near-null rows, r shared or batched."""
+    rng = np.random.default_rng(60 + L + nc + quad)
+    U = _links(rng, L, dtype, dev)
+    lead = (B,) if B else ()
+    phi = _c(rng, lead + (2, L, L), dtype, dev)
+    r = _c(rng, (2, L, L) if shared_r else lead + (2, L, L), dtype, dev)
+    pn = _c(rng, (nc, 2, L, L), dtype, dev)
+    n0 = dict(cs.launches)
+    got = cs.wilson_u_residual_restrict(U, -0.005, phi, r, pn, quad, bx, by)
+    assert cs.launches["links_residual_restrict"] == (
+        n0["links_residual_restrict"] + 1)
+    assert {k: v for k, v in cs.launches.items() if v != n0[k]} == {
+        "links_residual_restrict": n0["links_residual_restrict"] + 1}
+    want = tr.restrict(pn, gs.residual_u("wilson", U, -0.005, phi, r), quad,
+                       bx, by)
+    assert got.shape == want.shape == lead + (nc, L // bx, L // by)
+    assert _rel(got, want) < BARS[dtype]
+
+
+def test_links_residual_restrict_refuses(dev):
+    """nc = 3, a block of 8, blocks that do not divide L, a phi_null with a
+    batch axis, a misaligned or non-contiguous operand: a ValueError (a
+    wrong dtype: a TypeError), and no launch."""
+    rng = np.random.default_rng(61)
+    L, c64 = 16, torch.complex64
+    U = _links(rng, L, c64, dev)
+    phi, r = _c(rng, (2, L, L), c64, dev), _c(rng, (2, L, L), c64, dev)
+    pn = _c(rng, (4, 2, L, L), c64, dev)
+    flat = _c(rng, (2 * L * L + 1,), c64, dev)
+    odd = flat[1:].view(2, L, L)             # 8 bytes past a 16-byte line
+    n0 = dict(cs.launches)
+
+    def call(U=U, phi=phi, r=r, pn=pn, bx=2, by=2, quad=1):
+        return cs.wilson_u_residual_restrict(U, 0.1, phi, r, pn, quad, bx, by)
+
+    for kw in (dict(pn=_c(rng, (3, 2, L, L), c64, dev)), dict(bx=8),
+               dict(by=1), dict(pn=pn.expand(2, 4, 2, L, L).contiguous()),
+               dict(phi=odd), dict(r=odd), dict(phi=phi.transpose(-1, -2)),
+               dict(pn=pn[:, :, :8, :8].contiguous())):
+        with pytest.raises(ValueError):
+            call(**kw)
+    with pytest.raises(ValueError):          # 4 does not divide 18
+        U18 = _links(rng, 18, c64, dev)
+        p18 = _c(rng, (2, 18, 18), c64, dev)
+        cs.wilson_u_residual_restrict(U18, 0.1, p18, p18,
+                                      _c(rng, (4, 2, 18, 18), c64, dev), 1,
+                                      4, 2)
+    with pytest.raises(TypeError):
+        call(pn=pn.to(torch.complex128))
+    assert cs.launches == n0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("resid", [False, True])
+@pytest.mark.parametrize("n,L,E,B,tile", [
+    (4, 128, None, None, None),              # the flagship's level 1
+    (4, 64, None, 4, None),                  # its min-res apply, G = B = 4
+    (4, 64, 2, 8, None),                     # an ensemble's min-res, G = 4
+    (4, 32, 16, 16, None),                   # the NTL copies, G = 1
+    (2, 64, None, 8, None),                  # a batch on one hierarchy
+    (1, 10, 3, 6, None),                     # G = 2, n = 1
+    (4, 1024, None, None, "tiled"),          # the large flagship's level 1
+    (4, 32, 2, 8, (8, 8)),                   # tiled, G = 4, periodic wrap
+    (2, 30, None, 3, (6, 12)),               # tiled, ragged, G = B
+])
+def test_dense_apply_and_residual_in_groups(dev, dtype, resid, n, L, E, B,
+                                            tile):
+    """B entries in groups of G = B / E sharing one D (E None: D shared by
+    the batch): APPLY writes D v, RESID r - D v; one launch; each entry
+    against the plain version on its own D."""
+    rng = np.random.default_rng(70 + n + L)
+    D, _ = _dense(rng, E or 1, n, L, dtype, dev)
+    D = D if E else D[0]
+    v = _c(rng, ((B,) if B else ()) + (n, L, L), dtype, dev)
+    r = _c(rng, tuple(v.shape), dtype, dev)
+    keep = v.clone()
+    name = ("dense_residual" if resid else "dense_apply") + (
+        "_tiled" if tile else "")
+    fn = getattr(cs, name)
+    if tile:
+        fn = functools.partial(fn, tile=None if tile == "tiled" else tile)
+    n0 = cs.launches[name]
+    got = fn(D, v, r) if resid else fn(D, v)
+    assert cs.launches[name] == n0 + 1
+    assert torch.equal(v, keep)
+    if E and B:
+        G = B // E
+        want = torch.stack([st.apply_D(D[b // G], v[b]) for b in range(B)])
+    else:
+        want = st.apply_D(D, v)
+    if resid:
+        want = r - want
+    assert got.shape == want.shape
+    assert _rel(got, want) < BARS[dtype]
+
+
+def test_residual_dispatches_by_apply_mode(dev):
+    """cuda_stencil.residual launches the tiled kernel past the L2 (n=4,
+    L=1024) and the global one within it (n=4, L=128)."""
+    rng = np.random.default_rng(71)
+    for L, kernel in ((1024, "dense_residual_tiled"), (128, "dense_residual")):
+        D, _ = _dense(rng, 1, 4, L, torch.complex64, dev)
+        v = _c(rng, (4, L, L), torch.complex64, dev)
+        before = dict(cs.launches)
+        cs.residual(D[0], v, v)
+        moved = {k: c - before[k] for k, c in cs.launches.items()
+                 if c != before[k]}
+        assert moved == {kernel: 1}
+
+
+def test_dense_residual_refuses(dev):
+    """A misaligned operand (the global kernel reads pairs of sites),
+    groups that do not divide the batch, an r of another shape: a
+    ValueError, and no launch."""
+    rng = np.random.default_rng(72)
+    c64 = torch.complex64
+    D, _ = _dense(rng, 2, 2, 8, c64, dev)
+    v = _c(rng, (6, 2, 8, 8), c64, dev)
+    flat = _c(rng, (2 * 64 + 1,), c64, dev)
+    odd = flat[1:].view(2, 8, 8)
+    n0 = dict(cs.launches)
+    for call in (lambda: cs.dense_residual(D[0], odd, odd),
+                 lambda: cs.dense_residual(D[0], v[0], odd),
+                 lambda: cs.dense_apply(D, v[:5].contiguous()),
+                 lambda: cs.dense_residual(D, v, v[:3].contiguous()),
+                 lambda: cs.dense_residual_tiled(D, v, v[:3].contiguous())):
+        with pytest.raises(ValueError):
+            call()
+    assert cs.launches == n0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_apply_D_and_residual_route_what_the_global_kernel_refuses(dev,
+                                                                    dtype):
+    """The global kernel's wrappers refuse an odd lattice (n=2, L=7) and, in
+    complex64, an operand off a 16-byte line; apply_D and residual send
+    such calls to the x-tiled kernel, one launch each, with the plain
+    version's result."""
+    rng = np.random.default_rng(73)
+    D7, _ = _dense(rng, 1, 2, 7, dtype, dev)
+    v7 = _c(rng, (2, 7, 7), dtype, dev)
+    n0 = dict(cs.launches)
+    for call in (lambda: cs.dense_apply(D7[0], v7),
+                 lambda: cs.dense_residual(D7[0], v7, v7)):
+        with pytest.raises(ValueError):
+            call()
+    assert cs.launches == n0
+    want7 = st.apply_D(D7[0], v7)
+    cases = [(lambda: cs.apply_D(D7[0], v7), want7, "dense_apply_tiled"),
+             (lambda: cs.residual(D7[0], v7, v7), v7 - want7,
+              "dense_residual_tiled")]
+    if dtype == torch.complex64:          # a complex128 word is 16 bytes
+        D8, _ = _dense(rng, 1, 2, 8, dtype, dev)
+        off = _c(rng, (2 * 64 + 1,), dtype, dev)[1:].view(2, 8, 8)
+        want8 = st.apply_D(D8[0], off)
+        cases += [(lambda: cs.apply_D(D8[0], off), want8, "dense_apply_tiled"),
+                  (lambda: cs.residual(D8[0], off, off), off - want8,
+                   "dense_residual_tiled")]
+    for call, want, kernel in cases:
+        before = dict(cs.launches)
+        got = call()
+        assert {k: c - before[k] for k, c in cs.launches.items()
+                if c != before[k]} == {kernel: 1}
+        assert _rel(got, want) < BARS[dtype]
+
+
+def test_chebyshev_config_on_an_odd_coarsest_level(dev):
+    """eigs.chebyshev_config applies apply_D on every level: at L=12 with
+    two levels of 2 x 2 blocks the coarsest is S=3, which the x-tiled
+    kernel takes. Each level's lambda_max against the plain apply's on the
+    same operators, complex128."""
+    from tpu_multigrid_torch import build_hierarchy
+    from tpu_multigrid_torch.solver import eigs
+    cfg, U, D = _wilson_setup(12, "complex128", dev, smoother="jacobi")
+    hier = build_hierarchy(D, cfg, U=U)
+    assert [lev.D.shape[-1] for lev in hier.levels] == [12, 6, 3]
+    n0 = dict(cs.launches)
+    cc = eigs.chebyshev_config(cfg, hier)
+    assert cs.launches["dense_apply_tiled"] > n0["dense_apply_tiled"]
+    assert cs.launches["dense_apply"] > n0["dense_apply"]
+    for lev, lmax in zip(hier.levels, cc.cheby_lmax):
+        want = eigs.jacobi_operator_lmax(lev.D.cpu(), lev.D0inv.cpu())
+        assert abs(lmax - want) < 1e-10 * abs(want)
 
 
 # ---- the CLI path on the card: gs_lex, self-tests, the CLI, the writer ----

@@ -151,6 +151,13 @@ def test_band_bytes():
     ("links_update_tiled", 2, 2048, 2, 2, 140.2),         # B5a, B=2
     ("links_residual_tiled", 2, 2048, 2, 2, 140.2),       # B5b, B=2
     ("links_residual", 2, 256, 3, 3, 3.13),               # B2, B=3
+    # B2 fused with the restriction (nc=4, 2 x 2 blocks): 15 words a site
+    ("links_residual_restrict", 2, 256, 1, 1, 2.35),
+    ("links_residual_restrict", 2, 256, 8, 8, 7.83),      # B=8
+    # B7a: the level-1 residual; the min-res apply on a shared D (G=4)
+    ("dense_residual", 4, 128, 1, 1, 3.60),
+    ("dense_apply", 4, 64, 4, 1, 1.10),
+    ("dense_residual_tiled", 4, 1024, 1, 1, 230.4),       # B7b residual
 ])
 def test_kernel_work_gives_the_bounds_of_the_kernel_table(kernel, n, L,
                                                           batch, op_batch,
@@ -202,3 +209,25 @@ def test_reset_launches_clears_the_band_counts():
     assert all(v == 0 for modes in cs.band_launches.values()
                for v in modes.values())
     assert all(v == 0 for v in cs.launches.values())
+
+
+@pytest.mark.parametrize("n,L,dtype,offset,want", [
+    (4, 128, torch.complex64, 0, "global"),      # the flagship's level 1
+    (4, 3, torch.complex64, 0, "tiled"),         # an odd coarsest level
+    (2, 7, torch.complex128, 0, "tiled"),
+    (2, 8, torch.complex64, 1, "tiled"),         # 8 bytes off a 16-byte line
+    (2, 8, torch.complex128, 1, "global"),       # a word is 16 bytes
+    (4, 1024, torch.complex64, 0, "tiled"),      # past the L2
+])
+def test_dense_route_sends_what_the_global_kernel_refuses_to_the_tiled(
+        n, L, dtype, offset, want):
+    """apply_D and residual take the global SpMV kernel only for an even
+    lattice within the L2 and operands on 16-byte lines (the kernel reads
+    pairs of sites in 16-byte loads); else the x-tiled one, which takes
+    any L."""
+    flat = torch.zeros(offset + 1, dtype=dtype)
+    v = flat[offset:].expand(n, L, L)
+    assert cs._dense_route(v) == want
+    if offset:                         # a misaligned r alone does the same
+        aligned = torch.zeros(1, dtype=dtype).expand(n, L, L)
+        assert cs._dense_route(aligned, None, v) == want

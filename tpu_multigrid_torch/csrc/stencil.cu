@@ -2,11 +2,17 @@
 //
 // Ports of the Pallas TPU kernels in tpu_multigrid/ops/pallas_stencil.py:
 //   links_out_kernel<T, false>        <- _u_resid_vmem_kernel  (B2, :662)
+//   links_resid_restrict_kernel<T, NC, PAIRED>
+//                                     <- _u_resid_vmem_kernel  (B2, :662;
+//                                        fused with the restriction of its
+//                                        output)
 //   links_out_kernel<T, true>         <- _u_apply_vmem_kernel  (B8, :656)
 //   links_update_kernel<T, STAGED>    <- _u_smooth_vmem_kernel (B1, :669)
 //   dense_update_kernel<T, N, STAGED> <- _rbgs_kernel (B3, :125) and
 //                                        _jacobi_kernel (B4, :86)
-//   dense_apply_kernel<T, N>          <- _apply_d_kernel       (B7a, :64)
+//   dense_apply_kernel<T, N, KG, RESID>
+//                                     <- _apply_d_kernel       (B7a, :64;
+//                                        RESID: r - D v)
 //
 // Layouts are the JAX package's, row-major and contiguous:
 //   U[2][L][L], phi/r/v/out[B][n][L][L], D[B][5][n][n][L][L],
@@ -20,10 +26,12 @@
 // complex128 storage (csrc/cplx.cuh); every kernel is a template on the real
 // type.
 //
-// What bounds them on the H100: bytes. The SpMV and residual kernels
-// (links_out_kernel, dense_apply_kernel) give one thread a site and read the
-// four periodic neighbours straight from global memory; L2 serves the
-// reuse (the level-0 set at L=256 is ~2 MB). Levels whose sweep streams
+// What bounds them on the H100: bytes. The links SpMV and residual kernel
+// (links_out_kernel) gives one thread a site and reads the four periodic
+// neighbours straight from global memory; L2 serves the reuse (the level-0
+// set at L=256 is ~2 MB). The dense SpMV and residual (dense_apply_kernel)
+// and the fused residual-restriction give a thread a pair of sites (16-byte
+// loads); see the notes at each. Levels whose sweep streams
 // more than the L2 holds take the x-tiled kernels of stencil_tiled.cu
 // instead (ops/cuda_stencil.u_mode, smoother_mode).
 //
@@ -502,46 +510,333 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// Dense 5-point block SpMV for one (batch, site) (B7a):
-//   out = sum_{mu = 0..4} D_mu v(x + mu)
-// D and v each shared by the batch (stride 0) or batched; out is batched.
-// One thread per site: D's 5 n^2 words of the site are read once,
-// coalesced along y; the neighbour reads of v come from L2.
-template <typename T, int N>
-__global__ void dense_apply_kernel(const cplx<T>* __restrict__ D,
-                                   const cplx<T>* __restrict__ v,
-                                   cplx<T>* __restrict__ out, int B, int L,
-                                   long long d_bstride,
-                                   long long v_bstride) {
-  const size_t LL = (size_t)L * L;
-  const size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (size_t)B * LL) return;
-  const size_t b = t / LL;
-  int x, y;
-  site_of(t - b * LL, L, x, y);
-  const Nbrs n = neighbours(x, y, L);
+// ---- pairs of y-adjacent sites -------------------------------------------
+//
+// The SpMV and the fused residual-restriction give a thread two y-adjacent
+// sites, so that a row of an operand plane comes in 16-byte loads: one
+// float4 in complex64 (the pair must start at an even word), one double2 a
+// word in complex128.
 
-  const cplx<T>* Db = D + b * (size_t)d_bstride;
-  const cplx<T>* vb = v + b * (size_t)v_bstride;
-  cplx<T>* ob = out + b * (N * LL);
-
-  const size_t nb[5] = {n.s, n.xp, n.xm, n.yp, n.ym};
-  cplx<T> a[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) a[i] = mk<T>(T(0), T(0));
-#pragma unroll
-  for (int d = 0; d < 5; ++d) {
-    cplx<T> w[N];
-#pragma unroll
-    for (int j = 0; j < N; ++j) w[j] = vb[j * LL + nb[d]];
-#pragma unroll
-    for (int i = 0; i < N; ++i)
-#pragma unroll
-      for (int j = 0; j < N; ++j)
-        a[i] = a[i] + Db[((size_t)(d * N + i) * N + j) * LL + n.s] * w[j];
+// Words ya and yb of a row, read-only: one 16-byte load in complex64 when
+// PAIRED (yb == ya + 1, ya even, the row 16-byte aligned), else one load a
+// word.
+template <typename T, bool PAIRED>
+__device__ __forceinline__ void ld_pair(const cplx<T>* __restrict__ row,
+                                        int ya, int yb, cplx<T> out[2]) {
+  if constexpr (PAIRED && sizeof(T) == 4) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(row + ya));
+    out[0] = mk<T>(q.x, q.y);
+    out[1] = mk<T>(q.z, q.w);
+  } else {
+    out[0] = ld_nc(row + ya);
+    out[1] = ld_nc(row + yb);
   }
+}
+
+// Words s and s + 1 of a row, written: one 16-byte store in complex64.
+template <typename T>
+__device__ __forceinline__ void st_pair(cplx<T>* row, const cplx<T> v[2]) {
+  if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<float4*>(row) = make_float4(v[0].re, v[0].im, v[1].re,
+                                                  v[1].im);
+  } else {
+    row[0] = v[0];
+    row[1] = v[1];
+  }
+}
+
+// Periodic index of i in [-L, 2L).
+__device__ __forceinline__ int wrap(int i, int L) {
+  return i < 0 ? i + L : (i >= L ? i - L : i);
+}
+
+// ---- B2 redesigned: the level-0 residual fused with its restriction ------
+//
+// Replaces _u_resid_vmem_kernel (pallas_stencil.py:662) where the cycle
+// restricts its output at once (ops/transfer.restrict):
+//
+//   rc[b][c][X][Y] = sum_{f, a, e} phi_null[c][f][x][y] res[b][f][x][y],
+//   res = r - (2+m) phi - hop(phi),  x = X bx + a + ox,  y = Y by + e + oy
+//
+// (periodic; (ox, oy) = transfer.QUAD_OFFSETS[quad], no conjugate, as
+// restrict). The fine residual never goes to memory.
+//
+// What bounds it: bytes, 15 complex words a fine site at nc = 4 and 2 x 2
+// blocks (U 2, phi 2, r 2, phi_null 2 nc, out nc / (bx by)): 2.35 us at
+// L=256 c64 against 3.35 TB/s. The unfused path (B2, then the einsum and
+// copy of restrict) writes the residual and reads it back.
+//
+// Design: a block of 32 x TXc threads owns a tile of 32 / bx x TXc coarse
+// sites (TXc from the host: the most rows, up to 4, that still give every
+// SM a block; 4 at L=256, 256 blocks of 128 threads). It stages phi over its
+// fine tile and a one-site periodic halo in shared memory by cp.async. A
+// coarse site belongs to bx adjacent lanes, lane a taking its fine row a:
+// it walks the row a pair of y-adjacent sites at a time, reads their links,
+// r and phi_null straight into registers (16 bytes a load where the pair is
+// aligned: the quadrants with oy = 0), the neighbours of phi from the
+// staged tile, computes the two residuals in registers and adds them, times
+// phi_null, into its nc sums; a warp shuffle adds the bx rows' sums. Each
+// coarse site belongs to one warp, so there is no reduction across warps or
+// blocks. The first two pairs' loads (all of a 2 x 2 block's) are issued
+// before the block waits for the staging, so that they are in flight
+// together, and each later pair's two pairs ahead of its arithmetic. The
+// first version gave a thread a whole coarse site (16384 threads at
+// L=256, the second pair's loads after the barrier): 7.34 us cold, 4.49 us
+// warm at the flagship's level 0 (chip_smoke.py, H100 80GB HBM3, 700 W);
+// loading the second pair before the barrier moved it to 7.22 / 4.52.
+// The 16-byte pair loads (PAIRED) against a word a load, in turns on an
+// H100 80GB HBM3 at 700 W (scripts/torch_smoother_ab.py --residuals-only):
+// 17.4 / 22.9 us warm / cold against 20.3 / 27.4 at a batch of 8, 3.6 /
+// 6.0 against 3.5 / 5.9 unbatched. Registers (-Xptxas -v): 168 / 174
+// (paired / unpaired loads) at nc = 4 in complex64, no spills; 255 in
+// complex128 at nc = 4, with 164 bytes spilled (fewer rows: no spills).
+template <typename T, int NC>
+struct RRPair {
+  cplx<T> ux[2], uy[2], uxm[2], uym, r0[2], r1[2], pn[NC][2][2];
+};
+
+template <typename T, int NC, bool PAIRED>
+__device__ __forceinline__ RRPair<T, NC> rr_load(
+    const cplx<T>* __restrict__ U, const cplx<T>* __restrict__ r,
+    const cplx<T>* __restrict__ pn, size_t LL, int L, int x, int ya, int yb) {
+  RRPair<T, NC> o;
+  const size_t row = (size_t)x * L;
+  const size_t rowm = (size_t)wrap(x - 1, L) * L;
+  ld_pair<T, PAIRED>(U + row, ya, yb, o.ux);
+  ld_pair<T, PAIRED>(U + rowm, ya, yb, o.uxm);
+  ld_pair<T, PAIRED>(U + LL + row, ya, yb, o.uy);
+  o.uym = ld_nc(U + LL + row + wrap(ya - 1, L));
+  ld_pair<T, PAIRED>(r + row, ya, yb, o.r0);
+  ld_pair<T, PAIRED>(r + LL + row, ya, yb, o.r1);
 #pragma unroll
-  for (int i = 0; i < N; ++i) ob[i * LL + n.s] = a[i];
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int f = 0; f < 2; ++f)
+      ld_pair<T, PAIRED>(pn + (size_t)(2 * c + f) * LL + row, ya, yb,
+                         o.pn[c][f]);
+  return o;
+}
+
+template <typename T>
+__device__ __forceinline__ cplx<T> shfl_xor(cplx<T> v, int mask) {
+  return mk<T>(__shfl_xor_sync(0xffffffffu, v.re, mask),
+               __shfl_xor_sync(0xffffffffu, v.im, mask));
+}
+
+template <typename T, int NC, bool PAIRED>
+__global__ void __launch_bounds__(128)
+    links_resid_restrict_kernel(const cplx<T>* __restrict__ U,
+                                const cplx<T>* __restrict__ phi,
+                                const cplx<T>* __restrict__ r,
+                                const cplx<T>* __restrict__ pn,
+                                cplx<T>* __restrict__ out, int L, T diag,
+                                long long r_bstride, int bx, int by, int ox,
+                                int oy) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cplx<T>* const sp = reinterpret_cast<cplx<T>*>(smem_raw);
+  const int Lcx = L / bx, Lcy = L / by;
+  const int tyc = 32 / bx;  // coarse columns of a block (a warp)
+  const int X0 = blockIdx.y * blockDim.y, Y0 = blockIdx.x * tyc;
+  const int tcx = min((int)blockDim.y, Lcx - X0), tcy = min(tyc, Lcy - Y0);
+  const int x0 = X0 * bx + ox, y0 = Y0 * by + oy;  // the tile's fine origin
+  const int rows = tcx * bx + 2, cols = tcy * by + 2;
+  const int pitch = tyc * by + 2;
+  const int plane = ((int)blockDim.y * bx + 2) * pitch;
+  const size_t LL = (size_t)L * L;
+  const size_t b = blockIdx.z;
+  const cplx<T>* const pb = phi + b * 2 * LL;
+  r += b * (size_t)r_bstride;
+
+  for (int ii = threadIdx.y; ii < rows; ii += blockDim.y) {
+    const size_t row = (size_t)wrap(x0 - 1 + ii, L) * L;
+    for (int jj = threadIdx.x; jj < cols; jj += 32) {
+      const int y = wrap(y0 - 1 + jj, L);
+      cp_async(sp + ii * pitch + jj, pb + row + y);
+      cp_async(sp + plane + ii * pitch + jj, pb + LL + row + y);
+    }
+  }
+
+  // lane = (coarse column, fine row a of the coarse site), a fastest
+  const int a = threadIdx.x % bx, yl = threadIdx.x / bx;
+  const bool active = yl < tcy && (int)threadIdx.y < tcx;
+  const int steps = by / 2;
+  const int i = threadIdx.y * bx + a;  // the fine row in the tile
+  const int x = wrap(x0 + i, L);
+  // fine sites (x, ya), (x, yb) of pair e, at column j of the tile
+  auto at = [&](int e, int& j, int& ya, int& yb) {
+    j = yl * by + 2 * e;
+    ya = wrap(y0 + j, L);
+    yb = ya + 1 == L ? 0 : ya + 1;
+  };
+  // two pairs' operands in flight: cur (pair e) and nxt (pair e + 1), the
+  // first two issued before the block waits for the staging
+  int j, ya, yb;
+  RRPair<T, NC> cur, nxt;
+  if (active) {
+    at(0, j, ya, yb);
+    cur = rr_load<T, NC, PAIRED>(U, r, pn, LL, L, x, ya, yb);
+    if (steps > 1) {
+      at(1, j, ya, yb);
+      nxt = rr_load<T, NC, PAIRED>(U, r, pn, LL, L, x, ya, yb);
+    }
+  }
+  cp_async_wait();
+  __syncthreads();
+
+  cplx<T> acc[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) acc[c] = mk<T>(T(0), T(0));
+  for (int e = 0; active && e < steps; ++e) {
+    const RRPair<T, NC> o = cur;
+    cur = nxt;
+    if (e + 2 < steps) {
+      at(e + 2, j, ya, yb);
+      nxt = rr_load<T, NC, PAIRED>(U, r, pn, LL, L, x, ya, yb);
+    }
+    at(e, j, ya, yb);
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const cplx<T>* c0 = sp + (i + 1) * pitch + (j + 1 + s);
+      const cplx<T>* c1 = c0 + plane;
+      cplx<T> h0, h1;
+      tmg::wilson_hop_core(o.ux[s], o.uxm[s], o.uy[s], s ? o.uy[0] : o.uym,
+                           c0[pitch], c1[pitch], c0[-pitch], c1[-pitch],
+                           c0[1], c1[1], c0[-1], c1[-1], h0, h1);
+      const cplx<T> e0 = (s ? o.r0[1] : o.r0[0]) - scale(diag, *c0) - h0;
+      const cplx<T> e1 = (s ? o.r1[1] : o.r1[0]) - scale(diag, *c1) - h1;
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        acc[c] = acc[c] + o.pn[c][0][s] * e0 + o.pn[c][1][s] * e1;
+    }
+  }
+  // the bx fine rows of a coarse site are bx adjacent lanes: every lane
+  // takes part in the shuffles, the idle ones with zero sums
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+    for (int w = 1; w < bx; w *= 2) acc[c] = acc[c] + shfl_xor(acc[c], w);
+  if (!active || a != 0) return;
+  const size_t LLc = (size_t)Lcx * Lcy;
+  cplx<T>* ob = out + b * NC * LLc + (size_t)(X0 + threadIdx.y) * Lcy + Y0 +
+                yl;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) ob[c * LLc] = acc[c];
+}
+
+// ---- B7a redesigned: the dense SpMV and residual on shared operands -------
+//
+// Replaces _apply_d_kernel (pallas_stencil.py:64):
+//
+//   APPLY:  out[b] = D[b / G] v[b]        RESID:  out[b] = r[b] - D[b / G] v[b]
+//   (D v)(x) = sum_{mu = 0..4} D_mu(x) v(x + mu)
+//
+// over B batch entries in groups of G that share one D (G = B: D shared by
+// the batch, as the NTL copies' min-res apply on the level's D or a batch of
+// right-hand sides on one hierarchy; G = 1: a D an entry; G = 4, B = 4 E:
+// the min-res apply of an ensemble, each configuration's D for its 4
+// copies). v and r each batched or shared (stride 0).
+//
+// What bounds it: bytes, D's 5 n^2 words a site once a group, v and out (and
+// r) n words a site an entry: the level-1 residual of the flagship (n=4,
+// L=128) moves 92 words a site, 12.1 MB, 3.60 us at 3.35 TB/s; the min-res
+// apply [4, 4, 64, 64] on a shared D 80 + 4 x 8 words a site, 1.10 us. The
+// first design (one thread a (batch entry, site), all n rows) read a shared
+// D once an entry and, at the coarse levels' sizes, filled few SMs.
+//
+// Design: N lanes own a pair of y-adjacent sites (L even) for a chunk of up
+// to KG entries of one group; lane i computes row i of the block product for
+// both sites and every entry of the chunk. It loads D's row i of all five
+// directions at once (5 N 16-byte loads in complex64, in flight together)
+// and keeps it in registers while it runs over the chunk, so a group of G
+// entries reads D ceil(G / KG) times (KG = 4 where that leaves enough
+// threads, else 1: dense_apply_g). The N lanes of a pair read the same
+// words of v (one transaction a warp serves them all), the four neighbour
+// rows from L1 / L2: the centre and the x neighbours as pairs, the y
+// neighbours outside the pair one word each. Blocks of 128 threads, fewer
+// where the grid would not give every SM one (L=64). A first version that
+// loaded D one direction at a time (46 registers at n=4 c64) took 13.35 us
+// cold at the level-1 residual and 13.23 us at the min-res apply (KG = 4,
+// 8192 threads), against 7.61 us for the first design's apply at n=2 L=256
+// (chip_smoke.py, H100 80GB HBM3, 700 W; PERF.md). Registers (-Xptxas -v,
+// n=4): 80-84 at KG = 1 and 168-170 at KG = 4 in complex64, 142-176 in
+// complex128; no spills. KG = 4 against KG = 1 on the same code, in turns
+// on an H100 80GB HBM3 at 700 W (scripts/torch_smoother_ab.py
+// --residuals-only), warm / cold us: the level-1 residual of 8 right-hand
+// sides on one D 12.5 / 19.9 against 16.5 / 20.2; the min-res apply of 32
+// copies on one D 9.8 / 13.5 against 15.9 / 18.4, on 8 D 11.3 / 19.8
+// against 18.0 / 25.6. A version
+// without the chunk loop (one entry a thread) took 72 registers at n=4
+// c64, its D loads no longer all in flight: 3.2-3.8 us warm at the
+// level-2 residual against 2.7.
+template <typename T, int N, int KG, bool RESID>
+__global__ void __launch_bounds__(128)
+    dense_apply_kernel(const cplx<T>* __restrict__ D,
+                       const cplx<T>* __restrict__ v,
+                       const cplx<T>* __restrict__ r,
+                       cplx<T>* __restrict__ out, int B, int L, int G,
+                       long long d_bstride, long long v_bstride,
+                       long long r_bstride) {
+  const size_t LL = (size_t)L * L;
+  const int i = threadIdx.x % N;
+  const size_t pr = (size_t)blockIdx.x * (blockDim.x / N) + threadIdx.x / N;
+  if (pr >= LL / 2) return;
+  const int chunks = (G + KG - 1) / KG;
+  const int q = blockIdx.y / chunks;  // the group
+  const int b0 = q * G + (blockIdx.y - q * chunks) * KG;
+  const int kg = min(KG, (q + 1) * G - b0);
+
+  const size_t s0 = 2 * pr;  // sites s0, s0 + 1 in one row (L even)
+  const int x = (int)(s0 / L), y = (int)(s0 - (size_t)x * L);
+  const size_t xp = (size_t)wrap(x + 1, L) * L + y;
+  const size_t xm = (size_t)wrap(x - 1, L) * L + y;
+  const size_t yp = (size_t)x * L + wrap(y + 2, L);  // right of the pair
+  const size_t ym = (size_t)x * L + wrap(y - 1, L);  // left of the pair
+  const cplx<T>* Dq = D + q * (size_t)d_bstride + (size_t)i * N * LL;
+
+  // D's row i of every direction at the two sites, all loads in flight
+  // at once
+  cplx<T> w[5][N][2];
+#pragma unroll
+  for (int d = 0; d < 5; ++d)
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      ld_pair<T, true>(Dq + (size_t)(d * N * N + j) * LL, (int)s0,
+                       (int)s0 + 1, w[d][j]);
+#pragma unroll
+  for (int k = 0; k < KG; ++k) {
+    if (k >= kg) break;
+    const size_t b = b0 + k;
+    // v at the pair and its neighbours: u[d][j] for direction d, component
+    // j; the y neighbours inside the pair are the pair's own words
+    cplx<T> u[5][N][2];
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const cplx<T>* vj = v + b * (size_t)v_bstride + (size_t)j * LL;
+      ld_pair<T, true>(vj, (int)s0, (int)s0 + 1, u[0][j]);
+      ld_pair<T, true>(vj, (int)xp, (int)xp + 1, u[1][j]);
+      ld_pair<T, true>(vj, (int)xm, (int)xm + 1, u[2][j]);
+      u[3][j][0] = u[0][j][1];
+      u[3][j][1] = ld_nc(vj + yp);
+      u[4][j][0] = ld_nc(vj + ym);
+      u[4][j][1] = u[0][j][0];
+    }
+    cplx<T> rr[2];
+    if constexpr (RESID)
+      ld_pair<T, true>(r + b * (size_t)r_bstride + (size_t)i * LL, (int)s0,
+                       (int)s0 + 1, rr);
+    cplx<T> acc[2] = {mk<T>(T(0), T(0)), mk<T>(T(0), T(0))};
+#pragma unroll
+    for (int d = 0; d < 5; ++d)
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        acc[0] = acc[0] + w[d][j][0] * u[d][j][0];
+        acc[1] = acc[1] + w[d][j][1] * u[d][j][1];
+      }
+    if constexpr (RESID) {
+      acc[0] = rr[0] - acc[0];
+      acc[1] = rr[1] - acc[1];
+    }
+    st_pair<T>(out + (b * N + i) * LL + s0, acc);
+  }
 }
 
 constexpr int kThreads = 256;
@@ -671,26 +966,156 @@ int dense_update(const void* D, const void* Dinv, const void* phi,
                             stream, args);
 }
 
-template <typename T, int N>
-int dense_apply_n(const void* D, const void* v, void* out, int B, int L,
-                  long long d_bs, long long v_bs, void* stream) {
-  const size_t work = (size_t)B * L * L;
-  dense_apply_kernel<T, N><<<blocks_for(work), kThreads, 0,
-                             (cudaStream_t)stream>>>(
-      (const cplx<T>*)D, (const cplx<T>*)v, (cplx<T>*)out, B, L, d_bs, v_bs);
+// The SMs of the current card, read once a process (the grid sizing of
+// the SpMV and the fused residual-restriction runs on every launch), or a
+// CUDA error as a negative number, which those launches return.
+int sm_count() {
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) {
+      cudaGetLastError();
+      return -(int)e;
+    }
+    return n;
+  }();
+  return sms;
+}
+
+inline bool aligned16(const void* p) {
+  return p == nullptr || (reinterpret_cast<size_t>(p) & 15) == 0;
+}
+
+// The dense SpMV or residual of B entries in groups of G sharing one D
+// (B % G == 0), L even, every operand 16-byte aligned; r is read when RESID.
+template <typename T, int N, int KG, bool RESID>
+int dense_apply_n(const void* D, const void* v, const void* r, void* out,
+                  int B, int L, int G, long long d_bs, long long v_bs,
+                  long long r_bs, void* stream) {
+  const int sms = sm_count();
+  if (sms < 0) return -sms;
+  const long long chunks = (long long)(B / G) * ((G + KG - 1) / KG);
+  const size_t pairs = (size_t)L * L / 2;
+  int threads = 128;
+  while (threads > 32 &&
+         (pairs + threads / N - 1) / (threads / N) * chunks < (size_t)sms)
+    threads /= 2;
+  const size_t blocks = (pairs + threads / N - 1) / (threads / N);
+  if (chunks > 65535 || blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  dense_apply_kernel<T, N, KG, RESID>
+      <<<dim3((unsigned)blocks, (unsigned)chunks), threads, 0,
+         (cudaStream_t)stream>>>((const cplx<T>*)D, (const cplx<T>*)v,
+                                 (const cplx<T>*)r, (cplx<T>*)out, B, L, G,
+                                 d_bs, v_bs, r_bs);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dense_apply(const void* D, const void* v, void* out, int B, int n, int L,
-                long long d_bs, long long v_bs, void* stream) {
+// Chunks of 4 entries a thread where that still leaves 2 blocks of 128
+// threads an SM, else one entry a thread: the unbatched min-res apply (4
+// entries of n=4 at L=64) then runs 32768 threads, not 8192, and reads D
+// four times from L2 instead of once, after one read from HBM. In
+// complex128 always one entry a thread (4 spill at n=4).
+template <typename T, int N, bool RESID>
+int dense_apply_g(const void* D, const void* v, const void* r, void* out,
+                  int B, int L, int G, long long d_bs, long long v_bs,
+                  long long r_bs, void* stream) {
+  if constexpr (sizeof(T) == 4) {
+    const int sms = sm_count();
+    if (sms < 0) return -sms;
+    const long long threads4 =
+        (long long)(B / G) * ((G + 3) / 4) * ((long long)L * L / 2) * N;
+    if (G > 1 && threads4 >= 2LL * 128 * sms)
+      return dense_apply_n<T, N, 4, RESID>(D, v, r, out, B, L, G, d_bs, v_bs,
+                                           r_bs, stream);
+  }
+  return dense_apply_n<T, N, 1, RESID>(D, v, r, out, B, L, G, d_bs, v_bs,
+                                       r_bs, stream);
+}
+
+template <typename T, bool RESID>
+int dense_apply(const void* D, const void* v, const void* r, void* out,
+                int B, int n, int L, int G, long long d_bs, long long v_bs,
+                long long r_bs, void* stream) {
+  if (B < 1 || G < 1 || B % G || L < 2 || L % 2 || !aligned16(D) ||
+      !aligned16(v) || !aligned16(r) || !aligned16(out) ||
+      (RESID && r == nullptr))
+    return (int)cudaErrorInvalidValue;
   switch (n) {
     case 1:
-      return dense_apply_n<T, 1>(D, v, out, B, L, d_bs, v_bs, stream);
+      return dense_apply_g<T, 1, RESID>(D, v, r, out, B, L, G, d_bs, v_bs,
+                                        r_bs, stream);
     case 2:
-      return dense_apply_n<T, 2>(D, v, out, B, L, d_bs, v_bs, stream);
+      return dense_apply_g<T, 2, RESID>(D, v, r, out, B, L, G, d_bs, v_bs,
+                                        r_bs, stream);
     case 4:
-      return dense_apply_n<T, 4>(D, v, out, B, L, d_bs, v_bs, stream);
+      return dense_apply_g<T, 4, RESID>(D, v, r, out, B, L, G, d_bs, v_bs,
+                                        r_bs, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The fused level-0 residual and restriction of B entries: nc in {1, 2, 4},
+// bx, by in {2, 4} dividing L, (ox, oy) in {0, -1}^2; the coarse rows a
+// block (TXc, up to 4) the most that still give every SM a block.
+template <typename T, int NC, bool PAIRED>
+int links_rr_n(const void* U, const void* phi, const void* r, const void* pn,
+               void* out, int B, int L, double m, long long r_bs, int bx,
+               int by, int ox, int oy, void* stream) {
+  const int Lcx = L / bx, Lcy = L / by, tyc = 32 / bx;
+  const long long ytiles = (Lcy + tyc - 1) / tyc;
+  const int sms = sm_count();
+  if (sms < 0) return -sms;
+  int txc = 4;
+  while (txc > 1 && ytiles * ((Lcx + txc - 1) / txc) * B < sms) txc /= 2;
+  const size_t smem = sizeof(cplx<T>) * 2 * (size_t)(txc * bx + 2) *
+                      (tyc * by + 2);
+  const auto kernel = links_resid_restrict_kernel<T, NC, PAIRED>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<dim3((unsigned)ytiles, (unsigned)((Lcx + txc - 1) / txc),
+                (unsigned)B),
+           dim3(32, txc), smem, (cudaStream_t)stream>>>(
+      (const cplx<T>*)U, (const cplx<T>*)phi, (const cplx<T>*)r,
+      (const cplx<T>*)pn, (cplx<T>*)out, L, T(2.0 + m), r_bs, bx, by, ox, oy);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int NC>
+int links_rr_p(const void* U, const void* phi, const void* r, const void* pn,
+               void* out, int B, int L, double m, long long r_bs, int bx,
+               int by, int ox, int oy, void* stream) {
+  return oy == 0 ? links_rr_n<T, NC, true>(U, phi, r, pn, out, B, L, m, r_bs,
+                                           bx, by, ox, oy, stream)
+                 : links_rr_n<T, NC, false>(U, phi, r, pn, out, B, L, m,
+                                            r_bs, bx, by, ox, oy, stream);
+}
+
+template <typename T>
+int links_resid_restrict(const void* U, const void* phi, const void* r,
+                         const void* pn, void* out, int B, int nc, int L,
+                         double m, long long r_bs, int bx, int by, int ox,
+                         int oy, void* stream) {
+  if (B < 1 || B > 65535 || (bx != 2 && bx != 4) || (by != 2 && by != 4) ||
+      L < 2 || L % bx || L % by || (ox != 0 && ox != -1) ||
+      (oy != 0 && oy != -1) || !aligned16(U) || !aligned16(phi) ||
+      !aligned16(r) || !aligned16(pn) || !aligned16(out))
+    return (int)cudaErrorInvalidValue;
+  switch (nc) {
+    case 1:
+      return links_rr_p<T, 1>(U, phi, r, pn, out, B, L, m, r_bs, bx, by, ox,
+                              oy, stream);
+    case 2:
+      return links_rr_p<T, 2>(U, phi, r, pn, out, B, L, m, r_bs, bx, by, ox,
+                              oy, stream);
+    case 4:
+      return links_rr_p<T, 4>(U, phi, r, pn, out, B, L, m, r_bs, bx, by, ox,
+                              oy, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -784,15 +1209,55 @@ int tmg_dense_update_occupancy_c128(int n, int staged, long long smem,
   return occupancy(fn, kDenseThreads, smem, blocks);
 }
 
+// The dense SpMV and residual: B entries in groups of G sharing one D (D's
+// copy b / G, at d_bs a copy), v and r batched (v_bs, r_bs = n L^2) or
+// shared (0); out [B][n][L][L]. L even, every pointer 16-byte aligned.
 int tmg_dense_apply_c64(const void* D, const void* v, void* out, int B,
-                        int n, int L, long long d_bs, long long v_bs,
+                        int n, int L, int G, long long d_bs, long long v_bs,
                         void* stream) {
-  return dense_apply<float>(D, v, out, B, n, L, d_bs, v_bs, stream);
+  return dense_apply<float, false>(D, v, nullptr, out, B, n, L, G, d_bs,
+                                   v_bs, 0, stream);
 }
 int tmg_dense_apply_c128(const void* D, const void* v, void* out, int B,
-                         int n, int L, long long d_bs, long long v_bs,
+                         int n, int L, int G, long long d_bs, long long v_bs,
                          void* stream) {
-  return dense_apply<double>(D, v, out, B, n, L, d_bs, v_bs, stream);
+  return dense_apply<double, false>(D, v, nullptr, out, B, n, L, G, d_bs,
+                                    v_bs, 0, stream);
+}
+int tmg_dense_residual_c64(const void* D, const void* v, const void* r,
+                           void* out, int B, int n, int L, int G,
+                           long long d_bs, long long v_bs, long long r_bs,
+                           void* stream) {
+  return dense_apply<float, true>(D, v, r, out, B, n, L, G, d_bs, v_bs, r_bs,
+                                  stream);
+}
+int tmg_dense_residual_c128(const void* D, const void* v, const void* r,
+                            void* out, int B, int n, int L, int G,
+                            long long d_bs, long long v_bs, long long r_bs,
+                            void* stream) {
+  return dense_apply<double, true>(D, v, r, out, B, n, L, G, d_bs, v_bs,
+                                   r_bs, stream);
+}
+
+// The fused level-0 residual and restriction: U [2][L][L] and phi_null
+// [nc][2][L][L] shared by the batch, phi [B][2][L][L], r batched (r_bs =
+// 2 L^2) or shared (0); out [B][nc][L/bx][L/by]; (ox, oy) the quadrant's
+// offsets (ops/transfer.QUAD_OFFSETS). Every pointer 16-byte aligned.
+int tmg_links_residual_restrict_c64(const void* U, const void* phi,
+                                    const void* r, const void* pn, void* out,
+                                    int B, int nc, int L, double m,
+                                    long long r_bs, int bx, int by, int ox,
+                                    int oy, void* stream) {
+  return links_resid_restrict<float>(U, phi, r, pn, out, B, nc, L, m, r_bs,
+                                     bx, by, ox, oy, stream);
+}
+int tmg_links_residual_restrict_c128(const void* U, const void* phi,
+                                     const void* r, const void* pn,
+                                     void* out, int B, int nc, int L,
+                                     double m, long long r_bs, int bx, int by,
+                                     int ox, int oy, void* stream) {
+  return links_resid_restrict<double>(U, phi, r, pn, out, B, nc, L, m, r_bs,
+                                      bx, by, ox, oy, stream);
 }
 
 }  // extern "C"

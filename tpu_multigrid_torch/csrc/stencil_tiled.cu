@@ -11,7 +11,9 @@
 //                                     whole red-black sweep a launch)
 //   dense_tiled_kernel<T, N>       <- _tiled_update_kernel  (B6, :358; one
 //                                     Jacobi sweep a launch)
-//   dense_apply_tiled_kernel<T, N> <- _tiled_apply_kernel   (B7b, :236)
+//   dense_apply_tiled_kernel<T, N, RESID>
+//                                  <- _tiled_apply_kernel   (B7b, :236;
+//                                     RESID: r - D v)
 // Layouts are stencil.cu's: U[2][L][L], phi/r/v/out[B][n][L][L],
 // D[B][5][n][n][L][L], D0inv[B][n][n][L][L], site (x, y) at x*L + y. The
 // dense kernels take n in {1, 2, 4} and a batch axis with a stride per
@@ -690,24 +692,28 @@ __global__ void __launch_bounds__(kRbThreads, 1)
 
 // ---- SpMV ------------------------------------------------------------------
 
-// Dense 5-point block SpMV on one tile of batch entry blockIdx.z (B7b):
-//   out = sum_{mu = 0..4} D_mu v(x + mu).
-// Sites per thread as in links_tiled_kernel; v [N][TX+2][TY+2] staged with
-// its periodic halo (every neighbour is read, not one colour's), D read
-// once per site straight from global memory. D and v each shared by the
-// batch (stride 0) or batched; out is batched and must not alias v.
-template <typename T, int N>
+// Dense 5-point block SpMV on one tile of batch entry b = blockIdx.z (B7b):
+//   APPLY: out[b] = D[b / G] v[b];  RESID: out[b] = r[b] - D[b / G] v[b]
+// (D v)(x) = sum_{mu = 0..4} D_mu v(x + mu), the entries in groups of G that
+// share one D (stencil.cu's dense_apply_kernel). Sites per thread as in
+// links_tiled_kernel; v [N][TX+2][TY+2] staged with its periodic halo (every
+// neighbour is read, not one colour's), D (and r) read once per site
+// straight from global memory. v and r each shared by the batch (stride 0)
+// or batched; out is batched and must not alias v.
+template <typename T, int N, bool RESID>
 __global__ void __launch_bounds__(kThreads)
     dense_apply_tiled_kernel(const cplx<T>* __restrict__ D,
                              const cplx<T>* __restrict__ v,
-                             cplx<T>* __restrict__ out, int L,
-                             long long d_bstride, long long v_bstride, int TX,
-                             int TY) {
+                             const cplx<T>* __restrict__ r,
+                             cplx<T>* __restrict__ out, int L, int G,
+                             long long d_bstride, long long v_bstride,
+                             long long r_bstride, int TX, int TY) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Tile t = tile_of(TX, TY, L);
   const size_t LL = (size_t)L * L;
   const size_t b = blockIdx.z;
-  const cplx<T>* Db = D + b * (size_t)d_bstride;
+  const cplx<T>* Db = D + (b / G) * (size_t)d_bstride;
+  const cplx<T>* rb = r + b * (size_t)r_bstride;
   cplx<T>* ob = out + b * (N * LL);
   const int vp = TY + 2;
   const int vpl = (TX + 2) * vp;
@@ -739,7 +745,8 @@ __global__ void __launch_bounds__(kThreads)
           a[p] = a[p] + Db[((size_t)(d * N + p) * N + q) * LL + s] * w[q];
     }
 #pragma unroll
-    for (int p = 0; p < N; ++p) ob[p * LL + s] = a[p];
+    for (int p = 0; p < N; ++p)
+      ob[p * LL + s] = RESID ? rb[p * LL + s] - a[p] : a[p];
   }
 }
 
@@ -864,33 +871,40 @@ int dense_update(const void* D, const void* Dinv, const void* phi,
   }
 }
 
-template <typename T, int N>
-int dense_apply_tiled_n(const void* D, const void* v, void* out, int B, int L,
-                        long long d_bs, long long v_bs, int TX, int TY,
+template <typename T, int N, bool RESID>
+int dense_apply_tiled_n(const void* D, const void* v, const void* r,
+                        void* out, int B, int L, int G, long long d_bs,
+                        long long v_bs, long long r_bs, int TX, int TY,
                         void* stream) {
   const size_t smem = sizeof(cplx<T>) * N * (size_t)(TX + 2) * (TY + 2);
   dim3 grid;
   const int err = grid_of(L, TX, TY, B, grid);
   if (err) return err;
-  return launch(dense_apply_tiled_kernel<T, N>, grid,
+  return launch(dense_apply_tiled_kernel<T, N, RESID>, grid,
                 dim3(kThreadsY, kThreadsX), smem, stream, (const cplx<T>*)D,
-                (const cplx<T>*)v, (cplx<T>*)out, L, d_bs, v_bs, TX, TY);
+                (const cplx<T>*)v, (const cplx<T>*)r, (cplx<T>*)out, L, G,
+                d_bs, v_bs, r_bs, TX, TY);
 }
 
-template <typename T>
-int dense_apply_tiled(const void* D, const void* v, void* out, int B, int n,
-                      int L, long long d_bs, long long v_bs, int TX, int TY,
+// The dense SpMV (RESID false) or residual of B entries in groups of G
+// sharing one D (B % G == 0).
+template <typename T, bool RESID>
+int dense_apply_tiled(const void* D, const void* v, const void* r, void* out,
+                      int B, int n, int L, int G, long long d_bs,
+                      long long v_bs, long long r_bs, int TX, int TY,
                       void* stream) {
+  if (G < 1 || B % G || (RESID && r == nullptr))
+    return (int)cudaErrorInvalidValue;
   switch (n) {
     case 1:
-      return dense_apply_tiled_n<T, 1>(D, v, out, B, L, d_bs, v_bs, TX, TY,
-                                       stream);
+      return dense_apply_tiled_n<T, 1, RESID>(D, v, r, out, B, L, G, d_bs,
+                                              v_bs, r_bs, TX, TY, stream);
     case 2:
-      return dense_apply_tiled_n<T, 2>(D, v, out, B, L, d_bs, v_bs, TX, TY,
-                                       stream);
+      return dense_apply_tiled_n<T, 2, RESID>(D, v, r, out, B, L, G, d_bs,
+                                              v_bs, r_bs, TX, TY, stream);
     case 4:
-      return dense_apply_tiled_n<T, 4>(D, v, out, B, L, d_bs, v_bs, TX, TY,
-                                       stream);
+      return dense_apply_tiled_n<T, 4, RESID>(D, v, r, out, B, L, G, d_bs,
+                                              v_bs, r_bs, TX, TY, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -967,18 +981,35 @@ int tmg_links_apply_tiled_c128(const void* U, const void* v, void* out,
                                      TY, stream);
 }
 
+// The dense SpMV and residual: B entries in groups of G sharing one D (D's
+// copy b / G, at d_bs a copy), v and r batched or shared (stride 0).
 int tmg_dense_apply_tiled_c64(const void* D, const void* v, void* out, int B,
-                              int n, int L, long long d_bs, long long v_bs,
-                              int TX, int TY, void* stream) {
-  return dense_apply_tiled<float>(D, v, out, B, n, L, d_bs, v_bs, TX, TY,
-                                  stream);
+                              int n, int L, int G, long long d_bs,
+                              long long v_bs, int TX, int TY, void* stream) {
+  return dense_apply_tiled<float, false>(D, v, nullptr, out, B, n, L, G, d_bs,
+                                         v_bs, 0, TX, TY, stream);
 }
 int tmg_dense_apply_tiled_c128(const void* D, const void* v, void* out,
-                               int B, int n, int L, long long d_bs,
-                               long long v_bs, int TX, int TY,
-                               void* stream) {
-  return dense_apply_tiled<double>(D, v, out, B, n, L, d_bs, v_bs, TX, TY,
-                                   stream);
+                               int B, int n, int L, int G, long long d_bs,
+                               long long v_bs, int TX, int TY, void* stream) {
+  return dense_apply_tiled<double, false>(D, v, nullptr, out, B, n, L, G,
+                                          d_bs, v_bs, 0, TX, TY, stream);
+}
+int tmg_dense_residual_tiled_c64(const void* D, const void* v, const void* r,
+                                 void* out, int B, int n, int L, int G,
+                                 long long d_bs, long long v_bs,
+                                 long long r_bs, int TX, int TY,
+                                 void* stream) {
+  return dense_apply_tiled<float, true>(D, v, r, out, B, n, L, G, d_bs, v_bs,
+                                        r_bs, TX, TY, stream);
+}
+int tmg_dense_residual_tiled_c128(const void* D, const void* v,
+                                  const void* r, void* out, int B, int n,
+                                  int L, int G, long long d_bs,
+                                  long long v_bs, long long r_bs, int TX,
+                                  int TY, void* stream) {
+  return dense_apply_tiled<double, true>(D, v, r, out, B, n, L, G, d_bs, v_bs,
+                                         r_bs, TX, TY, stream);
 }
 
 }  // extern "C"

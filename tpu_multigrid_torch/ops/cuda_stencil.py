@@ -9,6 +9,9 @@ Kernels, each with its plain torch version. Global kernels
   `wilson_u_smooth`. Plain version: gauge_stencil.smooth_u.
 - links_residual <- _u_resid_vmem_kernel (pallas_stencil.py:662), via
   `wilson_u_residual`. Plain version: gauge_stencil.residual_u.
+- links_residual_restrict <- the same, fused with the restriction of its
+  output, via `wilson_u_residual_restrict`. Plain version:
+  transfer.restrict of gauge_stencil.residual_u.
 - dense_update   <- _rbgs_kernel (pallas_stencil.py:125) and
   _jacobi_kernel (pallas_stencil.py:86), via `dense_smooth`. Plain
   version: smoothers.smooth_plain.
@@ -16,6 +19,8 @@ Kernels, each with its plain torch version. Global kernels
   `wilson_u_apply`. Plain version: gauge_stencil.apply_wilson_u.
 - dense_apply    <- _apply_d_kernel (pallas_stencil.py:64), via
   `dense_apply`. Plain version: stencil.apply_D.
+- dense_residual <- the same kernel with a residual epilogue, r - D v,
+  via `dense_residual`. Plain version: stencil.residual.
 
 x-tiled kernels (csrc/stencil_tiled.cu), for levels past it; a block
 stages a tile of phi and its halo in shared memory:
@@ -30,11 +35,16 @@ stages a tile of phi and its halo in shared memory:
   via `wilson_u_apply_tiled`. Plain version: gauge_stencil.apply_wilson_u.
 - dense_apply_tiled    <- _tiled_apply_kernel (pallas_stencil.py:236), via
   `dense_apply_tiled`. Plain version: stencil.apply_D.
+- dense_residual_tiled <- the same kernel with the residual epilogue, via
+  `dense_residual_tiled`. Plain version: stencil.residual.
 
 `u_mode` / `smoother_mode` / `apply_mode` choose between the two from the
 bytes a level streams per sweep or apply against the H100's L2;
-`apply_D` and `wilson_u_apply_auto` (counterpart of
-pallas_stencil.apply_D_pallas_auto) dispatch the SpMV by `apply_mode`.
+`apply_D`, `residual` and `wilson_u_apply_auto` (counterpart of
+pallas_stencil.apply_D_pallas_auto) dispatch the SpMV and the dense
+residual by `apply_mode`; the dense ones also send an odd lattice or an
+operand off a 16-byte line, which the global kernel does not take, to the
+x-tiled kernel.
 
 What bounds them on the H100 is bytes, not flops: 8 complex words a site
 per links smooth and 5n^2 + 3n per dense smooth (92 at n=4), each word
@@ -49,11 +59,15 @@ smoothers make one launch per sweep: a Jacobi sweep, or a whole red-black
 sweep (red, then black) in one pass over the operands, each block updating
 the red sites of its tile and of a one-site ring around it before its
 black sites. They write out of place, into buffers the wrapper allocates
-(`_sweeps`). In the SpMV and residual kernels one thread per site
-reads its neighbours from global memory and L2 serves the reuse; in the
-tiled ones a thread owns two sites of a tile whose phi sits in shared
-memory. An SpMV moves 5n^2 + 2n words a site (dense) or 6 (links), once
-each.
+(`_sweeps`). In the links SpMV and residual kernel one thread per site
+reads its neighbours from global memory and L2 serves the reuse; the dense
+SpMV and residual give n lanes a pair of sites for a group of batch
+entries that share one D, which they read once for the group
+(`dense_groups`); the fused level-0 residual-restriction stages phi's
+tile and gives bx lanes a coarse site, a fine row each, their sums added
+by a warp shuffle. In the tiled ones a thread owns two
+sites of a tile whose phi sits in shared memory. An SpMV moves 5n^2 + 2n
+words a site (dense) or 6 (links), once each.
 
 A CUDA tensor always goes to its kernel, or the wrapper raises; the plain
 version runs only for CPU tensors (or when the caller passes
@@ -80,7 +94,7 @@ from typing import Callable
 
 import torch
 
-from . import gauge_stencil, smoothers, stencil
+from . import gauge_stencil, smoothers, stencil, transfer
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -89,10 +103,12 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 # Launch counts per kernel: each wrapper adds one where it launches.
-launches = {"links_update": 0, "links_residual": 0, "dense_update": 0,
+launches = {"links_update": 0, "links_residual": 0,
+            "links_residual_restrict": 0, "dense_update": 0,
             "links_update_tiled": 0, "links_residual_tiled": 0,
             "dense_update_tiled": 0, "links_apply": 0, "dense_apply": 0,
-            "links_apply_tiled": 0, "dense_apply_tiled": 0}
+            "dense_residual": 0, "links_apply_tiled": 0,
+            "dense_apply_tiled": 0, "dense_residual_tiled": 0}
 # Launches of the persistent smoothers by where their read-only operands
 # sat: staged in shared memory or streamed from global memory (plan_band).
 band_launches = {k: {"staged": 0, "streamed": 0}
@@ -172,6 +188,8 @@ _P, _I, _D, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_double,
 _PI = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "links_residual": (_P, _P, _P, _P, _I, _I, _D, _LL, _P),
+    "links_residual_restrict": (_P, _P, _P, _P, _P, _I, _I, _I, _D, _LL, _I,
+                                _I, _I, _I, _P),
     "links_update": (_P, _P, _P, _P, _P, _I, _I, _D, _D, _I, _I, _LL, _I, _I,
                      _LL, _P),
     "links_update_occupancy": (_I, _LL, _PI),
@@ -184,9 +202,12 @@ _SIGNATURES = {
     "dense_update_tiled": (_P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _LL,
                            _I, _D, _I, _I, _P),
     "links_apply": (_P, _P, _P, _I, _I, _D, _P),
-    "dense_apply": (_P, _P, _P, _I, _I, _I, _LL, _LL, _P),
+    "dense_apply": (_P, _P, _P, _I, _I, _I, _I, _LL, _LL, _P),
+    "dense_residual": (_P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _P),
     "links_apply_tiled": (_P, _P, _P, _I, _I, _D, _I, _I, _P),
-    "dense_apply_tiled": (_P, _P, _P, _I, _I, _I, _LL, _LL, _I, _I, _P),
+    "dense_apply_tiled": (_P, _P, _P, _I, _I, _I, _I, _LL, _LL, _I, _I, _P),
+    "dense_residual_tiled": (_P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL,
+                             _I, _I, _P),
 }
 
 
@@ -516,6 +537,49 @@ def wilson_u_residual(U, m: float, phi, r):
     return out
 
 
+def links_restrict_fits(nc: int, bx: int, by: int) -> bool:
+    """Whether wilson_u_residual_restrict takes nc near-null rows and bx x by
+    blocks."""
+    return nc in (1, 2, 4) and bx in (2, 4) and by in (2, 4)
+
+
+def wilson_u_residual_restrict(U, m: float, phi, r, phi_null, quad: int,
+                               bx: int, by: int):
+    """transfer.restrict(phi_null, r - D_U phi, quad, bx, by) in one launch:
+    the level-0 residual of wilson_u_residual, restricted in registers, the
+    fine residual never written. phi and r [B?, 2, L, L] (r shared or
+    batched), U [2, L, L] and phi_null [nc, 2, L, L] shared by the batch;
+    out [B?, nc, L / bx, L / by]. nc in {1, 2, 4}, bx and by in {2, 4}
+    (links_restrict_fits); anything else raises.
+
+    Replaces tpu_multigrid/ops/pallas_stencil.py _u_resid_vmem_kernel (via
+    wilson_u_residual_pallas) together with the restriction of its output.
+    Bound by bytes: U 2, phi 2, r 2, phi_null 2 nc and out nc / (bx by)
+    complex words a fine site (15 at nc=4, 2 x 2). Plain version: the
+    composition of transfer.restrict and gauge_stencil.residual_u."""
+    if not phi.is_cuda:
+        return transfer.restrict(
+            phi_null, gauge_stencil.residual_u("wilson", U, m, phi, r), quad,
+            bx, by)
+    B, L, r_bs = _links_operands(U, phi, r)
+    nc = phi_null.shape[0] if phi_null.dim() == 4 else 0
+    if not links_restrict_fits(nc, bx, by) or L % bx or L % by:
+        raise ValueError(f"wilson_u_residual_restrict takes nc in (1, 2, 4) "
+                         f"and blocks of 2 or 4 dividing L; got phi_null "
+                         f"{tuple(phi_null.shape)}, {bx} x {by}, L={L}")
+    _check("phi_null", phi_null, phi, (nc, 2, L, L))
+    _check_aligned("wilson_u_residual_restrict", U=U, phi=phi, r=r,
+                   phi_null=phi_null)
+    ox, oy = transfer.QUAD_OFFSETS[quad]
+    lead = (B,) if phi.dim() == 4 else ()
+    out = torch.empty(lead + (nc, L // bx, L // by), dtype=phi.dtype,
+                      device=phi.device)
+    _launch("links_residual_restrict", phi.dtype, phi.device, U.data_ptr(),
+            phi.data_ptr(), r.data_ptr(), phi_null.data_ptr(), out.data_ptr(),
+            B, nc, L, float(m), r_bs, bx, by, ox, oy)
+    return out
+
+
 def wilson_u_residual_tiled(U, m: float, phi, r, tile=None):
     """r - D_U phi on (TX, TY) tiles (default: default_tile(L)), with
     wilson_u_residual's batch axis (the batch entry a grid axis).
@@ -642,6 +706,14 @@ def wilson_u_apply_auto(U, m: float, v):
 # dense 5-point block stencil (B3, B4; x-tiled B6; SpMV B7a, x-tiled B7b)
 # --------------------------------------------------------------------------
 
+def _check_aligned(name: str, **operands) -> None:
+    """The kernels that read a pair of sites in one 16-byte load need every
+    operand 16-byte aligned (a fresh tensor is; a view may not be)."""
+    for what, t in operands.items():
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name}: {what} is not 16-byte aligned")
+
+
 def _batch_stride(t: torch.Tensor, unbatched_ndim: int, B: int) -> int:
     """Element stride between batch entries: 0 for a tensor shared by the
     batch, else the size of one entry."""
@@ -731,28 +803,87 @@ def _dense_sweep(D, D0inv, r, dims, omega: float, TX: int, TY: int, src,
             *dims, rb, float(omega), TX, TY)
 
 
-def _dense_apply(name, D, v, *tile):
-    """out = D v with an optional batch axis on D and on v (each shared by
-    the batch or batched); out is allocated here and never aliases v."""
+@dataclasses.dataclass(frozen=True)
+class Groups:
+    """The batch of a dense SpMV or residual call: B entries in groups of G
+    that share one copy of D (entry b reads copy b // G), `lead` the batch
+    axis of the result ((B,) or ()), and the element strides between
+    copies of D, entries of v and of r (0: shared)."""
+    B: int
+    G: int
+    lead: tuple
+    d_bs: int
+    v_bs: int
+    r_bs: int
+
+
+def dense_groups(name: str, D, v, r=None) -> Groups:
+    """Shapes of a dense SpMV or residual call: D [E?, 5, n, n, L, L], v [B?,
+    n, L, L], r (residual) shaped like the result or shared [n, L, L]. A D
+    without a batch axis is shared by every entry (G = B); with E copies and
+    B entries of v, E divides B and the entries go in E groups of G = B / E
+    (G = 1: a copy an entry; the NTL copies of an ensemble: G = 4); v without
+    a batch axis is shared by the E entries. Raises ValueError for shapes
+    that do not fit together."""
+    n, L = v.shape[-3], v.shape[-1]
+    if D.dim() not in (5, 6) or v.dim() not in (3, 4) or (
+            tuple(D.shape[-5:]) != (5, n, n, L, L)):
+        raise ValueError(f"{name}: D {tuple(D.shape)} and v {tuple(v.shape)} "
+                         "are not [E?, 5, n, n, L, L] and [B?, n, L, L]")
+    E = D.shape[0] if D.dim() == 6 else None
+    Bv = v.shape[0] if v.dim() == 4 else None
+    if E and Bv and Bv % E:
+        raise ValueError(f"{name}: {Bv} entries of v do not split into "
+                         f"groups over {E} copies of D")
+    B = Bv or E or 1
+    G = B // E if E else B
+    lead = (B,) if (E or Bv) else ()
+    r_bs = 0
+    if r is not None:
+        if tuple(r.shape) not in (lead + (n, L, L), (n, L, L)):
+            raise ValueError(f"{name}: r {tuple(r.shape)} is not "
+                             f"{lead + (n, L, L)} or {(n, L, L)}")
+        r_bs = n * L * L if r.dim() == 4 else 0
+    return Groups(B, G, lead, D[0].numel() if E else 0,
+                  n * L * L if Bv else 0, r_bs)
+
+
+def grouped_apply(D, v):
+    """The plain SpMV (stencil.apply_D) of a call that dense_groups takes:
+    E copies of D against B = E G entries of v as [E, 1, ...] against [E, G,
+    ...], the result [B, n, L, L]."""
+    g = dense_groups("apply_D", D, v)
+    if D.dim() == 6 and v.dim() == 4 and g.G > 1:
+        out = stencil.apply_D(D.unsqueeze(1),
+                              v.reshape(D.shape[0], g.G, *v.shape[1:]))
+        return out.reshape(v.shape)
+    return stencil.apply_D(D, v)
+
+
+def _dense_call(name, D, v, r, *tile):
+    """out = D v (r None) or r - D v by the kernel `name`, the batch in
+    groups (dense_groups); out is allocated here and never aliases v."""
     if not v.is_cuda:
-        return stencil.apply_D(D, v)
+        dense_groups(name, D, v, r)
+        out = grouped_apply(D, v)
+        return out if r is None else r - out
     n, L = v.shape[-3], v.shape[-1]
     if n not in (1, 2, 4):
         raise ValueError(f"{name} takes n in (1, 2, 4), got {n}")
-    bd = D.shape[:-5] if D.dim() == 6 else ()
-    bv = v.shape[:-3] if v.dim() == 4 else ()
-    if D.dim() not in (5, 6) or v.dim() not in (3, 4) or (
-            bd and bv and bd != bv):
-        raise ValueError(f"{name}: D {tuple(D.shape)} and v {tuple(v.shape)} "
-                         "are not [B?, 5, n, n, L, L] and [B?, n, L, L]")
-    lead = bd or bv
-    B = lead[0] if lead else 1
-    d_bs, v_bs = _batch_stride(D, 5, B), _batch_stride(v, 3, B)
-    _check("v", v, v, bv + (n, L, L))
-    _check("D", D, v, bd + (5, n, n, L, L))
-    out = torch.empty(lead + (n, L, L), dtype=v.dtype, device=v.device)
-    _launch(name, v.dtype, v.device, D.data_ptr(), v.data_ptr(),
-            out.data_ptr(), B, n, L, d_bs, v_bs, *tile)
+    g = dense_groups(name, D, v, r)
+    _check("v", v, v, tuple(v.shape))
+    _check("D", D, v, tuple(D.shape))
+    if r is not None:
+        _check("r", r, v, tuple(r.shape))
+    if not tile:                # the global kernel: pairs of sites
+        if L % 2:
+            raise ValueError(f"{name} takes an even lattice, got L={L}")
+        _check_aligned(name, D=D, v=v, r=r)
+    out = torch.empty(g.lead + (n, L, L), dtype=v.dtype, device=v.device)
+    ptrs = (D.data_ptr(), v.data_ptr()) + (
+        () if r is None else (r.data_ptr(),)) + (out.data_ptr(),)
+    strides = (g.d_bs, g.v_bs) + (() if r is None else (g.r_bs,))
+    _launch(name, v.dtype, v.device, *ptrs, g.B, n, L, g.G, *strides, *tile)
     return out
 
 
@@ -760,29 +891,66 @@ def dense_apply(D, v):
     """Dense 5-point block SpMV out = D v, (D v)(x) = sum_mu D_mu(x) v(x+mu).
 
     Replaces tpu_multigrid/ops/pallas_stencil.py _apply_d_kernel (via
-    apply_D_pallas). D [B?, 5, n, n, L, L] and v [B?, n, L, L], each
-    shared by the batch or batched, n in {1, 2, 4}. Bound by bytes: D's
-    5 n^2 blocks, v in and out (5n^2 + 2n complex words per site).
-    Plain version: stencil.apply_D."""
-    return _dense_apply("dense_apply", D, v)
+    apply_D_pallas). D [E?, 5, n, n, L, L] and v [B?, n, L, L], n in {1, 2,
+    4}, L even: a D shared by the batch, or E copies each shared by a group
+    of B / E entries (dense_groups), v batched or shared. Bound by bytes:
+    D's 5 n^2 words once a group, v in and out (5n^2 + 2n complex words a
+    site unbatched). Plain version: stencil.apply_D (grouped_apply)."""
+    return _dense_call("dense_apply", D, v, None)
+
+
+def dense_residual(D, phi, r):
+    """r - D phi by dense_apply's kernel with its residual epilogue (the same
+    groups; r shaped like the result or shared). Bound by bytes: 5n^2 + 3n
+    complex words a site unbatched (92 at n=4). Plain version:
+    stencil.residual."""
+    return _dense_call("dense_residual", D, phi, r)
 
 
 def dense_apply_tiled(D, v, tile=None):
     """dense_apply on (TX, TY) tiles (default: default_tile(L)), with the
-    same batch axes.
+    same groups.
 
     Replaces tpu_multigrid/ops/pallas_stencil.py _tiled_apply_kernel (via
     apply_D_pallas_tiled): v's tile and its periodic halo are staged in
     shared memory, so each word of v crosses HBM once per pass."""
-    return _dense_apply("dense_apply_tiled", D, v,
-                        *_tile(tile, v.shape[-1]))
+    return _dense_call("dense_apply_tiled", D, v, None,
+                       *_tile(tile, v.shape[-1]))
+
+
+def dense_residual_tiled(D, phi, r, tile=None):
+    """dense_residual on (TX, TY) tiles: dense_apply_tiled's kernel with the
+    residual epilogue."""
+    return _dense_call("dense_residual_tiled", D, phi, r,
+                       *_tile(tile, phi.shape[-1]))
+
+
+def _dense_route(v, *operands) -> str:
+    """'tiled' where apply_mode says so, or where the global kernel, which
+    reads pairs of sites in 16-byte loads, cannot take the call: an odd
+    lattice (a coarsest level of L / block^nlevels may be odd) or an
+    operand off a 16-byte line; else 'global'."""
+    L = v.shape[-1]
+    if apply_mode(v.shape[-3], L, v.dtype) == "tiled" or L % 2 or any(
+            t is not None and t.data_ptr() % 16 for t in (v,) + operands):
+        return "tiled"
+    return "global"
 
 
 def apply_D(D, v):
-    """D v by dense_apply or dense_apply_tiled, as apply_mode says
-    (counterpart of pallas_stencil.apply_D_pallas_auto): the plain
-    stencil.apply_D for a CPU tensor; on a CUDA tensor the kernel runs or
-    the wrapper raises."""
-    if apply_mode(v.shape[-3], v.shape[-1], v.dtype) == "tiled":
+    """D v by dense_apply or dense_apply_tiled, as _dense_route says
+    (counterpart of pallas_stencil.apply_D_pallas_auto, which takes any
+    L): the plain stencil.apply_D for a CPU tensor; on a CUDA tensor the
+    kernel runs or the wrapper raises."""
+    if _dense_route(v, D) == "tiled":
         return dense_apply_tiled(D, v)
     return dense_apply(D, v)
+
+
+def residual(D, phi, r):
+    """r - D phi by dense_residual or dense_residual_tiled, as _dense_route
+    says: the plain stencil.residual for a CPU tensor; on a CUDA tensor the
+    kernel runs or the wrapper raises."""
+    if _dense_route(phi, D, r) == "tiled":
+        return dense_residual_tiled(D, phi, r)
+    return dense_residual(D, phi, r)

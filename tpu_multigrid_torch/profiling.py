@@ -53,22 +53,32 @@ _CMAC_FLOPS = 8
 
 
 def kernel_work(kernel: str, n: int, L: int, itemsize: int, batch: int = 1,
-                op_batch: int = 1, n_sweeps: int = 1):
+                op_batch: int = 1, n_sweeps: int = 1, nc: int = 4,
+                block: int = 4):
     """(bytes, flops) the least that one call of a hand kernel must do:
     each input word read once and each output word written once, whatever
     the kernel reads again. `kernel` is a cuda_stencil.launches key (the
     x-tiled kernels do the same work as the global ones); `batch` fields,
-    `op_batch` copies of the operator (1: shared by the batch; for the
-    links kernels, of r, the links U being always shared); a smoother call
-    runs `n_sweeps` sweeps. Words a site:
+    `op_batch` copies of the operator (1: shared by the batch; B / G for a
+    dense SpMV or residual in groups of G; for the links kernels, copies of
+    r, the links U being always shared); a smoother call runs `n_sweeps`
+    sweeps; the fused residual-restriction has `nc` near-null rows and
+    blocks of `block` fine sites. Words a site:
     - links smoother / residual: U 2, r 2 a copy, phi 2 and out 2 a field
       (8 unbatched);
+    - links residual-restriction: U 2, phi_null 2 nc, r 2 a copy, phi 2 and
+      out nc / block a field (15 at nc=4, 2 x 2 blocks);
     - links apply: U 2, v 2 and out 2 a field (6 unbatched);
     - dense smoother: per operator copy D's 4n^2 hop blocks, D0inv's n^2
       and r's n; per field phi in and out (2n): 92 at n=4;
-    - dense apply: 5n^2 per operator copy, v in and out per field."""
+    - dense apply: 5n^2 per operator copy, v in and out per field;
+    - dense residual: the apply's, and r per field (92 at n=4)."""
     LL = L * L
     base = kernel.removesuffix("_tiled")
+    if base == "links_residual_restrict":
+        words = 2 + 2 * nc + 2 * op_batch + (2 + nc / block) * batch
+        flops = _HOP_FLOPS + 12 + 2 * nc * _CMAC_FLOPS
+        return round(words * LL * itemsize), flops * batch * LL
     if base in ("links_update", "links_residual", "links_apply"):
         words = 2 + 4 * batch + (0 if base == "links_apply" else 2 * op_batch)
         flops = {"links_update": (_HOP_FLOPS + 8) * n_sweeps,
@@ -79,9 +89,11 @@ def kernel_work(kernel: str, n: int, L: int, itemsize: int, batch: int = 1,
         words = (5 * n * n + n) * op_batch + 2 * n * batch
         flops = (_CMAC_FLOPS * 5 * n * n + 2 * n) * n_sweeps * batch
         return words * LL * itemsize, flops * LL
-    if base == "dense_apply":
-        words = 5 * n * n * op_batch + 2 * n * batch
-        return words * LL * itemsize, _CMAC_FLOPS * 5 * n * n * batch * LL
+    if base in ("dense_apply", "dense_residual"):
+        resid = base == "dense_residual"
+        words = 5 * n * n * op_batch + (3 if resid else 2) * n * batch
+        flops = (_CMAC_FLOPS * 5 * n * n + (2 * n if resid else 0)) * batch
+        return words * LL * itemsize, flops * LL
     raise ValueError(f"no work model for kernel {kernel!r}")
 
 

@@ -72,14 +72,35 @@ def _relax(lev, phi, r, cfg: MGConfig, lvl: int = 0, gauge=None):
 
 
 def _residual0(lev, phi, r, cfg: MGConfig, lvl: int = 0, gauge=None):
-    """Level residual with the links-only path at level 0."""
+    """Level residual with the links-only path at level 0; the dense
+    residual kernel (cuda_stencil.residual) elsewhere unless
+    cfg.pallas == 'off'."""
     if links_active(cfg, gauge, lvl):
         if cfg.pallas == "off":
             return gauge_stencil.residual_u(cfg.stencil, gauge, cfg.m, phi, r)
         fn = (cuda_stencil.wilson_u_residual_tiled if _tiled0(phi)
               else cuda_stencil.wilson_u_residual)
         return fn(gauge, cfg.m, phi, r)
-    return residual(lev.D, phi, r)
+    if cfg.pallas == "off":
+        return residual(lev.D, phi, r)
+    return cuda_stencil.residual(lev.D, phi, r)
+
+
+def _restricted_residual(lev, phi, r, cfg: MGConfig, lvl: int = 0,
+                         gauge=None):
+    """restrict(lev.phi_null, the level residual, cfg.quad): at a links-active
+    level 0 on the global kernels, one launch of the fused
+    residual-restriction (cuda_stencil.wilson_u_residual_restrict) where it
+    takes the shapes; else the residual (_residual0), then restrict."""
+    bx, by = cfg.block_x, cfg.block_y
+    pn = lev.phi_null
+    if (links_active(cfg, gauge, lvl) and cfg.pallas != "off"
+            and not _tiled0(phi) and pn.dim() == 4
+            and cuda_stencil.links_restrict_fits(pn.shape[0], bx, by)):
+        return cuda_stencil.wilson_u_residual_restrict(
+            gauge, cfg.m, phi, r, pn, cfg.quad, bx, by)
+    return restrict(pn, _residual0(lev, phi, r, cfg, lvl, gauge), cfg.quad,
+                    bx, by)
 
 
 def _norm(x):
@@ -114,8 +135,7 @@ def v_cycle(hier: Hierarchy, phis, b: torch.Tensor, cfg: MGConfig):
     bx, by = cfg.block_x, cfg.block_y
     for l in range(n):
         phis[l] = _relax(L[l], phis[l], rs[l], cfg, l, g)
-        res = _residual0(L[l], phis[l], rs[l], cfg, l, g)
-        rs[l + 1] = restrict(L[l].phi_null, res, cfg.quad, bx, by)
+        rs[l + 1] = _restricted_residual(L[l], phis[l], rs[l], cfg, l, g)
         phis[l + 1] = torch.zeros_like(phis[l + 1])
 
     for l in range(n, -1, -1):
@@ -142,8 +162,7 @@ def gamma_cycle(hier: Hierarchy, phis, b: torch.Tensor, cfg: MGConfig):
         phis[l] = _relax(L[l], phis[l], rhs, cfg, l, g)
         if l == n:
             return
-        res = _residual0(L[l], phis[l], rhs, cfg, l, g)
-        rc = restrict(L[l].phi_null, res, cfg.quad, bx, by)
+        rc = _restricted_residual(L[l], phis[l], rhs, cfg, l, g)
         phis[l + 1] = torch.zeros_like(phis[l + 1])
         for _ in range(gamma if l + 1 < n else 1):
             at(l + 1, rc)
@@ -167,9 +186,16 @@ def min_res_weights(D_f, r_f, xs: torch.Tensor, cfg: MGConfig):
     the source is <x_p, r> (laplace) or <r, D x_p> (wilson) — the
     reference's deliberate asymmetry (modules_main.h:336-340 vs :358-366),
     selectable via cfg.minres_src. Solves the n_copies x n_copies system,
-    one per batch entry in one call.
+    one per batch entry in one call. D x runs on the SpMV kernel
+    (cuda_stencil.apply_D; its plain version with cfg.pallas == 'off') on
+    the copies flattened to one batch axis, each copy of D_f shared by the
+    n_copies entries of its field.
     """
-    Dx = apply_D(D_f.unsqueeze(-6), xs)
+    if cfg.pallas == "off":
+        Dx = apply_D(D_f.unsqueeze(-6), xs)
+    else:
+        Dx = cuda_stencil.apply_D(
+            D_f, xs.reshape(-1, *xs.shape[-3:])).reshape(xs.shape)
     if xs.dim() == 4:
         A = torch.einsum("pnxy,qnxy->pq", torch.conj(xs), Dx)
     else:
@@ -221,8 +247,7 @@ def ntl_cycle(hier: Hierarchy, phis, b: torch.Tensor, cfg: MGConfig):
 
     for l in range(n - 1):
         phis[l] = _relax(L[l], phis[l], rs[l], cfg, l, g)
-        res = _residual0(L[l], phis[l], rs[l], cfg, l, g)
-        rs[l + 1] = restrict(L[l].phi_null, res, cfg.quad, bx, by)
+        rs[l + 1] = _restricted_residual(L[l], phis[l], rs[l], cfg, l, g)
         phis[l + 1] = torch.zeros_like(phis[l + 1])
 
     l = n - 1
