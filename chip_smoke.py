@@ -12,11 +12,21 @@ shape), then drives two solves through the package's entry points
 
 - the flagship: Wilson, L=256, m=-0.005, 3 levels, NTL with 4 quadrant
   copies and min-res weights, red-black GS x4, 100 near-null sweeps,
-  complex64, to 1e-6, on the global kernels, then by solve_ir to 1e-8 and
-  1e-13;
+  complex64, to 1e-6, on the global kernels (each host check one
+  links_residual_norm launch), then by solve_ir to 1e-8 and 1e-13 (its
+  outer residual on the dense residual kernel, beside the plain outer
+  residual); the check by both compositions in turns (B2 and two norms,
+  and the one launch): device ops and host time a check, ms a checked
+  cycle;
 - the large flagship: the same at L=2048 with 6 levels (coarsest 32), on
-  the x-tiled kernels at levels 0-3, to 1e-6, then by solve_ir (complex64
-  cycles, exact complex128 defect) to 1e-8 and 1e-13.
+  the x-tiled kernels at levels 0-3 (each host check still one
+  links_residual_norm launch), to 1e-6, then by solve_ir (complex64
+  cycles, exact complex128 defect) to 1e-8 and 1e-13; the check by both
+  compositions in turns (B5b and two norms, and the one launch).
+
+Then block8: the flagship with 8 x 8 blocks, which the fused
+residual-restriction does not take (level 0's residual on the unfused
+B2), 3 cycles.
 
 Then the SpMV path:
 
@@ -69,9 +79,13 @@ the plain path on the same hierarchy takes the same number of cycles
 small complex128 problem.
 
 Beside each kernel's main shape (and, for the links kernels, the batched
-main shape) it computes the kernel's bound (the least bytes and flops of
+main shape; for B8, B2 and the check also B8 at L=1024, B2 at L=512 and
+both dtypes) it computes the kernel's bound (the least bytes and flops of
 the call over the card's peak rates), its device time a call
-(torch.profiler), and times one PyTorch call that computes the same function where there is one: for the
+(torch.profiler; for B8, B2 and the check also beside the floor: a
+one-element zero_(), and a cold copy of the row's least bytes), and
+times one PyTorch call that computes the same function where there is
+one: for the
 SpMV and residual kernels torch.sparse.mm / torch.sparse.addmm on the
 operator assembled once as a CSR matrix (int32 indices); the smoothers
 and the fused residual-restriction have none. The port never calls these.
@@ -95,6 +109,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -104,6 +119,7 @@ REPLACES = {
     "links_update": "tpu_multigrid/ops/pallas_stencil.py:669",
     "links_residual": "tpu_multigrid/ops/pallas_stencil.py:662",
     "links_residual_restrict": "tpu_multigrid/ops/pallas_stencil.py:662",
+    "links_residual_norm": "tpu_multigrid/ops/pallas_stencil.py:662",
     "dense_update": "tpu_multigrid/ops/pallas_stencil.py:125",
     "links_update_tiled": "tpu_multigrid/ops/pallas_stencil.py:711",
     "links_residual_tiled": "tpu_multigrid/ops/pallas_stencil.py:703",
@@ -119,22 +135,26 @@ SOURCES = {k: "tpu_multigrid_torch/csrc/" + ("stencil_tiled.cu" if
                                              k.endswith("_tiled") else
                                              "stencil.cu")
            for k in REPLACES}
-FLAGSHIP_KERNELS = ("links_update", "links_residual", "dense_update",
+FLAGSHIP_KERNELS = ("links_update", "links_residual_norm", "dense_update",
                     "links_residual_restrict", "dense_residual", "dense_apply")
+# the unfused B2: level 0's residual where the fused residual-restriction
+# does not take the blocks (8 x 8)
+BLOCK8_KERNELS = ("links_residual",)
 LARGE_KERNELS = ("links_update_tiled", "links_residual_tiled",
-                 "dense_update_tiled", "dense_update", "dense_residual_tiled",
+                 "links_residual_norm", "dense_update_tiled", "dense_update", "dense_residual_tiled",
                  "dense_residual", "dense_apply")
 SPMV_KERNELS = ("dense_apply_tiled", "links_apply", "links_apply_tiled")
 KRYLOV_KERNELS = ("dense_apply",)
-CLI_KERNELS = ("links_update", "links_residual", "dense_update",
+CLI_KERNELS = ("links_update", "links_residual_norm", "dense_update",
                "dense_apply")
 # the kernels that take a batch of right-hand sides on shared links (and
 # near-null rows) or a shared D
-BATCHED_KERNELS = ("links_update", "links_residual", "links_update_tiled",
-                   "links_residual_tiled", "links_residual_restrict",
-                   "dense_residual", "dense_residual_tiled")
+BATCHED_KERNELS = ("links_update", "links_residual_norm",
+                   "links_update_tiled", "links_residual_tiled",
+                   "links_residual_restrict", "dense_residual",
+                   "dense_residual_tiled")
 ENSEMBLE_KERNELS = ("dense_update", "dense_residual", "dense_apply")
-CHEBYSHEV_KERNELS = ("dense_apply", "links_residual")
+CHEBYSHEV_KERNELS = ("dense_apply", "links_residual_norm")
 # the gen-2 program's cycles at L=32, m=0.5, 3 levels, 4 lexicographic
 # sweeps, t_flag 0 and 1 (the count tests/test_torch_cli.py holds the
 # port's CLI to on the CPU, which is the JAX CLI's)
@@ -148,6 +168,11 @@ NO_LIBRARY = ("none: no single PyTorch call computes a red-black or Jacobi "
               "sweep")
 NO_LIBRARY_RESTRICT = ("none: no single PyTorch call computes the residual "
                        "and its restriction")
+NO_LIBRARY_NORM = ("none: no single PyTorch call computes the residual's "
+                   "norm over the right-hand side's")
+# The kernels whose rows also read the floor: the device time, cold, of a
+# copy moving the row's least bytes (chip_smoke.run_kernel_cases)
+FLOOR_KERNELS = ("links_apply", "links_residual", "links_residual_norm")
 # Device ops of one flagship cycle on record for the first design of the
 # smoothers (one launch per half-sweep; PERF.md).
 FIRST_DESIGN_CYCLE_OPS = 313
@@ -276,7 +301,7 @@ def kernel_cases(torch, mgt, dev):
     def links_cases(L, tag, dtype, tiled, tile=None, sweeps=4, omega=1.0,
                     resid=True, batch=1, shared_r=False):
         """A batch > 1: phi [batch, 2, L, L] on the shared links, r batched
-        or shared (no library call)."""
+        or shared."""
         lead = (batch,) if batch > 1 else ()
         U, phi = links(L, dtype), c(lead + (2, L, L), dtype)
         r = c((2, L, L) if shared_r else lead + (2, L, L), dtype)
@@ -293,9 +318,13 @@ def kernel_cases(torch, mgt, dev):
             kr, ku = "links_residual", "links_update"
 
         def resid_call():
+            """One CSR SpMM for the batch: the entries of phi as columns,
+            r as many columns (a shared r repeated), the result a
+            (transposed) view."""
             A = links_op(U)()
-            return lambda: torch.sparse.addmm(r.reshape(-1, 1), A,
-                                              phi.reshape(-1, 1), alpha=-1)
+            V = phi.reshape(batch, -1).T
+            R = r.reshape(r_copies, -1).T.expand(-1, batch).contiguous()
+            return lambda: torch.sparse.addmm(R, A, V, alpha=-1).T
 
         out = []
         if resid:
@@ -304,7 +333,7 @@ def kernel_cases(torch, mgt, dev):
                             lambda: gs.residual_u("wilson", U, m, phi, r),
                             gres and (lambda: gres(U, m, phi, r)),
                             work(kr, 2, L, isz, batch, r_copies),
-                            None if lead else resid_call, batch))
+                            resid_call, batch))
         om = "" if omega == 1.0 else f" omega={omega}"
         for kind in ("rbgs", "jacobi"):
             name = ("B5a" if tiled else "B1") + f" {kind} x{sweeps}{om} {tag}"
@@ -391,8 +420,9 @@ def kernel_cases(torch, mgt, dev):
                 None, batch, NO_LIBRARY_RESTRICT))
         return out
 
-    def links_apply_cases(L, tag, dtype, tiled, tile=None):
-        """The links SpMV D_U v: B8 (global) or B5c (x-tiled)."""
+    def links_apply_cases(L, tag, dtype, tiled, tile=None, row=None):
+        """The links SpMV D_U v: B8 (global) or B5c (x-tiled); row: the
+        label's first word where it is not the kernel's own."""
         U, v = links(L, dtype), c((2, L, L), dtype)
         fn = (functools.partial(cs.wilson_u_apply_tiled, tile=tile) if tiled
               else cs.wilson_u_apply)
@@ -402,10 +432,40 @@ def kernel_cases(torch, mgt, dev):
             A = links_op(U)()
             return lambda: torch.sparse.mm(A, v.reshape(-1, 1))
 
-        return [Case(kern, f"{'B5c' if tiled else 'B8'} apply {tag}", dtype,
+        return [Case(kern, f"{row or ('B5c' if tiled else 'B8')} apply {tag}",
+                     dtype,
                      lambda: fn(U, m, v), lambda: gs.apply_wilson_u(U, m, v),
                      (lambda: cs.wilson_u_apply(U, m, v)) if tiled and tile is None
                      else None, work(kern, 2, L, v.element_size()), spmm)]
+
+    def links_residual_cases(L, tag, dtype, row):
+        """The unfused B2 alone, r - D_U phi."""
+        U, phi, r = links(L, dtype), c((2, L, L), dtype), c((2, L, L), dtype)
+
+        def addmm():
+            A = links_op(U)()
+            return lambda: torch.sparse.addmm(r.reshape(-1, 1), A,
+                                              phi.reshape(-1, 1), alpha=-1)
+
+        return [Case("links_residual", f"{row} residual {tag}", dtype,
+                     lambda: cs.wilson_u_residual(U, m, phi, r),
+                     lambda: gs.residual_u("wilson", U, m, phi, r), None,
+                     work("links_residual", 2, L, phi.element_size()),
+                     addmm)]
+
+    def norm_cases(L, tag, dtype, batch=1, row="B2-norm"):
+        """The level-0 check ||b - D_U phi|| / ||b|| in one launch, b
+        batched like phi, against its plain composition; row: the label's
+        first word."""
+        lead = (batch,) if batch > 1 else ()
+        U = links(L, dtype)
+        phi, b = c(lead + (2, L, L), dtype), c(lead + (2, L, L), dtype)
+        return [Case("links_residual_norm", f"{row} check {tag}", dtype,
+                     lambda: cs.wilson_u_residual_norm(U, m, phi, b),
+                     lambda: gs.residual_norm_ratio_u("wilson", U, m, phi, b),
+                     None, work("links_residual_norm", 2, L,
+                                phi.element_size(), batch, batch),
+                     None, batch, NO_LIBRARY_NORM)]
 
     def dense_cases(B, n, L, shared, tag, kinds, dtype, tiled, tile=None,
                     sweeps=4, omega=1.0):
@@ -576,6 +636,16 @@ def kernel_cases(torch, mgt, dev):
         cases += links_cases(32, "L=32 batch 8 shared r tile 3x5", dtype,
                              tiled=True, tile=(3, 5), batch=8, shared_r=True,
                              sweeps=3)
+        # B8 and B2 at the largest lattices that take the global kernels
+        # (apply_mode, u_mode), and the level-0 check (its main shape first;
+        # also at the large flagship's x-tiled level 0)
+        cases += links_apply_cases(1024, "L=1024", dtype, tiled=False,
+                                   row="B8-L1024")
+        cases += links_residual_cases(512, "L=512", dtype, row="B2-L512")
+        cases += norm_cases(256, "L=256", dtype)
+        cases += norm_cases(256, "L=256 batch 8", dtype, batch=8)
+        cases += norm_cases(10, "L=10", dtype)
+        cases += norm_cases(2048, "L=2048", dtype, row="check-L2048")
     return cases
 
 
@@ -678,11 +748,19 @@ def run_kernel_cases(torch, mgt, dev):
     time is read twice: warm (calls back to back, operands that fit the
     50 MB L2 stay there) and cold (the L2 flushed before each call by
     rewriting L2_FLUSH_BYTES), the time that the bound at the HBM rate
-    holds for; rule 2's share is the bound over the cold time."""
+    holds for; rule 2's share is the bound over the cold time. The floor
+    beside them: the device time of a one-element zero_() (a kernel that
+    does nothing), and for the rows of FLOOR_KERNELS the cold device time of
+    a copy moving the row's least bytes (dst.copy_(src), src half of
+    them)."""
     cs = mgt.ops.cuda_stencil
     peak = mgt.profiling.peak_bandwidth()
     flush_buf = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.int32,
                             device=dev)
+    one = torch.zeros(1, device=dev)
+    floor = {"zero_one_element_us": device_us(torch, one.zero_)}
+    print(f"  floor: a one-element zero_() takes "
+          f"{fmt_us(floor['zero_one_element_us'])} on the device")
     per_kernel = {k: {"max_abs_err": 0.0, "ms": None, "plain_ms": None}
                   for k in REPLACES}
     vs_global = []
@@ -716,7 +794,10 @@ def run_kernel_cases(torch, mgt, dev):
         e = per_kernel[kern]
         key = label.split()[0] + (f" batch {case.batch}" if case.batch > 1
                                   else "")
-        if dt == "complex64" and key not in rows:   # a row's first case
+        if dt != "complex64" and kern in FLOOR_KERNELS:
+            key += f" {dt}"                  # these rows in both dtypes
+        if (dt == "complex64" or kern in FLOOR_KERNELS) and key not in rows:
+            # a row's first case
             nbytes, flops = case.work
             bound_s, bound_by = mgt.profiling.bound_seconds(
                 nbytes, flops, peak, PEAK_FLOPS[dt])
@@ -726,11 +807,22 @@ def run_kernel_cases(torch, mgt, dev):
             # lines, and the call's misses write nothing back
             clean_us = device_us(torch, fk, flush=flush_buf.sum)
             share = None if cold_us is None else bound_s * 1e6 / cold_us
-            row = dict(ms=ms, plain_ms=plain_ms, case=label,
-                       device_us=dev_us, device_us_cold=cold_us,
+            row = dict(ms=ms, plain_ms=plain_ms, case=label, dtype=dt,
+                       rel_err=rel, device_us=dev_us, device_us_cold=cold_us,
                        device_us_cold_clean=clean_us,
                        bound_ms=bound_s * 1e3, bound_by=bound_by,
                        bound_share_cold=share)
+            if kern in FLOOR_KERNELS:
+                src = torch.empty(nbytes // 8, dtype=torch.int32, device=dev)
+                dst = torch.empty_like(src)
+                copy_us = device_us(torch, lambda: dst.copy_(src),
+                                    flush=flush_buf.bitwise_not_)
+                row.update(copy_bytes=2 * src.nbytes, copy_us_cold=copy_us,
+                           cold_over_copy=None if None in (cold_us, copy_us)
+                           else cold_us / copy_us)
+                del src, dst
+                row["library_ms"], row["library"] = library_time(torch, case,
+                                                                 want)
             if kern == "links_residual_restrict":
                 # the unfused path it replaces: B2, then the restriction
                 row.update(unfused_ms=cuda_ms(torch, fg),
@@ -744,6 +836,16 @@ def run_kernel_cases(torch, mgt, dev):
                      f"{bound_s * 1e3:.4f} ms ({bound_by})"
                      + ("" if share is None else
                         f", {share:.2f} of it cold"))
+            if "copy_us_cold" in row:
+                line += (f"\n    floor: a copy of the same "
+                         f"{row['copy_bytes'] / 1e6:.2f} MB "
+                         f"{fmt_us(row['copy_us_cold'])} cold"
+                         + ("" if row["cold_over_copy"] is None else
+                            f"; the call {row['cold_over_copy']:.2f} x it")
+                         + "; library " + (row["library"]
+                                           if row["library_ms"] is None else
+                                           f"{row['library_ms']:.4f} ms, "
+                                           f"{row['library']}"))
             if "unfused_ms" in row:
                 line += (f"\n    unfused (B2 + restrict): "
                          f"{row['unfused_ms']:.4f} ms, device "
@@ -751,7 +853,8 @@ def run_kernel_cases(torch, mgt, dev):
                          f"{fmt_us(row['unfused_device_us_cold'])} cold")
         main = e["ms"] is None if case.batch == 1 else "batched" not in e
         if dt == "complex64" and main:   # the (batched) main shape
-            row = {k: v for k, v in rows[key].items() if k != "kernel"}
+            row = {k: v for k, v in rows[key].items()
+                   if k not in ("kernel", "library_ms", "library")}
             if case.batch == 1:
                 lib_ms, lib = library_time(torch, case, want)
                 e.update(row, library_ms=lib_ms, library=lib)
@@ -766,6 +869,7 @@ def run_kernel_cases(torch, mgt, dev):
             e["max_abs_err"] = max(e["max_abs_err"], abs_err)
         print(line)
     del flush_buf
+    rows["floor"] = floor
     return per_kernel, vs_global, rows
 
 
@@ -879,22 +983,63 @@ def solve_phase(torch, mgt, dev, cfg, gauges, kernels, max_cycles, n_cyc,
     return hier, summary, launches
 
 
+@contextlib.contextmanager
+def patched(owner, name, value):
+    """owner.name = value while the block runs."""
+    orig = getattr(owner, name)
+    setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        setattr(owner, name, orig)
+
+
 def ir_phase(torch, mgt, dev, cfg, phases, hier):
     """solve_ir on the complex64 hierarchy with the exact complex128
     level-0 operator (assembled from the same phases) to 1e-8 and 1e-13,
-    two inner cycles per outer step."""
+    two inner cycles per outer step; its outer residual on the dense
+    residual kernels and on the plain stencil.residual, in
+    turns (kernel, plain, plain, kernel; the faster run of each), with the
+    counts equal and one outer residual launch an outer step."""
     cfg128 = cfg.replace(dtype="complex128")
     U128 = mgt.models.gauge.gauge_from_phases(phases, cfg128.cdtype, dev)
     D_outer = mgt.models.operators.assemble(cfg.stencil, U128, cfg.m)
     del U128
     b = mgt.point_source(cfg128, device=dev)
+    cs = mgt.ops.cuda_stencil
+    plain_outer = types.SimpleNamespace(residual=mgt.ops.stencil.residual)
+    key = "dense_residual" + (
+        "_tiled" if cs.apply_mode(2, cfg.L, torch.complex128) == "tiled"
+        else "")
     summary = {}
     for thr in (1e-8, 1e-13):
-        out, sec = timed(torch, lambda: mgt.solve_ir(
-            hier, b, cfg128.replace(res_threshold=thr), inner_cycles=2,
-            max_iters=200, D_outer=D_outer))
+        def run():
+            return mgt.solve_ir(hier, b, cfg128.replace(res_threshold=thr),
+                                inner_cycles=2, max_iters=200,
+                                D_outer=D_outer)
+        secs = {"kernel": [], "plain": []}
+        for design in ("kernel", "plain", "plain", "kernel"):
+            n0 = cs.launches[key]
+            with patched(mgt.solver.driver, "cuda_stencil",
+                         cs if design == "kernel" else plain_outer):
+                res, sec = timed(torch, run)
+            secs[design].append(sec)
+            if design == "kernel":
+                out, n_kernel = res, cs.launches[key] - n0
+            else:
+                ref, n_plain = res, cs.launches[key] - n0
+        sec, sec_plain = min(secs["kernel"]), min(secs["plain"])
+        # the outer residual's launches: the kernel run's less the plain
+        # run's (whose cycles make the same coarse-level launches)
+        n_outer = n_kernel - n_plain
         print(f"  solve_ir to {thr:g}: {len(out.history)} outer steps, "
-              f"{out.iters} cycles, res {out.resmag:.3e}, {sec:.3f} s")
+              f"{out.iters} cycles, res {out.resmag:.3e}, {sec:.3f} s; with "
+              f"the plain outer residual {ref.iters} cycles, "
+              f"{sec_plain:.3f} s")
+        check(ref.iters == out.iters and n_outer == len(out.history),
+              f"solve_ir to {thr:g}: {out.iters} cycles and {n_outer} {key} "
+              f"launches for {len(out.history)} outer steps; {ref.iters} "
+              "cycles with the plain outer residual")
         check(out.converged, f"solve_ir did not reach {thr:g} "
               f"({out.iters} cycles, {out.resmag:.3e})")
         check(out.phi.dtype == torch.complex128
@@ -902,8 +1047,136 @@ def ir_phase(torch, mgt, dev, cfg, phases, hier):
               "solve_ir solution not finite complex128")
         summary[f"{thr:g}"] = {"outer_steps": len(out.history),
                                "cycles": out.iters, "res": out.resmag,
-                               "seconds": sec}
+                               "seconds": sec,
+                               "seconds_plain_outer": sec_plain,
+                               "seconds_turns": secs,
+                               "outer_residual_launches": n_outer}
     return summary
+
+
+def check_phase(torch, mgt, dev, cfg, hier, reps=30, rounds=3):
+    """The level-0 convergence check (residual_norm_ratio0) on a flagship's
+    level 0, after two cycles from zero, by both compositions: the residual
+    (B2, or B5b on the x-tiled level 0, through _residual0), then the two
+    float64 norms; and the one launch (wilson_u_residual_norm). For each:
+    its device ops (a profiled check with its read-back), its device
+    microseconds (device_us, warm) and host microseconds a check (`reps`
+    checks with read-back a turn, `rounds` rounds of turns); the one launch against
+    the plain composition and its bits over 3 calls; then ms a checked
+    cycle, solve_chunked(chunk=1) to the flagship's threshold with each
+    check in turns, and the device ops of one checked cycle. Returns the
+    summary."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    cy = mgt.solver.cycles
+    b = mgt.point_source(cfg, device=dev)
+    phis = mgt.zero_fields(cfg, dev)
+    for _ in range(2):
+        phis, _ = mgt.cycle(hier, phis, b, cfg)
+    phi = phis[0]
+
+    def two_norms(h, p, q, c):
+        return mgt.ops.stencil.norm_ratio(
+            cy._residual0(h.levels[0], p, q, c, 0, h.gauge), q)
+
+    designs = {"two_norms": two_norms, "one_launch": cy.residual_norm_ratio0}
+    order = ("two_norms", "one_launch", "one_launch", "two_norms")
+    plain = mgt.ops.gauge_stencil.residual_norm_ratio_u(
+        "wilson", hier.gauge, cfg.m, phi, b)
+    got = [cy.residual_norm_ratio0(hier, phi, b, cfg) for _ in range(3)]
+    rel = float(abs(got[0] - plain) / plain)
+    same = all(torch.equal(g, got[0]) for g in got)
+    rel_two = float(abs(got[0] - two_norms(hier, phi, b, cfg)) / plain)
+
+    def device_ops(fn):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as p:
+            fn()
+            torch.cuda.synchronize()
+        return len([e for e in p.events() if e.device_type == DeviceType.CUDA])
+
+    out = {k: {"device_ops": device_ops(
+        lambda f=f: float(f(hier, phi, b, cfg))),
+        "device_us": device_us(torch, lambda f=f: f(hier, phi, b, cfg))}
+        for k, f in designs.items()}
+    host = {k: [] for k in designs}
+    for _ in range(rounds):
+        for k in order:
+            f = designs[k]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                float(f(hier, phi, b, cfg))
+            host[k].append((time.perf_counter() - t0) / reps * 1e6)
+    checked = {k: [] for k in designs}
+    for _ in range(rounds):
+        for k in order:
+            with patched(mgt.solver.driver, "residual_norm_ratio0",
+                         designs[k]):
+                res, sec = timed(torch, lambda: mgt.solve_chunked(
+                    hier, b, cfg, max_iters=30, chunk=1))
+            checked[k].append(sec * 1e3 / res.iters)
+            out[k]["cycles"] = res.iters
+    for k, f in designs.items():
+        def checked_cycle(f=f):
+            ps, _ = mgt.cycle(hier, phis, b, cfg)
+            return float(f(hier, ps[0], b, cfg))
+        out[k].update(host_us=statistics.median(host[k]),
+                      host_us_turns=host[k],
+                      ms_per_checked_cycle=statistics.median(checked[k]),
+                      ms_per_checked_cycle_turns=checked[k],
+                      checked_cycle_device_ops=device_ops(checked_cycle))
+    out.update(rel_vs_plain=rel, rel_vs_two_norms=rel_two,
+               bits_equal_3_calls=same)
+    for k in designs:
+        o = out[k]
+        print(f"  check L={cfg.L} ({k}): {o['device_ops']} device ops a check "
+              f"with its read-back, {fmt_us(o['device_us'])} of device time, "
+              f"{o['host_us']:.1f} us of host time a check; "
+              f"checked cycle {o['ms_per_checked_cycle']:.3f} ms "
+              f"({o['checked_cycle_device_ops']} device ops; "
+              f"{o['cycles']} cycles)")
+    print(f"  check: one launch against the plain composition rel "
+          f"{rel:.3e}, against the two norms {rel_two:.3e}; the same bits "
+          f"over 3 calls: {same}")
+    check(rel < BARS[cfg.dtype] and same, f"the one-launch check: rel "
+          f"{rel:.3e}, the same bits over 3 calls {same}")
+    check(out["one_launch"]["cycles"] == out["two_norms"]["cycles"],
+          f"the checked solve took {out['one_launch']['cycles']} cycles, "
+          f"{out['two_norms']['cycles']} with the two-norm check")
+    return out
+
+
+def block8_phase(torch, mgt, dev, n_cyc=3):
+    """The unfused B2's path: the flagship's config and first gauge with
+    8 x 8 blocks (the reference program's `block` argument) and 2 levels,
+    which the fused residual-restriction does not take: level 0's residual
+    on B2, then the plain restriction. n_cyc cycles of
+    solve_chunked(chunk=1) with the launch counters set to 0 just before
+    the solve: one links_residual launch a cycle and one
+    links_residual_norm a check. Returns (summary, launches)."""
+    cs = mgt.ops.cuda_stencil
+    cfg, ((_, U, D), _) = flagship(torch, mgt, dev, nlevels=2)
+    cfg = cfg.replace(block_x=8, block_y=8)
+    hier = mgt.build_hierarchy(D, cfg, U=U, check=False)
+    b = mgt.point_source(cfg, device=dev)
+    cs.reset_launches()
+    out, sec = timed(torch, lambda: mgt.solve_chunked(
+        hier, b, cfg, max_iters=n_cyc, chunk=1))
+    launches = dict(cs.launches)
+    print(f"block8 L={cfg.L} 8 x 8 blocks, NTL x{cfg.n_copies}: {out.iters} "
+          f"cycles to {out.resmag:.3e} in {sec:.3f} s; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    check(math.isfinite(out.resmag) and out.resmag < 1.0
+          and out.iters == n_cyc, f"block8: {out.iters} cycles to "
+          f"{out.resmag:.3e}")
+    check(launches["links_residual"] == n_cyc
+          and launches["links_residual_norm"] == n_cyc
+          and launches["links_residual_restrict"] == 0,
+          f"block8: launches {launches} in {n_cyc} checked cycles")
+    return {"cycles": out.iters, "res": out.resmag, "seconds": sec}, launches
 
 
 def small_check(torch, mgt, dev):
@@ -1592,9 +1865,16 @@ def main():
     hier, flag, flag_launches = solve_phase(
         torch, mgt, dev, cfg, gauges, FLAGSHIP_KERNELS, max_cycles=30,
         n_cyc=10, reps=5, warm_check=True)
+    solve_l = flag["launches_solve"]
+    check(solve_l["links_residual_norm"] == flag["cycles"]
+          and solve_l["links_residual"] == 0,
+          f"the flagship's {flag['cycles']} checks launched "
+          f"{solve_l['links_residual_norm']} links_residual_norm and "
+          f"{solve_l['links_residual']} links_residual")
     flag["cycle"] = cycle_launches(
         torch, mgt, dev, cfg, hier, flag["ms_per_cycle"], FLAGSHIP_CYCLE,
         "flagship", FIRST_DESIGN_CYCLE_OPS)
+    flag["check"] = check_phase(torch, mgt, dev, cfg, hier)
     flag["solve_ir"] = ir_phase(torch, mgt, dev, cfg, gauges[0][0], hier)
     batched, batched_launches = batched_phase(
         torch, mgt, dev, cfg, hier, 8, 10, 5, flag, FLAGSHIP_KERNELS,
@@ -1611,9 +1891,15 @@ def main():
         n_cyc=4, reps=3, warm_check=False)
     phases0 = gauges[0][0]
     del gauges
+    solve_l = large["launches_solve"]
+    check(solve_l["links_residual_norm"] == large["cycles"]
+          and solve_l["links_residual_tiled"] == large["cycles"],
+          f"the large flagship's checks launched {solve_l}: want B5b once a "
+          "cycle and links_residual_norm once a check")
     large["cycle"] = cycle_launches(
         torch, mgt, dev, cfg, hier, large["ms_per_cycle"], LARGE_CYCLE,
         "large flagship")
+    large["check"] = check_phase(torch, mgt, dev, cfg, hier, reps=10)
     large["solve_ir"] = ir_phase(torch, mgt, dev, cfg, phases0, hier)
     large_b, large_b_launches = batched_phase(
         torch, mgt, dev, cfg, hier, 2, 8, 3, large, LARGE_KERNELS, "L=2048")
@@ -1624,6 +1910,7 @@ def main():
           f"peak device memory {large['peak_mem_gb']:.2f} GiB")
 
     small_check(torch, mgt, dev)
+    block8, block8_launches = block8_phase(torch, mgt, dev)
 
     # ---- the SpMV path: the stencil stream, then the Krylov solvers ----
     spmv, spmv_launches = spmv_phase(torch, mgt, dev, card)
@@ -1651,6 +1938,7 @@ def main():
     phase_launches.update({k: large_launches for k in LARGE_KERNELS
                            if k.endswith("_tiled")})
     phase_launches.update({k: flag_launches for k in FLAGSHIP_KERNELS})
+    phase_launches.update({k: block8_launches for k in BLOCK8_KERNELS})
 
     batched_cycle = dict(batched["cycle"]["port_launches"],
                          **large_b["cycle"]["port_launches"])
@@ -1662,12 +1950,13 @@ def main():
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "library", "case", "device_us",
                     "device_us_cold", "device_us_cold_clean",
-                    "bound_share_cold", "unfused_ms",
-                    "unfused_device_us", "unfused_device_us_cold")
+                    "bound_share_cold", "copy_us_cold", "cold_over_copy",
+                    "unfused_ms", "unfused_device_us",
+                    "unfused_device_us_cold")
                    if f in per_kernel[k]},
                 **({"batched": dict(per_kernel[k]["batched"],
                                     cycle_launches=batched_cycle.get(k, 0))}
-                   if k in BATCHED_KERNELS else {})}
+                   if "batched" in per_kernel[k] else {})}
                for k in REPLACES]
     for k in BATCHED_KERNELS:
         check((batched_launches if k in FLAGSHIP_KERNELS
@@ -1683,6 +1972,7 @@ def main():
     print(json.dumps({"chebyshev": cheb, "card": card}))
     print(json.dumps({"ensemble8": ensemble, "card": card}))
     print(json.dumps({"geo": geo, "card": card}))
+    print(json.dumps({"block8": block8, "card": card}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -34,7 +34,11 @@ and 2 at L=2048, in turns, with one profiled batched cycle of each.
 The single calls also take the cycle's residuals at the flagship's
 shapes as each design makes them: level 0's residual and its restriction
 (nc=4, 2 x 2 blocks), the dense residual at n=4 L=128 and L=64, and the
-min-res apply on the 4 copies at n=4 L=64 (launches: all of the call's).
+min-res apply on the 4 copies at n=4 L=64 (launches: all of the call's);
+then the links apply (B8) at L=256 and 1024, the unfused links residual
+(B2) at L=256 and 512, and the level-0 convergence check at L=256 and
+2048 (cuda_stencil.wilson_u_residual_norm where the package has it, else
+B2 then the two float64 norms).
 Last, the links apply at L=256 (links_apply, B8) beside torch.sparse.mm
 on the operator as a CSR matrix (chip_smoke.stencil_csr): wrapper ms in
 turns, and device microseconds a call from the profiler (ten calls a turn,
@@ -43,9 +47,11 @@ three rounds of turns).
 With --residuals-only it runs only those residual calls, and where both
 designs take the dense SpMV's groups (cuda_stencil.dense_groups) also the
 batched ones: level 0's fused residual-restriction of 8 right-hand sides,
-the level-1 residual of 8 right-hand sides on one D (n=4 L=128), and the
+the level-1 residual of 8 right-hand sides on one D (n=4 L=128), the
 min-res apply on the 32 copies of 8 right-hand sides on one D and on the
-32 copies of an ensemble of 8 configurations, 4 a D (n=4 L=64). For each
+32 copies of an ensemble of 8 configurations, 4 a D (n=4 L=64), and B2
+and the check on 8 right-hand sides at L=256 (r batched; B2 also with r
+shared). For each
 call, wrapper ms and device microseconds a call in three rounds of turns,
 warm and cold (the L2 flushed before each call, as chip_smoke.py's kernel
 table reads it).
@@ -385,11 +391,8 @@ def residual_cases(this, other, c, dense, rng, dev):
     L=128 and L=64 (cuda_stencil.residual where the package has it, else
     the plain stencil.residual), and the min-res apply on the 4 copies at
     n=4 L=64 on a shared D (dense_apply)."""
-    import torch
     m, L = -0.005, 256
-    U = torch.polar(torch.ones(2, L, L, dtype=torch.float64),
-                    torch.from_numpy(0.2 * rng.normal(size=(2, L, L)))
-                    ).to(dev, torch.complex64)
+    U = links(rng, L, dev)
     phi, r, pn = c((2, L, L)), c((2, L, L)), c((4, 2, L, L))
 
     def fused(p):
@@ -410,6 +413,11 @@ def residual_cases(this, other, c, dense, rng, dev):
 
     D64, _, _, _ = dense(None, 4, 64, False)
     xs = c((4, 4, 64, 64))
+    U1024, v1024 = links(rng, 1024, dev), c((2, 1024, 1024))
+    U512, phi512, r512 = links(rng, 512, dev), c((2, 512, 512)), c((2, 512,
+                                                                     512))
+    U2048, phi2048, r2048 = (links(rng, 2048, dev), c((2, 2048, 2048)),
+                             c((2, 2048, 2048)))
     return [("B2 residual + restrict L=256 nc=4 2x2", "links_residual",
              fused),
             ("B7a residual n=4 L=128 (level 1)", "dense_residual",
@@ -417,18 +425,54 @@ def residual_cases(this, other, c, dense, rng, dev):
             ("B7a residual n=4 L=64 (level 2)", "dense_residual",
              dense_residual(dense(None, 4, 64, False))),
             ("B7a min-res apply x4 n=4 L=64 shared D", "dense_apply",
-             lambda p: p.ops.cuda_stencil.dense_apply(D64, xs))]
+             lambda p: p.ops.cuda_stencil.dense_apply(D64, xs)),
+            ("B8 links apply L=256", "links_apply",
+             lambda p: p.ops.cuda_stencil.wilson_u_apply(U, m, phi)),
+            ("B8 links apply L=1024", "links_apply",
+             lambda p: p.ops.cuda_stencil.wilson_u_apply(U1024, m, v1024)),
+            ("B2 residual L=256", "links_residual",
+             lambda p: p.ops.cuda_stencil.wilson_u_residual(U, m, phi, r)),
+            ("B2 residual L=512", "links_residual",
+             lambda p: p.ops.cuda_stencil.wilson_u_residual(U512, m, phi512,
+                                                            r512)),
+            ("level-0 check L=256", "links_residual_norm",
+             lambda p: level0_check(p, U, m, phi, r)),
+            ("level-0 check L=2048", "links_residual_norm",
+             lambda p: level0_check(p, U2048, m, phi2048, r2048))]
+
+
+def links(rng, L, dev):
+    """U(1) links of phases 0.2 N(0, 1), complex64."""
+    import torch
+    return torch.polar(torch.ones(2, L, L, dtype=torch.float64),
+                       torch.from_numpy(0.2 * rng.normal(size=(2, L, L)))
+                       ).to(dev, torch.complex64)
+
+
+def level0_check(p, U, m, phi, b):
+    """||b - D_U phi|| / ||b|| as package p computes it: its one-launch
+    check where it has one, else its links residual (x-tiled past the L2,
+    u_mode) and two float64 norms."""
+    import torch
+    cs = p.ops.cuda_stencil
+    if hasattr(cs, "wilson_u_residual_norm"):
+        return cs.wilson_u_residual_norm(U, m, phi, b)
+    tiled = cs.u_mode(phi.shape[-1], phi.dtype) == "tiled"
+    res = (cs.wilson_u_residual_tiled if tiled
+           else cs.wilson_u_residual)(U, m, phi, b)
+
+    def norm(x):
+        return torch.sqrt(torch.sum(x.abs() ** 2, dim=(-3, -2, -1),
+                                    dtype=torch.float64))
+    return (norm(res) / norm(b)).to(b.real.dtype)
 
 
 def batched_residual_cases(c, dense, rng, dev):
     """The residual calls of a batched cycle (8 right-hand sides on the
     flagship's hierarchy) and of an ensemble's (8 configurations, 4 copies
     a configuration at the min-res), as `cases` rows."""
-    import torch
     m, L = -0.005, 256
-    U = torch.polar(torch.ones(2, L, L, dtype=torch.float64),
-                    torch.from_numpy(0.2 * rng.normal(size=(2, L, L)))
-                    ).to(dev, torch.complex64)
+    U = links(rng, L, dev)
     phi, r, pn = c((8, 2, L, L)), c((8, 2, L, L)), c((4, 2, L, L))
     D128, _, _, _ = dense(None, 4, 128, False)
     v128, r128 = c((8, 4, 128, 128)), c((8, 4, 128, 128))
@@ -444,7 +488,14 @@ def batched_residual_cases(c, dense, rng, dev):
             ("B7a min-res apply x32 n=4 L=64 shared D", "dense_apply",
              lambda p: p.ops.cuda_stencil.dense_apply(D64, xs)),
             ("B7a min-res apply x32 n=4 L=64 on 8 D", "dense_apply",
-             lambda p: p.ops.cuda_stencil.dense_apply(D64e, xs))]
+             lambda p: p.ops.cuda_stencil.dense_apply(D64e, xs)),
+            ("B2 residual L=256 batch 8", "links_residual",
+             lambda p: p.ops.cuda_stencil.wilson_u_residual(U, m, phi, r)),
+            ("B2 residual L=256 batch 8 shared r", "links_residual",
+             lambda p: p.ops.cuda_stencil.wilson_u_residual(U, m, phi,
+                                                            r[0])),
+            ("level-0 check L=256 batch 8", "links_residual_norm",
+             lambda p: level0_check(p, U, m, phi, r))]
 
 
 def residual_calls(torch, this, other, cases, rounds=3):
@@ -586,9 +637,7 @@ def links_apply_vs_library(torch, this, other, dev, rng):
     sys.path.insert(0, str(HERE))
     from chip_smoke import stencil_csr
     m, L = -0.005, 256
-    U = torch.polar(torch.ones(2, L, L, dtype=torch.float64),
-                    torch.from_numpy(0.2 * rng.normal(size=(2, L, L)))
-                    ).to(dev, torch.complex64)
+    U = links(rng, L, dev)
     v = torch.from_numpy(rng.normal(size=(2, L, L))
                          + 1j * rng.normal(size=(2, L, L))).to(
                              dev, torch.complex64)

@@ -53,8 +53,10 @@ def _rel(a, b):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("L", [8, 256])
+@pytest.mark.parametrize("L", [8, 10, 256, 512])
 def test_links_residual(dev, dtype, L):
+    """B2 (a pair of sites a thread) up to L=512, the largest lattice whose
+    residual takes the global kernel (u_mode)."""
     rng = np.random.default_rng(1)
     U = _links(rng, L, dtype, dev)
     phi, r = _c(rng, (2, L, L), dtype, dev), _c(rng, (2, L, L), dtype, dev)
@@ -208,10 +210,96 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(TypeError):
         re = phi.real.contiguous()
         cs.wilson_u_residual(U.real.contiguous(), 0.1, re, re)
+    n0 = cs.launches["links_residual_norm"]
+    with pytest.raises(ValueError):
+        cs.wilson_u_residual_norm(U, 0.1, phi.transpose(-1, -2), phi)
+    with pytest.raises(TypeError):
+        cs.wilson_u_residual_norm(U, 0.1, phi, phi.to(torch.complex128))
+    with pytest.raises(ValueError):
+        cs.wilson_u_residual_norm(U, 0.1, phi, phi.cpu())
+    assert cs.launches["links_residual_norm"] == n0
     D, Dinv = _dense(rng, 1, 3, L, torch.complex64, dev)
     with pytest.raises(ValueError):
         cs.dense_smooth(D[0], Dinv[0], _c(rng, (3, L, L), torch.complex64, dev),
                         _c(rng, (3, L, L), torch.complex64, dev), 1, "rbgs")
+
+
+# ---- B8 and B2 redesigned (a pair of sites a thread) and the level-0 check
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("shared_r", [False, True])
+def test_links_residual_batch(dev, dtype, B, shared_r):
+    """B2 on phi [B, 2, 256, 256] with r shared or batched (one entry a
+    block): one launch, the plain version's result, each entry its own
+    unbatched call's."""
+    rng = np.random.default_rng(60 + B)
+    L = 256
+    U = _links(rng, L, dtype, dev)
+    phi = _c(rng, (B, 2, L, L), dtype, dev)
+    r = _c(rng, (2, L, L) if shared_r else (B, 2, L, L), dtype, dev)
+    n0 = cs.launches["links_residual"]
+    got = cs.wilson_u_residual(U, -0.005, phi, r)
+    assert cs.launches["links_residual"] == n0 + 1
+    assert _rel(got, gs.residual_u("wilson", U, -0.005, phi, r)) < BARS[dtype]
+    for i in range(B):
+        one = cs.wilson_u_residual(U, -0.005, phi[i], r if shared_r else r[i])
+        assert _rel(got[i], one) < BARS[dtype]
+
+
+def _off_line(rng, shape, dtype, dev):
+    """A contiguous view one complex word past a 16-byte line: in complex64
+    off the line, in complex128 still on it."""
+    n = int(np.prod(shape))
+    return _c(rng, (n + 1,), dtype, dev)[1:].view(shape)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("L,view", [(9, False), (255, False), (8, True),
+                                    (256, True)])
+def test_links_kernels_take_odd_and_unaligned(dev, dtype, L, view):
+    """An odd lattice and an operand off a 16-byte line take the word-a-load
+    path (not PAIRED) of the apply and the residual, and the check (a word
+    a load always) takes them too: no refusal, the plain versions'
+    results."""
+    rng = np.random.default_rng(61)
+    U = _links(rng, L, dtype, dev)
+    mk = _off_line if view else _c
+    phi, r = mk(rng, (2, L, L), dtype, dev), mk(rng, (2, L, L), dtype, dev)
+    assert cs._links_paired(U, phi, r) == (view and dtype == torch.complex128)
+    assert _rel(cs.wilson_u_apply(U, 0.1, phi),
+                gs.apply_wilson_u(U, 0.1, phi)) < BARS[dtype]
+    assert _rel(cs.wilson_u_residual(U, 0.1, phi, r),
+                gs.residual_u("wilson", U, 0.1, phi, r)) < BARS[dtype]
+    assert _rel(cs.wilson_u_residual_norm(U, 0.1, phi, r),
+                gs.residual_norm_ratio_u("wilson", U, 0.1, phi, r)
+                ) < BARS[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("L,B,shared_b", [
+    (8, None, False), (10, None, False), (256, None, False),
+    (512, None, False), (256, 3, False), (256, 8, False), (256, 8, True),
+    (32, 3, True)])
+def test_links_residual_norm(dev, dtype, L, B, shared_b):
+    """The check in one launch a call: ||b - D_U phi|| / ||b|| in b's real
+    dtype (0-d unbatched, [B] batched) against the plain composition, and
+    the same bits over 3 calls."""
+    rng = np.random.default_rng(62)
+    U = _links(rng, L, dtype, dev)
+    lead = () if B is None else (B,)
+    phi = _c(rng, lead + (2, L, L), dtype, dev)
+    b = _c(rng, (2, L, L) if shared_b else lead + (2, L, L), dtype, dev)
+    want = gs.residual_norm_ratio_u("wilson", U, -0.005, phi, b)
+    got = []
+    for _ in range(3):
+        n0 = cs.launches["links_residual_norm"]
+        got.append(cs.wilson_u_residual_norm(U, -0.005, phi, b))
+        assert cs.launches["links_residual_norm"] == n0 + 1
+    assert got[0].dtype == want.dtype and got[0].shape == want.shape
+    assert _rel(got[0], want) < BARS[dtype]
+    assert all(torch.equal(g, got[0]) for g in got[1:])
 
 
 # ---- a batch of right-hand sides on shared links (B1, B2, B5a, B5b)
@@ -528,7 +616,8 @@ def test_dense_apply(dev, dtype, n, L, bd, bv, tile):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("L,tile", [(256, None), (8, None)] + [
+@pytest.mark.parametrize("L,tile", [(256, None), (8, None), (10, None),
+                                    (1024, None)] + [
     (L, tile or "tiled") for L, tile in TILES + [(2048, None)]])
 def test_links_apply(dev, dtype, L, tile):
     """Against the plain links apply and the dense apply of the assembled

@@ -158,6 +158,12 @@ def test_band_bytes():
     ("dense_residual", 4, 128, 1, 1, 3.60),
     ("dense_apply", 4, 64, 4, 1, 1.10),
     ("dense_residual_tiled", 4, 1024, 1, 1, 230.4),       # B7b residual
+    # the level-0 check: U, phi and b, 6 words a site; a batch of 8
+    ("links_residual_norm", 2, 256, 1, 1, 0.94),
+    ("links_residual_norm", 2, 256, 8, 8, 5.32),
+    # B8 and B2 at the largest shapes they take on the global path
+    ("links_apply", 2, 1024, 1, 1, 15.02),
+    ("links_residual", 2, 512, 1, 1, 5.01),
 ])
 def test_kernel_work_gives_the_bounds_of_the_kernel_table(kernel, n, L,
                                                           batch, op_batch,

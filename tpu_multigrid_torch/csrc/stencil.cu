@@ -1,12 +1,18 @@
 // Hand-written Hopper (sm_90a) kernels for the multigrid smoother path.
 //
 // Ports of the Pallas TPU kernels in tpu_multigrid/ops/pallas_stencil.py:
-//   links_out_kernel<T, false>        <- _u_resid_vmem_kernel  (B2, :662)
+//   links_out_kernel<T, false, PAIRED>
+//                                     <- _u_resid_vmem_kernel  (B2, :662)
 //   links_resid_restrict_kernel<T, NC, PAIRED>
 //                                     <- _u_resid_vmem_kernel  (B2, :662;
 //                                        fused with the restriction of its
 //                                        output)
-//   links_out_kernel<T, true>         <- _u_apply_vmem_kernel  (B8, :656)
+//   links_resid_norm_kernel<T>
+//                                     <- _u_resid_vmem_kernel  (B2, :662;
+//                                        with the norms of the convergence
+//                                        check)
+//   links_out_kernel<T, true, PAIRED>
+//                                     <- _u_apply_vmem_kernel  (B8, :656)
 //   links_update_kernel<T, STAGED>    <- _u_smooth_vmem_kernel (B1, :669)
 //   dense_update_kernel<T, N, STAGED> <- _rbgs_kernel (B3, :125) and
 //                                        _jacobi_kernel (B4, :86)
@@ -26,14 +32,12 @@
 // complex128 storage (csrc/cplx.cuh); every kernel is a template on the real
 // type.
 //
-// What bounds them on the H100: bytes. The links SpMV and residual kernel
-// (links_out_kernel) gives one thread a site and reads the four periodic
-// neighbours straight from global memory; L2 serves the reuse (the level-0
-// set at L=256 is ~2 MB). The dense SpMV and residual (dense_apply_kernel)
-// and the fused residual-restriction give a thread a pair of sites (16-byte
-// loads); see the notes at each. Levels whose sweep streams
-// more than the L2 holds take the x-tiled kernels of stencil_tiled.cu
-// instead (ops/cuda_stencil.u_mode, smoother_mode).
+// What bounds them on the H100: bytes. The links SpMV, residual and check
+// (links_out_kernel, links_resid_norm_kernel), the dense SpMV and residual
+// (dense_apply_kernel) and the fused residual-restriction give a thread a
+// pair of sites (16-byte loads); see the notes at each. Levels whose sweep
+// streams more than the L2 holds take the x-tiled kernels of
+// stencil_tiled.cu instead (ops/cuda_stencil.u_mode, smoother_mode).
 //
 // The two smoothers are persistent: one cooperative launch runs all
 // n_sweeps of a smooth call, as the TPU kernels run them in one call (see
@@ -69,12 +73,6 @@ __device__ __forceinline__ Nbrs neighbours(int x, int y, int L) {
   n.yp = (size_t)x * L + yp;
   n.ym = (size_t)x * L + ym;
   return n;
-}
-
-// Site (x, y) of thread t of a one-thread-per-site kernel.
-__device__ __forceinline__ void site_of(size_t t, int L, int& x, int& y) {
-  x = (int)(t / L);
-  y = (int)(t % L);
 }
 
 // ---- loads -------------------------------------------------------------
@@ -153,51 +151,6 @@ __device__ __forceinline__ Pass<T> pass_of(int h, bool rb, int n_sweeps,
                    : (((n_sweeps - h) & 1) ? scratch : out);
   }
   return p;
-}
-
-// The links-only Wilson hop (tmg::wilson_hop_core) at site n, reading the
-// links and the neighbour spinors from global memory.
-template <typename T>
-__device__ __forceinline__ void wilson_hop(const cplx<T>* __restrict__ U,
-                                           const cplx<T>* v, size_t LL,
-                                           const Nbrs& n, cplx<T>& h0,
-                                           cplx<T>& h1) {
-  tmg::wilson_hop_core(U[n.s], U[n.xm], U[LL + n.s], U[LL + n.ym], v[n.xp],
-                       v[LL + n.xp], v[n.xm], v[LL + n.xm], v[n.yp],
-                       v[LL + n.yp], v[n.ym], v[LL + n.ym], h0, h1);
-}
-
-// APPLY (B8): out = (2+m) v + hop(v), the links-only D_U v (r is not
-// read). Else (B2) the residual out = r - (2+m) v - hop(v). One thread per
-// (batch entry, site); 6 complex words a site for the apply (U 2, v 2,
-// out 2), the neighbour reads of v served by L2. phi and out [B][2][L][L],
-// r batched (r_bstride 2 L^2) or shared (0), U shared by the batch: its
-// words are read once from HBM and B times from L2.
-template <typename T, bool APPLY>
-__global__ void links_out_kernel(const cplx<T>* __restrict__ U,
-                                 const cplx<T>* __restrict__ phi,
-                                 const cplx<T>* __restrict__ r,
-                                 cplx<T>* __restrict__ out, int L, T diag,
-                                 int B, long long r_bstride) {
-  const size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t LL = (size_t)L * L;
-  if (t >= (size_t)B * LL) return;
-  const size_t b = t / LL;
-  int x, y;
-  site_of(t - b * LL, L, x, y);
-  const Nbrs n = neighbours(x, y, L);
-  phi += b * 2 * LL;
-  out += b * 2 * LL;
-  if constexpr (!APPLY) r += b * (size_t)r_bstride;
-  cplx<T> h0, h1;
-  wilson_hop(U, phi, LL, n, h0, h1);
-  if constexpr (APPLY) {
-    out[n.s] = scale(diag, phi[n.s]) + h0;
-    out[LL + n.s] = scale(diag, phi[LL + n.s]) + h1;
-  } else {
-    out[n.s] = r[n.s] - scale(diag, phi[n.s]) - h0;
-    out[LL + n.s] = r[LL + n.s] - scale(diag, phi[LL + n.s]) - h1;
-  }
 }
 
 // ---- B1: the links-only Wilson smoother, one launch per smooth -----------
@@ -512,10 +465,10 @@ __global__ void __launch_bounds__(256)
 
 // ---- pairs of y-adjacent sites -------------------------------------------
 //
-// The SpMV and the fused residual-restriction give a thread two y-adjacent
-// sites, so that a row of an operand plane comes in 16-byte loads: one
-// float4 in complex64 (the pair must start at an even word), one double2 a
-// word in complex128.
+// The links and dense SpMV and residuals, the check and the fused
+// residual-restriction give a thread two y-adjacent sites, so that a row
+// of an operand plane comes in 16-byte loads: one float4 in complex64 (the
+// pair must start at an even word), one double2 a word in complex128.
 
 // Words ya and yb of a row, read-only: one 16-byte load in complex64 when
 // PAIRED (yb == ya + 1, ya even, the row 16-byte aligned), else one load a
@@ -548,6 +501,356 @@ __device__ __forceinline__ void st_pair(cplx<T>* row, const cplx<T> v[2]) {
 // Periodic index of i in [-L, 2L).
 __device__ __forceinline__ int wrap(int i, int L) {
   return i < 0 ? i + L : (i >= L ? i - L : i);
+}
+
+// ---- B8 and B2 redesigned: the links apply and residual, a pair a thread --
+//
+// Replace _u_apply_vmem_kernel (pallas_stencil.py:656; APPLY) and
+// _u_resid_vmem_kernel (:662), where the cycle does not restrict the
+// residual at once:
+//
+//   APPLY:  out = (2+m) v + hop(v)        else:  out = r - (2+m) v - hop(v)
+//
+// phi and out [B][2][L][L], r batched (r_bstride 2 L^2) or shared (0), U
+// [2][L][L] shared by the batch.
+//
+// What bounds them: bytes, 6 complex words a site for the apply (U 2, v 2,
+// out 2: 3.1 MB, 0.94 us at L=256 c64 against 3.35 TB/s) and 8 for the
+// residual (r 2 more: 1.25 us). Below that, the card's floor: a cold copy
+// of the same 3.1 MB takes 2.76 us on the device, a one-element zero_()
+// 1.02 us (chip_smoke.py, H100 80GB HBM3, 700 W). The first design gave
+// one thread a site and read every operand with an 8-byte load, the
+// neighbours of v through L2: 2.00 / 3.60 us warm / cold on the device at
+// L=256 c64 for the apply, 2.19 / 4.11 for the residual (chip_smoke.py,
+// same card; PERF.md).
+//
+// Design: a thread owns a pair of y-adjacent sites (x, ya), (x, ya + 1), ya
+// even. PAIRED (L even, every operand 16-byte aligned): in complex64 one
+// 16-byte load reads a row's two words, so a pair's links come as U_x and
+// U_y at the pair, U_x at x-1 as a pair and U_y at ya-1 as one word, r at
+// the pair; out is one 16-byte store a row. Else (an odd L, an operand off
+// a 16-byte line) a word a load, the same code; at an odd L the last pair
+// of a row holds one site. Blocks of 32 pairs by 4 x rows (fewer on a small
+// lattice), one batch entry a block: 256 blocks of 128 threads at L=256.
+// The block stages v's two planes over its tile and a one-site periodic
+// halo by cp.async, the links and r going straight to registers before it
+// waits, so that every load is in flight at once.
+//
+// Same card, in turns (scripts/torch_smoother_ab.py --residuals-only),
+// warm / cold us, the first design -> this one: the apply at L=256 2.04 /
+// 3.54 -> 2.26 / 3.21, at L=1024 18.84 / 22.83 -> 17.89 / 21.11; the
+// residual at L=256 2.20 / 4.13 -> 2.30 / 3.68, at L=512 4.41 / 9.27 ->
+// 4.39 / 8.71. One entry a block reading v through L1 instead of staging
+// it: 2.11 / 3.44, 18.73 / 21.60, 2.35 / 4.66, 4.18 / 8.85 at those
+// shapes, slower cold at each. At a batch of 8, a thread holding its
+// pair's links in registers for 4 entries (v through L1) read 5.30 / 12.70
+// against 6.62 / 12.97 for one entry a thread: 2% cold, on a path (the
+// batched unfused residual) that no solve of the smoke, bench.py or the
+// CLI drives, so it was not kept. The 16-byte pair loads (PAIRED)
+// against a word a load, in turns: the apply 2.27 / 3.23 against 2.39 /
+// 3.41 at L=256, 17.85 / 20.75 against 18.53 / 22.09 at L=1024; the
+// residual 2.31 / 3.68 against 2.39 / 3.73 at L=256, 4.46 / 8.71 against
+// 4.92 / 8.76 at L=512, 7.27 / 12.29 against 7.93 / 12.75 at B=8.
+// Registers (-Xptxas -v), complex64 PAIRED: 47 (apply), 54 (residual);
+// complex128 68, 96; no spills but the complex128 word-a-load residual's
+// 8 bytes.
+template <typename T>
+struct LinksAt {
+  cplx<T> ux[2], uxm[2], uy[2], uym;
+};
+
+template <typename T>
+struct SpinAt {
+  cplx<T> c[2][2], xp[2][2], xm[2][2], ym[2], yp[2];  // [spin][site]
+};
+
+template <typename T, bool PAIRED>
+__device__ __forceinline__ LinksAt<T> ld_links(const cplx<T>* __restrict__ U,
+                                               size_t LL, int L, int x, int ya,
+                                               int yb) {
+  LinksAt<T> u;
+  const size_t row = (size_t)x * L, rowm = (size_t)wrap(x - 1, L) * L;
+  ld_pair<T, PAIRED>(U + row, ya, yb, u.ux);
+  ld_pair<T, PAIRED>(U + rowm, ya, yb, u.uxm);
+  ld_pair<T, PAIRED>(U + LL + row, ya, yb, u.uy);
+  u.uym = ld_nc(U + LL + row + wrap(ya - 1, L));
+  return u;
+}
+
+// v at the pair and its neighbours: the y neighbours inside the pair are
+// the pair's own words; ym is left of ya, yp right of yb.
+template <typename T, bool PAIRED>
+__device__ __forceinline__ SpinAt<T> ld_spin(const cplx<T>* __restrict__ v,
+                                             size_t LL, int L, int x, int ya,
+                                             int yb) {
+  SpinAt<T> o;
+  const size_t row = (size_t)x * L;
+  const size_t rowp = (size_t)wrap(x + 1, L) * L;
+  const size_t rowm = (size_t)wrap(x - 1, L) * L;
+  const int ym = wrap(ya - 1, L), yp = wrap(yb + 1, L);
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const cplx<T>* p = v + s * LL;
+    ld_pair<T, PAIRED>(p + row, ya, yb, o.c[s]);
+    ld_pair<T, PAIRED>(p + rowp, ya, yb, o.xp[s]);
+    ld_pair<T, PAIRED>(p + rowm, ya, yb, o.xm[s]);
+    o.ym[s] = ld_nc(p + row + ym);
+    o.yp[s] = ld_nc(p + row + yp);
+  }
+  return o;
+}
+
+// D_U v at the pair: d[spin][site] = diag v + hop(v). `two`: the pair has
+// its second site (else, at an odd L, site 1 is the first again and its
+// value is not used).
+template <typename T>
+__device__ __forceinline__ void links_apply_pair(const LinksAt<T>& u,
+                                                 const SpinAt<T>& v, T diag,
+                                                 bool two, cplx<T> d[2][2]) {
+  cplx<T> h0, h1;
+  tmg::wilson_hop_core(u.ux[0], u.uxm[0], u.uy[0], u.uym, v.xp[0][0],
+                       v.xp[1][0], v.xm[0][0], v.xm[1][0],
+                       two ? v.c[0][1] : v.yp[0], two ? v.c[1][1] : v.yp[1],
+                       v.ym[0], v.ym[1], h0, h1);
+  d[0][0] = scale(diag, v.c[0][0]) + h0;
+  d[1][0] = scale(diag, v.c[1][0]) + h1;
+  tmg::wilson_hop_core(u.ux[1], u.uxm[1], u.uy[1], u.uy[0], v.xp[0][1],
+                       v.xp[1][1], v.xm[0][1], v.xm[1][1], v.yp[0], v.yp[1],
+                       v.c[0][0], v.c[1][0], h0, h1);
+  d[0][1] = scale(diag, v.c[0][1]) + h0;
+  d[1][1] = scale(diag, v.c[1][1]) + h1;
+}
+
+// The pair of thread (tx, ty) of a block of bx x by threads over tile t of
+// a lattice cut into tiles of bx pairs by by x rows, tiles_y of them along
+// y: (x, ya, yb, two); false where the thread falls off the lattice.
+__device__ __forceinline__ bool pair_of(int t, int tiles_y, int L, int& x,
+                                        int& ya, int& yb, bool& two) {
+  const int ty = t / tiles_y;
+  ya = 2 * ((t - ty * tiles_y) * (int)blockDim.x + (int)threadIdx.x);
+  x = ty * (int)blockDim.y + (int)threadIdx.y;
+  two = ya + 1 < L;
+  yb = two ? ya + 1 : ya;
+  return ya < L && x < L;
+}
+
+// v's two planes over the block's tile (blockDim.x pairs by blockDim.y x
+// rows from (x0, y0)) and a one-site periodic halo, (by + 2) x (2 bx + 2)
+// words a plane, into shared memory by cp.async; the caller waits. (The
+// tile's indices stay within [-1, 2L) for L >= 2, where wrap holds; at
+// L = 1 every site is site 0.)
+template <typename T>
+__device__ __forceinline__ void stage_tile(const cplx<T>* __restrict__ v,
+                                           size_t LL, int L, int x0, int y0,
+                                           cplx<T>* sv) {
+  const int cols = 2 * blockDim.x + 2, n = (blockDim.y + 2) * cols;
+  for (int i = threadIdx.y * blockDim.x + threadIdx.x; i < n;
+       i += blockDim.x * blockDim.y) {
+    const int ii = i / cols, jj = i - ii * cols;
+    const size_t g =
+        L == 1 ? 0 : (size_t)wrap(x0 - 1 + ii, L) * L + wrap(y0 - 1 + jj, L);
+    cp_async(sv + i, v + g);
+    cp_async(sv + n + i, v + LL + g);
+  }
+}
+
+// v at the pair (x, ya), (x, ya + 1) and its neighbours, from the tile.
+template <typename T>
+__device__ __forceinline__ SpinAt<T> spin_of_tile(const cplx<T>* sv, int x0,
+                                                  int y0, int x, int ya,
+                                                  bool two) {
+  SpinAt<T> o;
+  const int cols = 2 * blockDim.x + 2, n = (blockDim.y + 2) * cols;
+  const cplx<T>* c0 = sv + (x - x0 + 1) * cols + (ya - y0 + 1);
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const cplx<T>* c = c0 + s * n;
+    o.c[s][0] = c[0];
+    o.c[s][1] = two ? c[1] : c[0];
+    o.xp[s][0] = c[cols];
+    o.xp[s][1] = two ? c[cols + 1] : c[cols];
+    o.xm[s][0] = c[-cols];
+    o.xm[s][1] = two ? c[1 - cols] : c[-cols];
+    o.ym[s] = c[-1];
+    o.yp[s] = two ? c[2] : c[1];
+  }
+  return o;
+}
+
+// out at the pair of entry b: r - d (the residual) or d (APPLY), one
+// 16-byte store a row where PAIRED.
+template <typename T, bool APPLY, bool PAIRED>
+__device__ __forceinline__ void store_pair(cplx<T>* out, size_t LL,
+                                           cplx<T> d[2][2],
+                                           const cplx<T> rr[2][2], bool two) {
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    if constexpr (!APPLY) {
+      d[s][0] = rr[s][0] - d[s][0];
+      d[s][1] = rr[s][1] - d[s][1];
+    }
+    cplx<T>* o = out + s * LL;
+    if constexpr (PAIRED) {
+      st_pair<T>(o, d[s]);
+    } else {
+      o[0] = d[s][0];
+      if (two) o[1] = d[s][1];
+    }
+  }
+}
+
+template <typename T, bool APPLY, bool PAIRED>
+__global__ void __launch_bounds__(128)
+    links_out_kernel(const cplx<T>* __restrict__ U,
+                     const cplx<T>* __restrict__ phi,
+                     const cplx<T>* __restrict__ r, cplx<T>* __restrict__ out,
+                     int L, T diag, long long r_bstride) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cplx<T>* const sv = reinterpret_cast<cplx<T>*>(smem_raw);
+  int x, ya, yb;
+  bool two;
+  const bool active = pair_of(blockIdx.y * gridDim.x + blockIdx.x, gridDim.x,
+                              L, x, ya, yb, two);
+  const size_t LL = (size_t)L * L, row = (size_t)x * L, b = blockIdx.z;
+  const int x0 = blockIdx.y * blockDim.y, y0 = blockIdx.x * 2 * blockDim.x;
+  LinksAt<T> u;
+  cplx<T> rr[2][2], d[2][2];
+  if (active) u = ld_links<T, PAIRED>(U, LL, L, x, ya, yb);
+  stage_tile(phi + b * 2 * LL, LL, L, x0, y0, sv);
+  if (active && !APPLY) {
+    const cplx<T>* rb = r + b * (size_t)r_bstride + row;
+    ld_pair<T, PAIRED>(rb, ya, yb, rr[0]);
+    ld_pair<T, PAIRED>(rb + LL, ya, yb, rr[1]);
+  }
+  cp_async_wait();
+  __syncthreads();
+  if (!active) return;
+  links_apply_pair(u, spin_of_tile(sv, x0, y0, x, ya, two), diag, two, d);
+  store_pair<T, APPLY, PAIRED>(out + b * 2 * LL + row + ya, LL, d, rr, two);
+}
+
+// ---- the level-0 convergence check in one launch ---------------------------
+//
+// Replaces, on the check's path, _u_resid_vmem_kernel (pallas_stencil.py:662)
+// and the two norms around it (cycles.residual_norm_ratio0):
+//
+//   out[b] = ||r_b - D_U phi_b|| / ||r_b||   (the real type T)
+//
+// the residual computed in registers as links_out_kernel computes it and
+// never written; r (the right-hand side) is read anyway, so ||r||^2 costs
+// no byte more. What bounds it: bytes, U 2, phi 2, r 2 complex words a site
+// (6: 0.94 us at L=256 c64). Each thread sums |res|^2 and |r|^2 of its
+// sites in float64, a warp by shuffles, a block through shared memory, in
+// a fixed order; the blocks' partial sums go to `partial` [B][gridDim.x][2].
+// One cooperative launch: after a grid barrier, block (0, b % gridDim.y)
+// adds entry b's partials in index order and writes out[b]. No atomics, so
+// three calls on the same inputs give the same bits, and a solve's cycle
+// count cannot flip with the order of a sum. The grid is sized to be
+// resident (cooperative): gridDim.y entries at once, gridDim.x blocks
+// striding over an entry's tiles of 32 pairs by 4 x rows; v through L1.
+//
+// The check as B2, then two norms in plain torch, took 18 device ops and
+// 36.54 / 39.20 us of device time warm / cold at L=256 c64 (66.32 / 68.32
+// at B=8); this one 1 launch, 5.02 / 6.86 us (11.70 / 16.42 at B=8), same
+// H100 80GB HBM3 at 700 W, in turns (scripts/torch_smoother_ab.py
+// --residuals-only). At L=2048 (the x-tiled level 0; bound 60.1 us) it
+// reads 72.6 / 84.0 us against 451.2 / 458.4 for B5b, then the two norms,
+// so every links-active level 0 takes it. Variants timed against it in
+// turns: the reduction as a second, one-block launch instead of the grid
+// barrier, 4.56 / 6.39 us unbatched against 5.04 / 6.84 here, but 15.07 /
+// 19.32 at B=8 against 11.80 / 16.41, and one more launch on a check the
+// host waits for; v staged by cp.async, 5.05 / 6.61 (13.96 / 16.11 at
+// B=8); 16-byte loads of a pair (PAIRED, as links_out_kernel reads) 5.04 /
+// 6.84, 72.6 / 83.3 at L=2048 and 11.81 / 16.31 at B=8 against a word a
+// load's 4.85 / 6.73, 71.4 / 81.1 and 11.82 / 15.71: a word a load is
+// kept, which also takes any L and alignment. Registers (-Xptxas -v): 63
+// (complex64), 86 (complex128), no spills.
+__device__ __forceinline__ void block_sum2(double& a, double& c,
+                                           double* sred) {
+#pragma unroll
+  for (int w = 16; w > 0; w /= 2) {
+    a += __shfl_xor_sync(0xffffffffu, a, w);
+    c += __shfl_xor_sync(0xffffffffu, c, w);
+  }
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nw = (blockDim.x * blockDim.y) / 32;
+  __syncthreads();  // sred free (a previous sum has been read)
+  if ((tid & 31) == 0) {
+    sred[2 * (tid / 32)] = a;
+    sred[2 * (tid / 32) + 1] = c;
+  }
+  __syncthreads();
+  a = 0.0;
+  c = 0.0;
+  for (int w = 0; w < nw; ++w) {  // every thread, in the same order
+    a += sred[2 * w];
+    c += sred[2 * w + 1];
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ double sq(cplx<T> z) {
+  const double re = z.re, im = z.im;
+  return re * re + im * im;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(128)
+    links_resid_norm_kernel(const cplx<T>* __restrict__ U,
+                            const cplx<T>* __restrict__ phi,
+                            const cplx<T>* __restrict__ r,
+                            double* __restrict__ partial, T* __restrict__ out,
+                            int L, T diag, int B, long long r_bstride,
+                            int tiles_y, int tiles) {
+  __shared__ double sred[8];  // 4 warps x 2 sums
+  const size_t LL = (size_t)L * L;
+  for (int e = blockIdx.y; e < B; e += gridDim.y) {
+    double s_res = 0.0, s_r = 0.0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      int x, ya, yb;
+      bool two;
+      if (!pair_of(t, tiles_y, L, x, ya, yb, two)) continue;
+      const size_t row = (size_t)x * L;
+      const LinksAt<T> u = ld_links<T, false>(U, LL, L, x, ya, yb);
+      const SpinAt<T> v = ld_spin<T, false>(phi + (size_t)e * 2 * LL, LL, L,
+                                            x, ya, yb);
+      const cplx<T>* rb = r + e * (size_t)r_bstride + row;
+      cplx<T> rr[2][2];
+      ld_pair<T, false>(rb, ya, yb, rr[0]);
+      ld_pair<T, false>(rb + LL, ya, yb, rr[1]);
+      cplx<T> d[2][2];
+      links_apply_pair(u, v, diag, two, d);
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        s_res += sq(rr[s][0] - d[s][0]);
+        s_r += sq(rr[s][0]);
+        if (two) {
+          s_res += sq(rr[s][1] - d[s][1]);
+          s_r += sq(rr[s][1]);
+        }
+      }
+    }
+    block_sum2(s_res, s_r, sred);
+    if (threadIdx.x == 0 && threadIdx.y == 0) {
+      double* p = partial + 2 * ((size_t)e * gridDim.x + blockIdx.x);
+      p[0] = s_res;
+      p[1] = s_r;
+    }
+  }
+  cg::this_grid().sync();
+  if (blockIdx.x != 0) return;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nt = blockDim.x * blockDim.y;
+  for (int e = blockIdx.y; e < B; e += gridDim.y) {
+    const double* p = partial + 2 * (size_t)e * gridDim.x;
+    double s_res = 0.0, s_r = 0.0;
+    for (int i = tid; i < (int)gridDim.x; i += nt) {
+      s_res += __ldcg(p + 2 * i);
+      s_r += __ldcg(p + 2 * i + 1);
+    }
+    block_sum2(s_res, s_r, sred);
+    if (tid == 0) out[e] = T(sqrt(s_res) / sqrt(s_r));
+  }
 }
 
 // ---- B2 redesigned: the level-0 residual fused with its restriction ------
@@ -839,13 +1142,8 @@ __global__ void __launch_bounds__(128)
   }
 }
 
-constexpr int kThreads = 256;
 constexpr int kLinksThreads = 128;  // links_update_kernel's block
 constexpr int kDenseThreads = 256;  // dense_update_kernel's block
-
-inline unsigned blocks_for(size_t work) {
-  return (unsigned)((work + kThreads - 1) / kThreads);
-}
 
 // Blocks of `kernel` one SM holds with `smem` bytes of dynamic shared
 // memory (which may pass the 48 KB default).
@@ -862,27 +1160,15 @@ int occupancy(const void* kernel, int threads, long long smem, int* blocks) {
 // A cooperative launch (every block resident at once, so that grid sync
 // works). A launch the card refuses (too many blocks to be co-resident, too
 // much shared memory) returns its error and leaves none behind.
-int launch_cooperative(const void* kernel, unsigned grid, int threads,
+int launch_cooperative(const void* kernel, dim3 grid, dim3 threads,
                        long long smem, void* stream, void** args) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e == cudaSuccess)
-    e = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(threads), args,
+    e = cudaLaunchCooperativeKernel(kernel, grid, threads, args,
                                     (size_t)smem, (cudaStream_t)stream);
   cudaGetLastError();
   return (int)e;
-}
-
-template <typename T, bool APPLY>
-int links_out(const void* U, const void* phi, const void* r, void* out,
-              int B, int L, double m, long long r_bs, void* stream) {
-  if (B < 1 || L < 1) return (int)cudaErrorInvalidValue;
-  const size_t LL = (size_t)L * L;
-  links_out_kernel<T, APPLY><<<blocks_for((size_t)B * LL), kThreads, 0,
-                               (cudaStream_t)stream>>>(
-      (const cplx<T>*)U, (const cplx<T>*)phi, (const cplx<T>*)r,
-      (cplx<T>*)out, L, T(2.0 + m), B, r_bs);
-  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -986,6 +1272,110 @@ int sm_count() {
 
 inline bool aligned16(const void* p) {
   return p == nullptr || (reinterpret_cast<size_t>(p) & 15) == 0;
+}
+
+// The blocks of the links apply, residual and norm: bx pairs along y (the
+// least power of 2 that covers a row's (L + 1) / 2 pairs, at most 32) by
+// `by` x rows, 128 threads (`full`, the norm's whole warps) or fewer where
+// L has fewer rows; the lattice in tiles_x (along x) by tiles_y tiles.
+struct LinksTiles {
+  int bx, by, tiles_x, tiles_y;
+};
+
+inline LinksTiles links_tiles(int L, bool full) {
+  const int px = (L + 1) / 2;
+  int bx = 1;
+  while (bx < px && bx < 32) bx *= 2;
+  int by = 128 / bx;
+  if (!full && by > L) by = L;
+  return {bx, by, (L + by - 1) / by, (px + bx - 1) / bx};
+}
+
+// One batch entry a block (blockIdx.z), v's tile and halo in shared memory
+// (at most 13 KB).
+template <typename T, bool APPLY, bool PAIRED>
+int links_out_n(const void* U, const void* phi, const void* r, void* out,
+                int B, int L, double m, long long r_bs, void* stream) {
+  const LinksTiles g = links_tiles(L, false);
+  if (B > 65535 || g.tiles_x > 65535) return (int)cudaErrorInvalidValue;
+  const size_t smem = 2 * sizeof(cplx<T>) * (g.by + 2) * (2 * g.bx + 2);
+  links_out_kernel<T, APPLY, PAIRED>
+      <<<dim3((unsigned)g.tiles_y, (unsigned)g.tiles_x, (unsigned)B),
+         dim3(g.bx, g.by), smem, (cudaStream_t)stream>>>(
+          (const cplx<T>*)U, (const cplx<T>*)phi, (const cplx<T>*)r,
+          (cplx<T>*)out, L, T(2.0 + m), r_bs);
+  return (int)cudaGetLastError();
+}
+
+// paired: L even and every operand 16-byte aligned (the wrapper decides;
+// a paired call that is not is refused).
+template <typename T, bool APPLY>
+int links_out(const void* U, const void* phi, const void* r, void* out,
+              int B, int L, double m, long long r_bs, int paired,
+              void* stream) {
+  if (B < 1 || L < 1 || (!APPLY && r == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (!paired)
+    return links_out_n<T, APPLY, false>(U, phi, r, out, B, L, m, r_bs,
+                                        stream);
+  if (L % 2 || !aligned16(U) || !aligned16(phi) || !aligned16(r) ||
+      !aligned16(out))
+    return (int)cudaErrorInvalidValue;
+  return links_out_n<T, APPLY, true>(U, phi, r, out, B, L, m, r_bs, stream);
+}
+
+// The doubles of scratch the check needs: 2 B gridDim.x, at most 2 B
+// tiles.
+inline int links_norm_scratch(int B, int L, long long* n) {
+  if (B < 1 || L < 1 || n == nullptr) return (int)cudaErrorInvalidValue;
+  const LinksTiles g = links_tiles(L, true);
+  *n = 2LL * B * g.tiles_x * g.tiles_y;
+  return 0;
+}
+
+// The check: one cooperative launch, its grid as many blocks as the card
+// holds resident (the kernel's occupancy, read once a process) up to one a
+// tile; `partial` must hold 2 B gridDim.x doubles (links_norm_scratch).
+template <typename T>
+int links_norm(const void* U, const void* phi, const void* r, void* partial,
+               void* out, int B, int L, double m, long long r_bs,
+               long long partial_len, void* stream) {
+  if (B < 1 || L < 1 || r == nullptr || partial == nullptr ||
+      out == nullptr)
+    return (int)cudaErrorInvalidValue;
+  static const int occ = [] {
+    int n = 0;
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, links_resid_norm_kernel<T>, 128, 0);
+    if (e != cudaSuccess) {
+      cudaGetLastError();
+      return -(int)e;
+    }
+    return n;
+  }();
+  if (occ < 0) return -occ;
+  if (occ == 0) return (int)cudaErrorLaunchOutOfResources;
+  const int sms = sm_count();
+  if (sms < 0) return -sms;
+  const long long cap = (long long)occ * sms;
+  const LinksTiles g = links_tiles(L, true);
+  int tiles = g.tiles_x * g.tiles_y, tiles_y = g.tiles_y;
+  const long long gy = B < cap ? B : cap;
+  long long gx = cap / gy < tiles ? cap / gy : tiles;
+  if (gx < 1) gx = 1;
+  if (gy > 65535 || 2 * (long long)B * gx > partial_len)
+    return (int)cudaErrorInvalidValue;
+  const cplx<T>* Up = (const cplx<T>*)U;
+  const cplx<T>* pp = (const cplx<T>*)phi;
+  const cplx<T>* rp = (const cplx<T>*)r;
+  double* part = (double*)partial;
+  T* op = (T*)out;
+  T diag = T(2.0 + m);
+  void* args[] = {&Up, &pp, &rp, &part, &op, &L, &diag, &B, &r_bs, &tiles_y,
+                  &tiles};
+  return launch_cooperative((const void*)links_resid_norm_kernel<T>,
+                            dim3((unsigned)gx, (unsigned)gy),
+                            dim3(g.bx, g.by), 0, stream, args);
 }
 
 // The dense SpMV or residual of B entries in groups of G sharing one D
@@ -1132,25 +1522,56 @@ int links_resid_restrict(const void* U, const void* phi, const void* r,
 extern "C" {
 
 // The links entries take phi, out [B][2][L][L], U [2][L][L] shared by the
-// batch, and r batched (r_bs = 2 L^2) or shared (0).
+// batch, and r batched (r_bs = 2 L^2) or shared (0); `paired` (the apply
+// and the residual): L even and every operand 16-byte aligned (16-byte
+// loads of a pair of sites), else a word a load. The norm reads a word a
+// load at any L and alignment, writes out [B] in the real type and needs
+// `partial`, the doubles of scratch that *_scratch gives (partial_len, the
+// doubles it holds).
 int tmg_links_residual_c64(const void* U, const void* phi, const void* r,
                            void* out, int B, int L, double m, long long r_bs,
-                           void* stream) {
-  return links_out<float, false>(U, phi, r, out, B, L, m, r_bs, stream);
+                           int paired, void* stream) {
+  return links_out<float, false>(U, phi, r, out, B, L, m, r_bs, paired,
+                                 stream);
 }
 int tmg_links_residual_c128(const void* U, const void* phi, const void* r,
                             void* out, int B, int L, double m,
-                            long long r_bs, void* stream) {
-  return links_out<double, false>(U, phi, r, out, B, L, m, r_bs, stream);
+                            long long r_bs, int paired, void* stream) {
+  return links_out<double, false>(U, phi, r, out, B, L, m, r_bs, paired,
+                                  stream);
 }
 
 int tmg_links_apply_c64(const void* U, const void* v, void* out, int B,
-                        int L, double m, void* stream) {
-  return links_out<float, true>(U, v, nullptr, out, B, L, m, 0, stream);
+                        int L, double m, int paired, void* stream) {
+  return links_out<float, true>(U, v, nullptr, out, B, L, m, 0, paired,
+                                stream);
 }
 int tmg_links_apply_c128(const void* U, const void* v, void* out, int B,
-                         int L, double m, void* stream) {
-  return links_out<double, true>(U, v, nullptr, out, B, L, m, 0, stream);
+                         int L, double m, int paired, void* stream) {
+  return links_out<double, true>(U, v, nullptr, out, B, L, m, 0, paired,
+                                 stream);
+}
+
+int tmg_links_residual_norm_c64(const void* U, const void* phi, const void* r,
+                                void* partial, void* out, int B, int L,
+                                double m, long long r_bs,
+                                long long partial_len, void* stream) {
+  return links_norm<float>(U, phi, r, partial, out, B, L, m, r_bs,
+                           partial_len, stream);
+}
+int tmg_links_residual_norm_c128(const void* U, const void* phi,
+                                 const void* r, void* partial, void* out,
+                                 int B, int L, double m, long long r_bs,
+                                 long long partial_len, void* stream) {
+  return links_norm<double>(U, phi, r, partial, out, B, L, m, r_bs,
+                            partial_len, stream);
+}
+
+int tmg_links_residual_norm_scratch_c64(int B, int L, long long* n) {
+  return links_norm_scratch(B, L, n);
+}
+int tmg_links_residual_norm_scratch_c128(int B, int L, long long* n) {
+  return links_norm_scratch(B, L, n);
 }
 
 int tmg_links_update_c64(const void* U, const void* phi, const void* r,

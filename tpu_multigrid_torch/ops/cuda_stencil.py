@@ -12,6 +12,9 @@ Kernels, each with its plain torch version. Global kernels
 - links_residual_restrict <- the same, fused with the restriction of its
   output, via `wilson_u_residual_restrict`. Plain version:
   transfer.restrict of gauge_stencil.residual_u.
+- links_residual_norm <- the same, with the two norms of the level-0
+  convergence check, via `wilson_u_residual_norm`. Plain version:
+  gauge_stencil.residual_norm_ratio_u.
 - dense_update   <- _rbgs_kernel (pallas_stencil.py:125) and
   _jacobi_kernel (pallas_stencil.py:86), via `dense_smooth`. Plain
   version: smoothers.smooth_plain.
@@ -59,8 +62,13 @@ smoothers make one launch per sweep: a Jacobi sweep, or a whole red-black
 sweep (red, then black) in one pass over the operands, each block updating
 the red sites of its tile and of a one-site ring around it before its
 black sites. They write out of place, into buffers the wrapper allocates
-(`_sweeps`). In the links SpMV and residual kernel one thread per site
-reads its neighbours from global memory and L2 serves the reuse; the dense
+(`_sweeps`). The links SpMV, residual and check give a thread a pair of
+sites. The SpMV and residual read 16-byte loads where the lattice is
+even and the operands aligned (`_links_paired`), and a block of 4 x rows
+stages v over its tile and halo in shared memory for one batch entry;
+the check reads a word a load through L1, sums the residual's and r's
+squares in float64 and reduces the blocks' sums after a grid barrier, in
+a fixed order. The dense
 SpMV and residual give n lanes a pair of sites for a group of batch
 entries that share one D, which they read once for the group
 (`dense_groups`); the fused level-0 residual-restriction stages phi's
@@ -104,7 +112,8 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 # Launch counts per kernel: each wrapper adds one where it launches.
 launches = {"links_update": 0, "links_residual": 0,
-            "links_residual_restrict": 0, "dense_update": 0,
+            "links_residual_restrict": 0, "links_residual_norm": 0,
+            "dense_update": 0,
             "links_update_tiled": 0, "links_residual_tiled": 0,
             "dense_update_tiled": 0, "links_apply": 0, "dense_apply": 0,
             "dense_residual": 0, "links_apply_tiled": 0,
@@ -187,7 +196,9 @@ _P, _I, _D, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_double,
                    ctypes.c_longlong)
 _PI = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
-    "links_residual": (_P, _P, _P, _P, _I, _I, _D, _LL, _P),
+    "links_residual": (_P, _P, _P, _P, _I, _I, _D, _LL, _I, _P),
+    "links_residual_norm": (_P, _P, _P, _P, _P, _I, _I, _D, _LL, _LL, _P),
+    "links_residual_norm_scratch": (_I, _I, ctypes.POINTER(_LL)),
     "links_residual_restrict": (_P, _P, _P, _P, _P, _I, _I, _I, _D, _LL, _I,
                                 _I, _I, _I, _P),
     "links_update": (_P, _P, _P, _P, _P, _I, _I, _D, _D, _I, _I, _LL, _I, _I,
@@ -201,7 +212,7 @@ _SIGNATURES = {
                            _P),
     "dense_update_tiled": (_P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _LL,
                            _I, _D, _I, _I, _P),
-    "links_apply": (_P, _P, _P, _I, _I, _D, _P),
+    "links_apply": (_P, _P, _P, _I, _I, _D, _I, _P),
     "dense_apply": (_P, _P, _P, _I, _I, _I, _I, _LL, _LL, _P),
     "dense_residual": (_P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _P),
     "links_apply_tiled": (_P, _P, _P, _I, _I, _D, _I, _I, _P),
@@ -518,10 +529,19 @@ def _apply_operands(U, v) -> int:
     return L
 
 
+def _links_paired(*operands) -> bool:
+    """Whether the links SpMV and residual read a pair of sites in 16-byte
+    loads (PAIRED): an even lattice and every operand on a 16-byte line (a
+    fresh tensor is; a view may not be). Else they read a word a load, at
+    any L."""
+    return operands[0].shape[-1] % 2 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in operands)
+
+
 def wilson_u_residual(U, m: float, phi, r):
     """r - D_U phi, D_U = (2+m) + links-only Wilson hop; phi and r [B?, 2,
     L, L] with an optional batch axis (r shared or batched), U [2, L, L]
-    shared by the batch: one launch for the whole batch.
+    shared by the batch: one launch for the whole batch, any L.
 
     Replaces tpu_multigrid/ops/pallas_stencil.py _u_resid_vmem_kernel
     (via wilson_u_residual_pallas). Bound by bytes: U once, phi and r read
@@ -533,7 +553,45 @@ def wilson_u_residual(U, m: float, phi, r):
     out = torch.empty_like(phi)
     _launch("links_residual", phi.dtype, phi.device, U.data_ptr(),
             phi.data_ptr(), r.data_ptr(), out.data_ptr(), B, L, float(m),
-            r_bs)
+            r_bs, int(_links_paired(U, phi, r, out)))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _norm_scratch(dtype: torch.dtype, B: int, L: int) -> int:
+    """The float64 scratch (doubles) the check of B entries at L needs
+    for its blocks' sums (csrc/stencil.cu links_norm_scratch)."""
+    n = ctypes.c_longlong()
+    err = _entry("links_residual_norm_scratch", dtype)(B, L, ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"links_residual_norm scratch query failed: CUDA "
+                           f"error {err}")
+    return n.value
+
+
+def wilson_u_residual_norm(U, m: float, phi, b):
+    """||b - D_U phi|| / ||b|| in b's real dtype, the level-0 convergence
+    check: a 0-d tensor for phi [2, L, L], one a batch entry for phi [B, 2,
+    L, L] (b shared or batched), U [2, L, L] shared by the batch. One
+    cooperative launch computes the residual in registers, never writes
+    it, and sums its squares and b's in float64 in a fixed order (the same
+    bits from call to call).
+
+    Replaces tpu_multigrid/ops/pallas_stencil.py _u_resid_vmem_kernel (via
+    wilson_u_residual_pallas) together with the norms of
+    solver/cycles.residual_norm_ratio0. Bound by bytes: U 2, phi 2 and b 2
+    complex words a site. Plain version: gauge_stencil.residual_norm_ratio_u
+    (the links residual, then the two float64 norms)."""
+    if not phi.is_cuda:
+        return gauge_stencil.residual_norm_ratio_u("wilson", U, m, phi, b)
+    B, L, b_bs = _links_operands(U, phi, b)
+    out = torch.empty((B,) if phi.dim() == 4 else (), dtype=b.real.dtype,
+                      device=phi.device)
+    partial = torch.empty(_norm_scratch(phi.dtype, B, L),
+                          dtype=torch.float64, device=phi.device)
+    _launch("links_residual_norm", phi.dtype, phi.device, U.data_ptr(),
+            phi.data_ptr(), b.data_ptr(), partial.data_ptr(), out.data_ptr(),
+            B, L, float(m), b_bs, partial.numel())
     return out
 
 
@@ -662,7 +720,7 @@ def _links_sweep(U, m: float, r, omega: float, TX: int, TY: int, src, dst,
 
 def wilson_u_apply(U, m: float, v):
     """D_U v = (2+m) v + links-only Wilson hop (v), v [2, L, L] (no batch
-    axis: the kernel's batch entry is held at 1).
+    axis: the kernel's batch entry is held at 1), any L.
 
     Replaces tpu_multigrid/ops/pallas_stencil.py _u_apply_vmem_kernel (via
     apply_wilson_u_pallas_vmem). Bound by bytes: U, v in and out, 6
@@ -672,7 +730,7 @@ def wilson_u_apply(U, m: float, v):
     L = _apply_operands(U, v)
     out = torch.empty_like(v)
     _launch("links_apply", v.dtype, v.device, U.data_ptr(), v.data_ptr(),
-            out.data_ptr(), 1, L, float(m))
+            out.data_ptr(), 1, L, float(m), int(_links_paired(U, v, out)))
     return out
 
 

@@ -8,13 +8,16 @@ so a sweep streams U[2, L, L] instead of the dense D[5, 2, 2, L, L].
 
 These are the plain torch versions of the links kernels
 (ops/cuda_stencil.py: links_update for smooth_u, links_residual for
-residual_u); identical math to models.operators.assemble +
+residual_u, links_apply for apply_wilson_u, links_residual_norm for
+residual_norm_ratio_u); identical math to models.operators.assemble +
 ops.stencil.apply_D. Fields are [..., n, L, L] with any leading batch
 axes; the links U [2, L, L] are shared by the batch.
 """
 from __future__ import annotations
 
 import torch
+
+from .stencil import norm_ratio
 
 
 def _xp(f):     # value at (x+1, y)
@@ -71,6 +74,12 @@ def apply_u(stencil: str, U, m: float, v):
 def residual_u(stencil: str, U, m: float, phi, r):
     """r - D phi in the links-only representation."""
     return r - apply_u(stencil, U, m, phi)
+
+
+def residual_norm_ratio_u(stencil: str, U, m: float, phi, r):
+    """||r - D phi|| / ||r|| per batch entry, in r's real dtype: the links
+    residual, then the two float64 norms (the level-0 convergence check)."""
+    return norm_ratio(residual_u(stencil, U, m, phi, r), r)
 
 
 def _hop(stencil: str):

@@ -75,11 +75,23 @@ def _sumsq(x: torch.Tensor) -> torch.Tensor:
     return torch.sum(x.abs() ** 2, dtype=torch.float64)
 
 
+def field_norm(x: torch.Tensor) -> torch.Tensor:
+    """||x|| over the field axes [n, L, L], one per batch entry, summed in
+    float64 (_sumsq)."""
+    if x.dim() == 3:
+        return torch.sqrt(_sumsq(x))
+    return torch.sqrt(torch.sum(x.abs() ** 2, dim=(-3, -2, -1),
+                                dtype=torch.float64))
+
+
+def norm_ratio(res: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """||res|| / ||r|| per batch entry, in r's real dtype."""
+    return (field_norm(res) / field_norm(r)).to(r.real.dtype)
+
+
 def residual_norm_ratio(D, phi, r) -> torch.Tensor:
     """||r - D phi|| / ||r|| (reference f_get_residue_mag, level.h:79-98)."""
-    num = torch.sqrt(_sumsq(residual(D, phi, r)))
-    den = torch.sqrt(_sumsq(r))
-    return (num / den).to(r.real.dtype)
+    return norm_ratio(residual(D, phi, r), r)
 
 
 def adjoint_stencil(D: torch.Tensor) -> torch.Tensor:

@@ -69,6 +69,8 @@ def kernel_work(kernel: str, n: int, L: int, itemsize: int, batch: int = 1,
     - links residual-restriction: U 2, phi_null 2 nc, r 2 a copy, phi 2 and
       out nc / block a field (15 at nc=4, 2 x 2 blocks);
     - links apply: U 2, v 2 and out 2 a field (6 unbatched);
+    - links residual norm (the level-0 check): U 2, b 2 a copy, phi 2 a
+      field, and one real a field out (6 words a site unbatched);
     - dense smoother: per operator copy D's 4n^2 hop blocks, D0inv's n^2
       and r's n; per field phi in and out (2n): 92 at n=4;
     - dense apply: 5n^2 per operator copy, v in and out per field;
@@ -79,6 +81,10 @@ def kernel_work(kernel: str, n: int, L: int, itemsize: int, batch: int = 1,
         words = 2 + 2 * nc + 2 * op_batch + (2 + nc / block) * batch
         flops = _HOP_FLOPS + 12 + 2 * nc * _CMAC_FLOPS
         return round(words * LL * itemsize), flops * batch * LL
+    if base == "links_residual_norm":
+        words = 2 + 2 * op_batch + 2 * batch
+        nbytes = words * LL * itemsize + batch * itemsize // 2
+        return nbytes, (_HOP_FLOPS + 12 + 8) * batch * LL
     if base in ("links_update", "links_residual", "links_apply"):
         words = 2 + 4 * batch + (0 if base == "links_apply" else 2 * op_batch)
         flops = {"links_update": (_HOP_FLOPS + 8) * n_sweeps,

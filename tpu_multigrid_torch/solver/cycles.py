@@ -24,7 +24,7 @@ import torch
 
 from ..config import MGConfig
 from ..ops import cuda_stencil, gauge_stencil
-from ..ops.stencil import apply_D, residual, _sumsq
+from ..ops.stencil import apply_D, norm_ratio, residual
 from ..ops.smoothers import KERNEL_KINDS, smooth
 from ..ops.transfer import restrict, prolong
 from .hierarchy import Hierarchy
@@ -103,21 +103,17 @@ def _restricted_residual(lev, phi, r, cfg: MGConfig, lvl: int = 0,
                     bx, by)
 
 
-def _norm(x):
-    """||x|| over the field axes [n, S, S], one per batch entry, summed in
-    float64 (stencil._sumsq)."""
-    if x.dim() == 3:
-        return torch.sqrt(_sumsq(x))
-    return torch.sqrt(torch.sum(x.abs() ** 2, dim=(-3, -2, -1),
-                                dtype=torch.float64))
-
-
 def residual_norm_ratio0(hier: Hierarchy, phi, b, cfg: MGConfig):
     """||b - D phi|| / ||b|| at level 0, via the links-only residual when
     active (reference f_get_residue_mag, level.h:79-98); one per batch
-    entry for a batch of fields."""
-    res = _residual0(hier.levels[0], phi, b, cfg, 0, hier.gauge)
-    return (_norm(res) / _norm(b)).to(b.real.dtype)
+    entry for a batch of fields. At a links-active level 0 one launch
+    computes it at any L (cuda_stencil.wilson_u_residual_norm; the plain
+    composition with cfg.pallas == 'off'); else the level residual
+    (_residual0), then the two float64 norms."""
+    g = hier.gauge
+    if links_active(cfg, g, 0) and cfg.pallas != "off":
+        return cuda_stencil.wilson_u_residual_norm(g, cfg.m, phi, b)
+    return norm_ratio(_residual0(hier.levels[0], phi, b, cfg, 0, g), b)
 
 
 def v_cycle(hier: Hierarchy, phis, b: torch.Tensor, cfg: MGConfig):

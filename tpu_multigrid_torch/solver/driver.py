@@ -108,9 +108,11 @@ def solve_ir(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
     The hierarchy may be built in cfg.dtype (its inner view is a cast) or
     directly in `inner_dtype`, with the exact level-0 operator passed as
     `D_outer` (converted to cfg.dtype on b's device; default: the
-    hierarchy's level-0 D). The host reads the residual back every
-    `outer_chunk` outer steps; history holds one entry per read-back, with
-    history_stride = inner_cycles * outer_chunk.
+    hierarchy's level-0 D). The outer residual runs on the dense residual
+    kernels (cuda_stencil.residual; its plain version with cfg.pallas ==
+    'off'). The host reads the residual back every `outer_chunk` outer
+    steps; history holds one entry per read-back, with history_stride =
+    inner_cycles * outer_chunk.
     """
     max_iters = max_iters or cfg.max_iters
     cfg_in = cfg.replace(dtype=inner_dtype)
@@ -122,6 +124,7 @@ def solve_ir(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
     D_outer = D_outer.to(device=b.device, dtype=cfg.cdtype)
     phi = torch.zeros((cfg.n_dof[0], cfg.L, cfg.L), dtype=cfg.cdtype,
                       device=b.device)
+    outer_residual = residual if cfg.pallas == "off" else cuda_stencil.residual
     r = b
     bn = torch.sqrt(torch.sum(b.abs() ** 2))
 
@@ -133,7 +136,7 @@ def solve_ir(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
         for _ in range(inner_cycles):
             es, _ = cycle(hier_in, es, r_in, cfg_in)
         phi = phi + safe * es[0].to(phi.dtype)
-        return phi, residual(D_outer, phi, b)
+        return phi, outer_residual(D_outer, phi, b)
 
     history = []
     resmag = float("inf")
