@@ -24,6 +24,13 @@ shape), then drives two solves through the package's entry points
   cycles, exact complex128 defect) to 1e-8 and 1e-13; the check by both
   compositions in turns (B5b and two norms, and the one launch).
 
+Then mesh: the distributed path (parallel/) at world size 1, a one-rank
+NCCL group on the card: the flagship's setup by build_hierarchy_sharded
+and its solve by make_sharded_solver (the tile levels on plain torch, the
+replicated coarsest level and the NTL copies on dense_update), held to
+the single-device solve on the same hierarchy with links off, and the
+CLI with --mesh 1,1 (after the cli phase below).
+
 Then block8: the flagship with 8 x 8 blocks, which the fused
 residual-restriction does not take (level 0's residual on the unfused
 B2), 3 cycles.
@@ -87,8 +94,9 @@ one-element zero_(), and a cold copy of the row's least bytes), and
 times one PyTorch call that computes the same function where there is
 one: for the
 SpMV and residual kernels torch.sparse.mm / torch.sparse.addmm on the
-operator assembled once as a CSR matrix (int32 indices); the smoothers
-and the fused residual-restriction have none. The port never calls these.
+operator assembled once as a CSR matrix (int32 indices), by CUDA events
+and, beside each row's kernel, by cold device time; the smoothers and the
+fused residual-restriction have none. The port never calls these.
 Beside the fused residual-restriction it times the unfused path it
 replaces (B2, then the plain restriction).
 
@@ -696,6 +704,19 @@ def library_time(torch, case, want):
     return ms, what
 
 
+def library_device_us(torch, case, flush):
+    """Device microseconds a call of the case's library call takes from a
+    cold L2 (device_us), or None where it does not run."""
+    try:
+        call = case.library()
+        call()
+    except (RuntimeError, NotImplementedError):
+        return None
+    us = device_us(torch, call, flush=flush)
+    del call
+    return us
+
+
 def device_us(torch, fn, calls=10, flush=None, tries=3):
     """Microseconds of device time a call of fn under torch.profiler, or
     None where none of `tries` profiles was whole. A profile of one call
@@ -829,6 +850,9 @@ def run_kernel_cases(torch, mgt, dev):
                            unfused_device_us=device_us(torch, fg),
                            unfused_device_us_cold=device_us(
                                torch, fg, flush=flush_buf.bitwise_not_))
+            if case.library is not None:
+                row["library_device_us_cold"] = library_device_us(
+                    torch, case, flush_buf.bitwise_not_)
             rows[key] = dict(row, kernel=kern)
             line += (f"\n    row {key}: device {fmt_us(dev_us)} a call "
                      f"warm, {fmt_us(cold_us)} cold ({fmt_us(clean_us)} "
@@ -836,6 +860,10 @@ def run_kernel_cases(torch, mgt, dev):
                      f"{bound_s * 1e3:.4f} ms ({bound_by})"
                      + ("" if share is None else
                         f", {share:.2f} of it cold"))
+            if "library_device_us_cold" in row:
+                line += (f"\n    library call: "
+                         f"{fmt_us(row['library_device_us_cold'])} cold on "
+                         "the device")
             if "copy_us_cold" in row:
                 line += (f"\n    floor: a copy of the same "
                          f"{row['copy_bytes'] / 1e6:.2f} MB "
@@ -1460,6 +1488,21 @@ def check_results_files(out_dir, cfg_L, nlevels, cycles, tag):
               "cycles")
 
 
+def flagship_argv(L, phase_file, dev, **over):
+    """The CLI's flags for the flagship's config on the phases in
+    phase_file (heat-bath format), with `over` replacing or adding flags
+    (a value None drops the flag)."""
+    f = {"L": L, "stencil": "wilson", "m": -0.005, "nlevels": 3,
+         "num-iters": 4, "null-iters": 100, "dtype": "complex64",
+         "res-threshold": 1e-6, "gauge": "file", "gauge-file": phase_file,
+         "platform": str(dev)}
+    f.update(over)
+    argv = ["--ntl"]
+    for k, v in f.items():
+        argv += [] if v is None else [f"--{k}", str(v)]
+    return argv
+
+
 def cli_phase(torch, mgt, dev, card, flag, phases):
     """The entry points: tpu_multigrid_torch.cli.main and scan.main in
     process on the card, at the flagship's width, on the flagship's phases
@@ -1477,15 +1520,7 @@ def cli_phase(torch, mgt, dev, card, flag, phases):
     out = {}
 
     def flags(**over):
-        f = {"L": L, "stencil": "wilson", "m": -0.005, "nlevels": 3,
-             "num-iters": 4, "null-iters": 100, "dtype": "complex64",
-             "res-threshold": 1e-6, "gauge": "file", "gauge-file": phase_file,
-             "checkpoint": nn, "platform": str(dev)}
-        f.update(over)
-        argv = ["--ntl"]
-        for k, v in f.items():
-            argv += [] if v is None else [f"--{k}", str(v)]
-        return argv
+        return flagship_argv(L, phase_file, dev, **{"checkpoint": nn, **over})
 
     def run(tag, argv, files=False, converges=True):
         d = tmp / tag
@@ -1835,6 +1870,87 @@ def geo_phase(torch, mgt, dev):
     return out
 
 
+def mesh_phase(torch, mgt, dev, cfg, phases, cli_cycles, n_cyc=5, reps=3):
+    """The distributed path (parallel/) at world size 1: a one-rank NCCL
+    group on the card and scripts/torch_mesh_bench.run_mesh on the
+    flagship: its setup by build_hierarchy_sharded (the flagship's starts:
+    the generator seeded with cfg.seed; timed in turns with the
+    single-device build_hierarchy) and its solve by make_sharded_solver to
+    1e-6, with the launch counters set to 0 just before the solve and read
+    just after (the tile levels run plain torch; the replicated coarsest
+    level and its NTL copies run dense_update, and no links kernel runs).
+    Held to the single-device solve on the same hierarchy with links off
+    (dense level 0): the same cycle count, phi within 1e-4. Then ms a
+    cycle of each, CUDA events, and the CLI with --mesh 1,1 on the
+    flagship's phases: the cycle count of CLI run A. Returns the phase's
+    summary."""
+    import torch.distributed as dist
+    from tpu_multigrid_torch.parallel import multihost
+    sys.path.insert(0, str(HERE / "scripts"))
+    from torch_mesh_bench import run_mesh
+    cs = mgt.ops.cuda_stencil
+    U = mgt.models.gauge.gauge_from_phases(phases, cfg.cdtype, dev)
+    D = mgt.models.operators.assemble(cfg.stencil, U, cfg.m)
+    b = mgt.point_source(cfg, device=dev)
+    check(multihost.initialize(world_size=1, backend="nccl"),
+          "mesh: no process group")
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              f"mesh: {dist.get_backend()} group of "
+              f"{dist.get_world_size()}")
+        out = run_mesh((1, 1), cfg, dev, D, b, n_cyc, reps)
+    finally:
+        dist.destroy_process_group()
+    launches = out["launches_solve"]
+    print(f"mesh (1, 1) over nccl on {dev}: sharded levels "
+          f"{out['sharded_levels']}; setup {out['setup_s']:.3f} s (first "
+          f"{out['setup_first_s']:.3f} s; single-device build_hierarchy, "
+          f"check=False, in turns: {out['setup_single_s']:.3f} s; peak "
+          f"{out['setup_peak_gib']:.3f} against "
+          f"{out['setup_single_peak_gib']:.3f} GiB); "
+          f"{out['cycles']} cycles to {out['res']:.3e} in "
+          f"{out['solve_s']:.3f} s; single-device (links off) "
+          f"{out['single_cycles']} cycles to {out['single_res']:.3e}; phi "
+          f"rel diff {out['phi_rel_diff']:.2e}; launches in the solve "
+          f"{launches}")
+    print(f"  per cycle {out['ms_per_cycle_overlap']:.3f} ms sharded "
+          f"(plain torch on the tiles; concat baseline "
+          f"{out['ms_per_cycle_concat']:.3f}), "
+          f"{out['ms_per_cycle_single']:.3f} ms single-device on the "
+          f"kernels, links off (CUDA events, median of {reps} x {n_cyc} "
+          "cycles)")
+    check(out["res"] < cfg.res_threshold
+          and out["cycles"] == out["single_cycles"],
+          f"mesh: {out['cycles']} cycles to {out['res']:.3e}, "
+          f"single-device {out['single_cycles']}")
+    check(out["phi_rel_diff"] < 1e-4,
+          f"mesh: phi rel diff {out['phi_rel_diff']:.2e}")
+    check(launches.get("dense_update", 0) > 0,
+          "mesh: the solve never launched dense_update")
+    check(not any(k.startswith("links") for k in launches),
+          f"mesh: the solve launched a links kernel: {launches}")
+
+    with tempfile.TemporaryDirectory(dir=HERE) as tmpname:
+        tmp = Path(tmpname)
+        phase_file = tmp / "phase.dat"
+        mgt.models.gauge.write_heatbath_file(str(phase_file), phases)
+        cs.reset_launches()
+        rc, _, s, t_cli_setup, _, _ = run_cli(torch, mgt, flagship_argv(
+            cfg.L, phase_file, dev) + ["--mesh", "1,1", "--skip-tests"],
+            tmp / "out")
+    print(f"cli --mesh 1,1: exit {rc}, {s['iters']} cycles to "
+          f"{s['resmag']:.3e}, setup {t_cli_setup:.3f} s, solve "
+          f"{s['seconds']:.3f} s (run A: {cli_cycles} cycles)")
+    check(rc == 0 and s["converged"] and s["iters"] == cli_cycles,
+          f"cli --mesh 1,1: exit {rc}, {s}; run A took {cli_cycles}")
+    check(not dist.is_initialized(), "cli --mesh 1,1 left its group")
+    check(cs.launches["dense_update"] > 0,
+          "cli --mesh 1,1 never launched dense_update")
+    out["cli"] = {"rc": rc, "cycles": s["iters"], "res": s["resmag"],
+                  "setup_s": t_cli_setup, "solve_s": s["seconds"]}
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1927,6 +2043,11 @@ def main():
     print(f"cli done at {time.perf_counter() - t_start:.1f} s "
           f"({cli['seconds']:.1f} s)")
 
+    # ---- the distributed path at world size 1 ----
+    mesh = mesh_phase(torch, mgt, dev, flag_cfg, flag_phases,
+                      cli["A"]["cycles"])
+    print(f"mesh done at {time.perf_counter() - t_start:.1f} s")
+
     # ---- the ensemble, and the CLI's geometric programs ----
     ensemble = ensemble_phase(torch, mgt, dev)
     print(f"ensemble done at {time.perf_counter() - t_start:.1f} s")
@@ -1973,6 +2094,7 @@ def main():
     print(json.dumps({"ensemble8": ensemble, "card": card}))
     print(json.dumps({"geo": geo, "card": card}))
     print(json.dumps({"block8": block8, "card": card}))
+    print(json.dumps({"mesh": mesh, "card": card}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -144,8 +144,9 @@ def test_cli_gs_lex_joint_qr(tmp_path):
                                    ["--platform", "cuda"],
                                    ["--platform", "tpu"]])
 def test_cli_rejects_with_exit_2(tmp_path, flags, capsys):
-    """--mesh is not ported (ROADMAP A12); a missing or unknown device is
-    refused, by the geometric modes too (never a silent CPU run)."""
+    """--mesh 2,2 in a run of world size 1 (no torchrun) is refused; a
+    missing or unknown device is refused, by the geometric modes too
+    (never a silent CPU run)."""
     missing = ["--platform", "cuda"]
     if torch.cuda.is_available():
         missing = ["--platform", f"cuda:{torch.cuda.device_count()}"]
@@ -158,7 +159,7 @@ def test_cli_rejects_with_exit_2(tmp_path, flags, capsys):
         cli.main(base + flags + ["--out-dir", str(tmp_path)])
     assert e.value.code == 2
     err = capsys.readouterr().err
-    assert "A12" in err if "--mesh" in flags else "--platform" in err
+    assert "world size" in err if "--mesh" in flags else "--platform" in err
     assert not (tmp_path / "solve_summary.json").exists()
 
 

@@ -8,7 +8,9 @@ the port's setup.
 Every level of the port's batched hierarchy matches JAX's to 1e-10, and
 the 15-cycle solve_ensemble's phi and residuals to 1e-9; JAX's batched
 hierarchy carried across by utils.convert solves to the same phi;
-`mesh=` (sharding the batch over devices, ROADMAP A12) is refused.
+`mesh=` refuses a batch its mesh does not divide, and shard_ensemble
+keeps a rank's own configurations (the sharded solve itself runs over
+gloo in tests/test_torch_parallel.py).
 """
 import dataclasses
 
@@ -118,8 +120,19 @@ def test_converted_batched_hierarchy_round_trip(both):
 
 
 def test_sharding_is_refused(both):
+    """solve_ensemble(mesh=) refuses a batch of 3 on a mesh of 2 ranks
+    before any collective, as JAX's ValueError; shard_ensemble gives rank
+    1 of 3 its one configuration of every batched tensor."""
+    import torch
+    from tpu_multigrid_torch.parallel.sharded import Mesh
     _, tcfg, _, thier, bs = both
-    with pytest.raises(NotImplementedError, match="A12"):
-        mgt.solve_ensemble(thier, t_of(bs), tcfg, n_cycles=1, mesh=object())
-    with pytest.raises(NotImplementedError, match="A12"):
-        mgt.solver.ensemble.shard_ensemble(thier, object())
+    cpu = torch.device("cpu")
+    mesh2 = Mesh(shape=(2, 1), device=cpu, rank=0, backend="gloo")
+    with pytest.raises(ValueError, match="divide"):
+        mgt.solve_ensemble(thier, t_of(bs), tcfg, n_cycles=1, mesh=mesh2)
+    mesh3 = Mesh(shape=(3, 1), device=cpu, rank=1, backend="gloo")
+    part, pbs = mgt.solver.ensemble.shard_ensemble((thier, t_of(bs)), mesh3,
+                                                   batch=B)
+    assert torch.equal(part.levels[0].D, thier.levels[0].D[1:2])
+    assert torch.equal(part.ntl.D, thier.ntl.D[1:2])
+    assert torch.equal(pbs, t_of(bs)[1:2])

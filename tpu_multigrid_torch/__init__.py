@@ -45,9 +45,12 @@ Chebyshev smoother on intervals from the spectral estimators::
 
 The gen-1 / gen-2 geometric programs are `mgt.geometric` (also
 `python -m tpu_multigrid_torch.cli --mode geo|geo2`), the 1D solvers
-`mgt.one_d`.
+`mgt.one_d`. `mgt.parallel` runs the setup and the solve on a mesh of
+ranks, one process a card over torch.distributed (`--mesh MX,MY` under
+torchrun); `tpu_multigrid_torch.analysis` holds the spectra and the
+results-file readers.
 """
-from . import config, models, ops, profiling, solver, utils  # noqa: F401
+from . import config, models, ops, parallel, profiling, solver, utils  # noqa: F401
 from . import testing  # noqa: F401
 from .config import MGConfig, from_reference_argv
 from .ops import cuda_stencil  # noqa: F401

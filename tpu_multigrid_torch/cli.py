@@ -14,20 +14,24 @@ device is an error, never a silent CPU run); --debug-nans raises
 FloatingPointError at the first non-finite residual read back;
 --no-compile-cache does nothing. --mode geo|geo2 run the gen-1 / gen-2
 geometric programs (solver/geometric.py) in float64 on that device.
---mesh is not ported yet and is rejected.
+--mesh MX,MY runs the distributed solve (parallel/) on an MX x MY mesh of
+ranks, one process a rank: `torchrun --nproc-per-node=4 -m
+tpu_multigrid_torch.cli --mesh 2,2 ...` (rank r on cuda:LOCAL_RANK over
+NCCL, or on the CPU over gloo with --platform cpu); --mesh 1,1 without
+torchrun makes a one-rank group in this process. MX * MY must equal the
+world size. Rank 0 alone prints and writes files. Under torchrun give the
+mass as --mass: torchrun's parser reads --m as an ambiguous abbreviation.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import math
 import os
 import sys
 import time
-
-# the ROADMAP item that will bring the flag this port rejects for now
-_NOT_PORTED = {"mesh": "A12 (parallel/ on torch.distributed)"}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="tpu_multigrid_torch",
@@ -46,7 +50,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--L", type=int, default=64)
     p.add_argument("--stencil", choices=["laplace", "wilson"],
                    default="wilson")
-    p.add_argument("--m", type=float, default=-0.07)
+    p.add_argument("--m", "--mass", type=float, default=-0.07,
+                   help="mass (--mass: the spelling torchrun's own parser "
+                        "does not take for an abbreviation of its flags)")
     p.add_argument("--nlevels", type=int, default=2)
     p.add_argument("--block", type=int, default=2)
     p.add_argument("--num-iters", type=int, default=20)
@@ -105,8 +111,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "present (utils.checkpoint.solve_resumable)")
     p.add_argument("--checkpoint-every", type=int, default=50)
     p.add_argument("--mesh", type=str, default=None, metavar="MX,MY",
-                   help="distributed solve on an MX x MY device mesh: not "
-                        f"ported yet, {_NOT_PORTED['mesh']}")
+                   help="run the distributed solve on an MX x MY mesh of "
+                        "ranks (parallel/; MX*MY must equal the world size: "
+                        "torchrun --nproc-per-node=MX*MY, or 1,1 alone)")
     p.add_argument("--no-compile-cache", action="store_true",
                    help="accepted and ignored: the port compiles no XLA "
                         "programs, so it has no on-disk compilation cache")
@@ -161,6 +168,25 @@ def _device(ns):
                              "device here (pass --platform cpu to run on "
                              "the CPU)")
     return dev
+
+
+def _mesh_shape(ns):
+    """(MX, MY) of --mesh; a parser error (exit 2) when it is malformed or
+    MX * MY is not this run's world size (torchrun's WORLD_SIZE, else
+    1): a mesh never runs as a single process when more ranks were asked
+    for."""
+    try:
+        mx, my = (int(x) for x in ns.mesh.split(","))
+    except ValueError:
+        mx = my = 0
+    if mx < 1 or my < 1:
+        build_parser().error(f"--mesh {ns.mesh!r}: expected MX,MY")
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if mx * my != world:
+        build_parser().error(
+            f"--mesh {ns.mesh} needs world size {mx * my}, this run has "
+            f"{world} (start it with torchrun --nproc-per-node={mx * my})")
+    return mx, my
 
 
 def _sync(dev):
@@ -218,13 +244,44 @@ def _run_geometric(ns, dev) -> int:
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     cfg, ns = parse_args(argv)
-    if ns.mesh:
-        build_parser().error(f"--mesh {ns.mesh} is not ported yet: "
-                             f"ROADMAP {_NOT_PORTED['mesh']}")
+    mesh_shape = _mesh_shape(ns) if ns.mesh else None
     dev = _device(ns)
     if ns.mode != "adaptive":
         return _run_geometric(ns, dev)
+    if mesh_shape is None:
+        return _run(cfg, ns, dev)
+    return _run_on_mesh(cfg, ns, dev, mesh_shape)
 
+
+def _run_on_mesh(cfg, ns, dev, shape) -> int:
+    """_run on an MX x MY mesh: joins torchrun's group (or makes a
+    one-rank one), NCCL on the card and gloo on the CPU, and leaves the
+    group it made; the ranks other than 0 print nothing."""
+    import torch
+    import torch.distributed as dist
+    from .parallel import multihost
+
+    if dev.type == "cuda":
+        if dev.index is None:
+            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(dev)
+    made = not dist.is_initialized()
+    multihost.initialize(world_size=1,
+                         backend="gloo" if dev.type == "cpu" else "nccl")
+    try:
+        mesh = multihost.global_mesh(shape, device=dev)
+        quiet = (contextlib.nullcontext() if mesh.rank == 0
+                 else contextlib.redirect_stdout(io.StringIO()))
+        with quiet:
+            return _run(cfg, ns, dev, mesh)
+    finally:
+        if made:
+            dist.destroy_process_group()
+
+
+def _run(cfg, ns, dev, mesh=None) -> int:
+    """The adaptive program on `dev`; with a mesh, its solve is the
+    distributed one (parallel.sharded) and rank 0 alone writes files."""
     import torch
     import tpu_multigrid_torch as mgt
     from .models import gauge as G
@@ -266,7 +323,8 @@ def main(argv=None):
     _sync(dev)
     print(f"setup done in {time.time() - t0:.1f}s")
 
-    if cfg.gen_null and ns.checkpoint:
+    coordinator = mesh is None or mesh.rank == 0
+    if cfg.gen_null and ns.checkpoint and coordinator:
         saver = (mio.save_near_null_npz if ns.checkpoint.endswith(".npz")
                  else mio.save_near_null_text)
         saver(ns.checkpoint, [hier.levels[l].phi_null
@@ -297,9 +355,16 @@ def main(argv=None):
                   f"{row['bytes'] / 1e6:8.2f} MB  {frac}")
 
     b = mgt.point_source(cfg, device=dev)
-    writer = mio.ResultsWriter(cfg, ns.out_dir)
+    writer = mio.ResultsWriter(cfg, ns.out_dir) if coordinator else None
     t0 = time.time()
-    if ns.resume:
+    if mesh is not None:
+        from .parallel import sharded
+        solver = sharded.make_sharded_solver(cfg, mesh, cfg.max_iters)
+        phis, iters, res = solver(sharded.shard_hierarchy(hier, cfg, mesh),
+                                  mgt.zero_fields(cfg, dev), b)
+        out = mgt.SolveResult(phi=phis[0], iters=iters, resmag=res,
+                              converged=res < cfg.res_threshold)
+    elif ns.resume:
         from .utils.checkpoint import solve_resumable
         out = solve_resumable(hier, b, cfg, ns.resume,
                               checkpoint_every=ns.checkpoint_every)
@@ -328,8 +393,9 @@ def main(argv=None):
         out = mgt.solve_with_history(hier, b, cfg, writer=writer)
     _sync(dev)
     dt = time.time() - t0
-    writer.write_scaling_summary(out.iters)
-    writer.close()
+    if writer is not None:
+        writer.write_scaling_summary(out.iters)
+        writer.close()
     if ns.debug_nans:
         # every solver stops at the first non-finite residual it reads back
         _check_finite(out.resmag, f"residual after {out.iters} iterations")
@@ -337,6 +403,8 @@ def main(argv=None):
     status = "converged" if out.converged else "NOT converged"
     print(f"{status} in {out.iters} cycles, rel residual {out.resmag:.3e}, "
           f"{dt:.1f}s")
+    if not coordinator:
+        return 0 if out.converged else 1
     with open(f"{ns.out_dir}/solve_summary.json", "w") as f:
         json.dump({"L": cfg.L, "m": cfg.m, "stencil": cfg.stencil,
                    "nlevels": cfg.nlevels, "ntl": cfg.ntl,

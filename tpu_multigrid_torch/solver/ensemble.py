@@ -10,11 +10,13 @@ configuration through each cycle together: each smoother kernel launch
 covers the whole batch, each configuration with its own operators. The
 hierarchies carry no gauge, as in JAX, so level 0 runs the dense kernels.
 
-Sharding the batch over devices (`mesh=`, `shard_ensemble`) belongs to the
-distributed port (ROADMAP A12) and is refused.
+`mesh=` shards the batch over the ranks of a parallel.sharded.Mesh (pure
+data parallelism: each rank solves its own configurations, then one
+all_gather returns the whole ensemble to every rank).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence
 
 import torch
@@ -24,9 +26,6 @@ from ..models.operators import assemble
 from ..ops.nearnull import random_starts
 from .driver import solve_batched
 from .hierarchy import Hierarchy, LevelOps, NTLOps, build_hierarchy
-
-_NOT_PORTED = ("sharding an ensemble over devices is not ported yet: "
-               "ROADMAP A12 (parallel/ on torch.distributed)")
 
 
 def _stack(ts):
@@ -96,13 +95,61 @@ def solve_ensemble(hier_b: Hierarchy, bs: torch.Tensor, cfg: MGConfig,
     """Fixed-cycle MG solve of a batch of hierarchies and right-hand sides
     bs [batch, n, L, L] (configuration i solves bs[i]), all in each cycle.
     Returns (phi [batch, n, L, L] on bs's device, the per-configuration
-    relative residuals as a numpy array). `mesh` (sharding the batch over
-    devices) is not ported yet."""
-    if mesh is not None:
-        raise NotImplementedError(f"solve_ensemble(mesh=...): {_NOT_PORTED}")
-    return solve_batched(hier_b, bs, cfg, n_cycles)
+    relative residuals as a numpy array).
+
+    mesh: a parallel.sharded.Mesh whose ranks call this together, each
+    with the whole batch: rank r solves its batch / mesh.size
+    configurations (shard_ensemble; no collective in the cycles), and the
+    results are all_gathered, so every rank returns the whole ensemble,
+    on the mesh's device. batch must divide by the mesh's size."""
+    if mesh is None:
+        return solve_batched(hier_b, bs, cfg, n_cycles)
+    from ..parallel.halo import all_gather
+    batch = bs.shape[0]
+    if batch % mesh.size:
+        raise ValueError(
+            f"mesh size {mesh.size} must evenly divide ensemble batch "
+            f"{batch} (shard_ensemble would otherwise leave configurations "
+            "out or solve them twice)")
+    hier_b, bs = shard_ensemble((hier_b, bs), mesh, batch=batch)
+    phi, res = solve_batched(hier_b, bs, cfg, n_cycles)
+    res = torch.as_tensor(res, device=mesh.device)
+    return (torch.cat(all_gather(phi, mesh)),
+            torch.cat(all_gather(res, mesh)).cpu().numpy())
+
+
+def _tree_map(fn, x):
+    """fn on every tensor of a tree of tensors, tuples, lists and
+    dataclasses (a Hierarchy)."""
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{
+            f.name: _tree_map(fn, getattr(x, f.name))
+            for f in dataclasses.fields(x)})
+    if isinstance(x, (tuple, list)):
+        return type(x)(_tree_map(fn, y) for y in x)
+    return x
 
 
 def shard_ensemble(tree, mesh, batch=None):
-    """Not ported yet (ROADMAP A12)."""
-    raise NotImplementedError(f"shard_ensemble: {_NOT_PORTED}")
+    """This rank's part of every tensor of `tree`, on the mesh's device:
+    rank r keeps slice r of mesh.size equal slices of a tensor's leading
+    (configuration) axis; other tensors are kept whole.
+
+    batch: when given, only tensors whose leading dim EQUALS the batch
+    size are cut (a non-batch leading axis that merely divides the rank
+    count must not be split across configurations); else every tensor
+    whose leading dim divides by the rank count."""
+    n = mesh.size
+
+    def part(x):
+        x = x.to(mesh.device)
+        lead = x.shape[0] if x.dim() >= 1 else 0
+        cut = (lead == batch) if batch is not None else lead > 0
+        if cut and lead % n == 0:
+            k = lead // n
+            return x[mesh.rank * k:(mesh.rank + 1) * k]
+        return x
+
+    return _tree_map(part, tree)
