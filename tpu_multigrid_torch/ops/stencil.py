@@ -126,7 +126,9 @@ def site_inverse(M: torch.Tensor) -> torch.Tensor:
         inv = torch.stack([torch.stack([d, -b], dim=-3),
                            torch.stack([-c, a], dim=-3)], dim=-4)
         return inv / det[..., None, None, :, :]
-    inv = torch.linalg.inv(torch.movedim(M, (-4, -3), (-2, -1)))
+    # inv_ex, unchecked: a singular block gives non-finite entries, as
+    # jnp.linalg.inv does
+    inv = torch.linalg.inv_ex(torch.movedim(M, (-4, -3), (-2, -1))).inverse
     return torch.movedim(inv, (-2, -1), (-4, -3)).contiguous()
 
 

@@ -293,7 +293,10 @@ def _min_res_weights_sharded(D_f, r_f, xs_list, cfg: MGConfig, mesh: Mesh):
     else:
         src = torch.stack([torch.sum(torch.conj(r_f) * d) for d in Dx])
     both = psum(torch.cat([A.reshape(-1), src]), mesh)
-    return torch.linalg.solve(both[:nq * nq].reshape(nq, nq), both[nq * nq:])
+    # unchecked, as cycles.min_res_weights: a singular system gives
+    # non-finite weights, as in JAX
+    return torch.linalg.solve_ex(both[:nq * nq].reshape(nq, nq),
+                                 both[nq * nq:]).result
 
 
 def _ntl_coarse_solves_submesh(ntl, r_q, phi_shape, cfg: MGConfig,

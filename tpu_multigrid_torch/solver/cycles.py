@@ -208,7 +208,10 @@ def min_res_weights(D_f, r_f, xs: torch.Tensor, cfg: MGConfig):
         src = torch.einsum("...nxy,...pnxy->...p", torch.conj(r_f), Dx)
     else:
         raise ValueError(f"bad minres_src {mode!r}")
-    return torch.linalg.solve(A, src)
+    # solve_ex, unchecked: a singular system gives non-finite weights for
+    # its entry alone, as jnp.linalg.solve does, and the card makes no host
+    # sync for an error check
+    return torch.linalg.solve_ex(A, src).result
 
 
 def _copy_operators(ntl, nq: int, lead):
