@@ -65,7 +65,15 @@ Then the batch axis and the other programs:
   launch a call for the whole batch);
 - ensemble8: bench.py's ensemble phase (Wilson L=128, m=-0.005, 2 levels,
   NTL, 8 gauge configurations, 18 cycles) through
-  build_hierarchies_batched and solve_ensemble;
+  build_hierarchies_batched and solve_ensemble: the setup one batched
+  pass, one dense_update launch a smooth call for the whole batch (G = 2
+  near-null candidates a configuration sharing its D), every such launch
+  held against its plain version and against the launch on D copied for
+  each candidate (the same bits), the batched hierarchy against each
+  configuration's own build_hierarchy (rel. 1e-4); the warm setup in
+  turns with the per-configuration loop, and at 32 configurations;
+- ensemble L=512: the same setup for 2 configurations at L=512, whose
+  levels relax on the x-tiled dense_update_tiled (B6) with G = 2;
 - chebyshev: eigs.chebyshev_config on the flagship hierarchy, then the
   Chebyshev-smoothed solve to 1e-6, beside the plain path;
 - geo: the CLI's gen-1 program at the reference's own size (L=2048,
@@ -84,6 +92,11 @@ that a batched or ensemble cycle launches as an unbatched one does, that
 the plain path on the same hierarchy takes the same number of cycles
 (within one), and that the kernel path agrees with the plain path on a
 small complex128 problem.
+
+The dense smoothers in groups (G > 1 entries sharing one operator: an
+ensemble's candidates) have rows of their own in the kernels line
+(dense_update_groups, dense_update_tiled_groups), each case also held bit
+for bit against the launch on copied operators.
 
 Beside each kernel's main shape (and, for the links kernels, the batched
 main shape; for B8, B2 and the check also B8 at L=1024, B2 at L=512 and
@@ -139,8 +152,14 @@ REPLACES = {
     "dense_apply_tiled": "tpu_multigrid/ops/pallas_stencil.py:236",
     "dense_residual_tiled": "tpu_multigrid/ops/pallas_stencil.py:236",
 }
+# The dense smoothers' launches whose entries come in groups of G > 1
+# sharing one operator (an ensemble's near-null candidates, k a
+# configuration): their own rows of the kernels line, by kernel.
+GROUP_ENTRIES = {"dense_update_groups": "dense_update",
+                 "dense_update_tiled_groups": "dense_update_tiled"}
+REPLACES.update({e: REPLACES[k] for e, k in GROUP_ENTRIES.items()})
 SOURCES = {k: "tpu_multigrid_torch/csrc/" + ("stencil_tiled.cu" if
-                                             k.endswith("_tiled") else
+                                             "_tiled" in k else
                                              "stencil.cu")
            for k in REPLACES}
 FLAGSHIP_KERNELS = ("links_update", "links_residual_norm", "dense_update",
@@ -220,6 +239,11 @@ class Case:
     library: object = None
     batch: int = 1
     no_library: str = NO_LIBRARY
+    # the entry of the kernels line (default: the kernel's own), and the
+    # same call with each group's operator copied for every entry, which
+    # the case must equal bit for bit
+    entry: str = None
+    copied: object = None
 
 
 def stencil_csr(torch, D):
@@ -501,8 +525,52 @@ def kernel_cases(torch, mgt, dev):
                      1 if shared or not B else B, sweeps)))
         return out
 
+    def group_cases(C, k, n, L, tag, kinds, dtype, tiled, sweeps=4):
+        """C groups of k fields [C, k, n, L, L], each group on its own D and
+        D0inv (G = k; an ensemble's near-null candidates, r = 0 shared),
+        against the plain version and the copied-D launch."""
+        D, Dinv = dense(C, n, L, dtype)
+        phi, r = c((C, k, n, L, L), dtype), c((n, L, L), dtype)
+        flat = phi.reshape(C * k, n, L, L)
+        Dc = D.repeat_interleave(k, dim=0).contiguous()
+        Dic = Dinv.repeat_interleave(k, dim=0).contiguous()
+        fn = cs.dense_smooth_tiled if tiled else cs.dense_smooth
+        kern = "dense_update_tiled" if tiled else "dense_update"
+        out = []
+        for kind in kinds:
+            row = ("B6" if tiled else "B3" if kind == "rbgs" else "B4") + "-G"
+            out.append(Case(
+                kern, f"{row} {kind} x{sweeps} {tag}", dtype,
+                lambda k_=kind: fn(D, Dinv, phi, r, sweeps, k_),
+                lambda k_=kind: sm.smooth_plain(D, Dinv, phi, r, sweeps, k_),
+                work=work(kern, n, L, phi.element_size(), C * k, C, sweeps,
+                          r_batch=1),
+                entry=kern + "_groups",
+                copied=lambda k_=kind: fn(Dc, Dic, flat, r, sweeps,
+                                          k_).reshape(phi.shape)))
+        return out
+
     cases = []
     for dtype in (torch.complex64, torch.complex128):
+        # an ensemble's near-null relaxation (B3, and B6 past the L2), G = k
+        # = 2 candidates a configuration sharing its D: ensemble8's levels 0
+        # and 1 (B = 8 at L = 128), its B = 32, and B = 2 at L = 512
+        cases += group_cases(8, 2, 2, 128, "n=2 L=128 C=8 k=2 (ensemble "
+                             "setup, level 0)", ("rbgs", "jacobi"), dtype,
+                             tiled=False)
+        cases += group_cases(8, 2, 4, 64, "n=4 L=64 C=8 k=2 (level 1)",
+                             ("rbgs",), dtype, tiled=False)
+        cases += group_cases(32, 2, 2, 128, "n=2 L=128 C=32 k=2", ("rbgs",),
+                             dtype, tiled=False)
+        cases += group_cases(3, 4, 4, 20, "n=4 L=20 C=3 k=4", ("rbgs",
+                             "jacobi"), dtype, tiled=False)
+        cases += group_cases(2, 2, 2, 512, "n=2 L=512 C=2 k=2 (setup, "
+                             "level 0)", ("rbgs", "jacobi"), dtype,
+                             tiled=True)
+        cases += group_cases(2, 2, 4, 256, "n=4 L=256 C=2 k=2 (level 1)",
+                             ("rbgs",), dtype, tiled=True)
+        cases += group_cases(3, 4, 1, 20, "n=1 L=20 C=3 k=4", ("rbgs",),
+                             dtype, tiled=True)
         # the flagship (L=256) on the global kernels: level 0's residual
         # fused with its restriction (unbatched, then the batch of 8), the
         # dense residual of level 1 (then level 2 and the batch of 8 on the
@@ -784,6 +852,8 @@ def run_kernel_cases(torch, mgt, dev):
           f"{fmt_us(floor['zero_one_element_us'])} on the device")
     per_kernel = {k: {"max_abs_err": 0.0, "ms": None, "plain_ms": None}
                   for k in REPLACES}
+    for k in GROUP_ENTRIES:
+        per_kernel[k]["max_diff_vs_copied"] = 0.0
     vs_global = []
     rows = {}
     for case in kernel_cases(torch, mgt, dev):
@@ -803,6 +873,13 @@ def run_kernel_cases(torch, mgt, dev):
                 + (f"  ({mode[0]} operands)" if mode else ""))
         check(rel < BARS[dt], f"{kern} {label} {dt}: rel err {rel:.3e} "
               f">= {BARS[dt]}")
+        if case.copied is not None:
+            diff = float((case.copied() - got).abs().max())
+            line += f"  copied D: max diff {diff:.1e}"
+            check(diff == 0.0, f"{kern} {label} {dt}: the groups differ from "
+                  f"the launch on copied D by {diff:.3e}")
+            e = per_kernel[case.entry]
+            e["max_diff_vs_copied"] = max(e["max_diff_vs_copied"], diff)
         if fg is not None:
             g_rel = float((fg() - want).abs().max()) / float(want.abs().max())
             g_ms = cuda_ms(torch, fg)
@@ -812,7 +889,7 @@ def run_kernel_cases(torch, mgt, dev):
             vs_global.append({"kernel": kern, "case": label, "dtype": dt,
                               "ms": ms, "global_ms": g_ms,
                               "plain_ms": plain_ms})
-        e = per_kernel[kern]
+        e = per_kernel[case.entry or kern]
         key = label.split()[0] + (f" batch {case.batch}" if case.batch > 1
                                   else "")
         if dt != "complex64" and kern in FLOOR_KERNELS:
@@ -1755,35 +1832,174 @@ def chebyshev_phase(torch, mgt, dev, cfg, hier, max_cycles=40, n_cyc=10,
             "launches": launches}
 
 
-def ensemble_phase(torch, mgt, dev, B=8, L=128, n_cyc=18):
-    """bench.py's ensemble phase on the card: Wilson L=128, m=-0.005, 2
-    levels, NTL, 4 sweeps, 60 near-null sweeps, complex64, B gauges of
+def ensemble_cfg(mgt, L):
+    """bench.py's ensemble configuration at lattice L: Wilson, m=-0.005, 2
+    levels, NTL, 4 sweeps, 60 near-null sweeps, complex64."""
+    return mgt.MGConfig(L=L, stencil="wilson", m=-0.005, nlevels=2, ntl=True,
+                        num_iters=4, null_iters=60, dtype="complex64",
+                        res_threshold=1e-6, smoother="rbgs")
+
+
+def ensemble_starts(torch, mgt, cfg, B, dev):
+    """The near-null starts build_hierarchies_batched draws by default:
+    level by level, one [k, nf, S, S] a configuration, from a CPU generator
+    seeded with cfg.seed."""
+    gen = torch.Generator().manual_seed(cfg.seed)
+    return [torch.stack([mgt.ops.nearnull.random_starts(
+        gen, cfg.n_dof[lvl + 1] // 2, cfg.n_dof[lvl], cfg.sizes[lvl],
+        cfg.cdtype, dev) for _ in range(B)]) for lvl in range(cfg.nlevels)]
+
+
+class GroupCalls:
+    """While the block runs, records every call of the smoother wrapper
+    cs.<name> on fields [C, k, n, L, L] (groups of G = k > 1 entries, one
+    launch each): its arguments and its result, for check_group_calls."""
+
+    def __init__(self, cs, name):
+        self.owner, self.name, self.calls = cs, name, []
+
+    def __enter__(self):
+        real = getattr(self.owner, self.name)
+
+        def rec(D, D0inv, phi, r, n_sweeps, kind="rbgs", omega=1.0, **kw):
+            out = real(D, D0inv, phi, r, n_sweeps, kind, omega, **kw)
+            if phi.dim() == 5 and phi.shape[1] > 1:
+                self.calls.append((D, D0inv, phi.clone(), r, n_sweeps, kind,
+                                   omega, out.clone()))
+            return out
+
+        self._ctx = patched(self.owner, self.name, rec)
+        self._ctx.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._ctx.__exit__(*exc)
+
+
+def check_group_calls(torch, mgt, calls, fn, tag):
+    """Each recorded G > 1 smoother call held against its plain version
+    (c64 bar) and against the same call on D and D0inv copied for every
+    entry of its group (the same bits). Returns the largest relative error
+    and the largest difference to the copied-D launch."""
+    worst_rel = worst_diff = 0.0
+    for D, Dinv, phi, r, n_sweeps, kind, omega, got in calls:
+        want = mgt.ops.smoothers.smooth_plain(D, Dinv, phi, r, n_sweeps,
+                                              kind, omega)
+        k = phi.shape[1]
+        copied = fn(D.repeat_interleave(k, 0).contiguous(),
+                    Dinv.repeat_interleave(k, 0).contiguous(),
+                    phi.reshape(-1, *phi.shape[2:]),
+                    r if r.dim() == 3 else r.reshape(-1, *r.shape[2:]),
+                    n_sweeps, kind, omega).reshape(phi.shape)
+        worst_rel = max(worst_rel, rel_diff(got, want))
+        worst_diff = max(worst_diff, float((got - copied).abs().max()))
+    check(worst_rel < BARS["complex64"], f"{tag}: a G > 1 launch differs "
+          f"from its plain version by {worst_rel:.3e}")
+    check(worst_diff == 0.0, f"{tag}: a G > 1 launch differs from the "
+          f"launch on copied D by {worst_diff:.3e}")
+    return worst_rel, worst_diff
+
+
+def hier_rel_diff(mgt, hier_b, singles):
+    """Largest relative difference of every tensor of the batched
+    hierarchy (each level's D, D0inv and phi_null, the NTL copies) from
+    each configuration's own hierarchy."""
+    worst = 0.0
+    for i, h in enumerate(singles):
+        one = mgt.solver.ensemble.unstack_hierarchy(hier_b, i)
+        for lb, l1 in zip(one.levels, h.levels):
+            for f in ("D", "D0inv", "phi_null"):
+                if getattr(l1, f) is not None:
+                    worst = max(worst, rel_diff(getattr(lb, f),
+                                                getattr(l1, f)))
+        for f in ("phi_null", "D", "D0inv"):
+            worst = max(worst, rel_diff(getattr(one.ntl, f),
+                                        getattr(h.ntl, f)))
+    return worst
+
+
+def setup_check(torch, mgt, dev, cfg, Us, kernel, tag):
+    """The batched setup of the gauges Us from the default starts, with the
+    launch counters set to 0 just before it and read just after, each
+    smooth call recorded: exactly one `kernel` launch a smooth call
+    (dense_update) or a sweep (dense_update_tiled) for the whole batch,
+    every one with G > 1 and held by check_group_calls; the hierarchy
+    against each configuration's own build_hierarchy from the same starts
+    (rel. 1e-4). Returns (hier_b, summary)."""
+    cs = mgt.ops.cuda_stencil
+    B = Us.shape[0]
+    starts = ensemble_starts(torch, mgt, cfg, B, dev)
+    per_call = 4 if kernel.endswith("_tiled") else 1
+    want = cfg.nlevels * (cfg.null_iters // cfg.iters_per_norm) * per_call
+    fn = cs.dense_smooth_tiled if kernel.endswith("_tiled") else \
+        cs.dense_smooth
+    cs.reset_launches()
+    with GroupCalls(cs, fn.__name__) as rec:
+        hier_b, t_cold = timed(torch, lambda: mgt.build_hierarchies_batched(
+            Us, cfg, starts=starts))
+    launches = dict(cs.launches)
+    groups = dict(cs.group_launches)
+    check(launches[kernel] == groups[kernel] == want,
+          f"{tag} setup: {launches[kernel]} {kernel} launches, "
+          f"{groups[kernel]} of them grouped; want {want}, one a "
+          f"{'sweep' if per_call > 1 else 'smooth call'} for the batch")
+    rel, diff = check_group_calls(torch, mgt, rec.calls, fn, tag)
+    singles = [mgt.build_hierarchy(
+        mgt.models.operators.assemble(cfg.stencil, Us[i], cfg.m), cfg,
+        starts=[s[i] for s in starts], check=False) for i in range(B)]
+    worst = hier_rel_diff(mgt, hier_b, singles)
+    check(worst < 1e-4, f"{tag}: the batched hierarchy differs from the "
+          f"configurations' own by {worst:.3e}")
+    del singles
+    return hier_b, {"setup_cold_s": t_cold, "setup_launches": {
+        k: v for k, v in launches.items() if v},
+        "setup_group_launches": groups, "group_calls_checked": len(rec.calls),
+        "group_max_rel_err_vs_plain": rel, "group_max_diff_vs_copied": diff,
+        "max_rel_diff_vs_own_setup": worst}
+
+
+def ensemble_phase(torch, mgt, dev, B=8, L=128, n_cyc=18, B_scale=32):
+    """bench.py's ensemble phase on the card: ensemble_cfg(L), B gauges of
     phases 0.2 N(0,1) from default_rng(cfg.seed) (a second ensemble for
     the warm setup), the point source, 18 cycles, through
-    build_hierarchies_batched and solve_ensemble with the launch counters
-    set to 0 before the setup. Max relative residual < 1e-5 (bench.py's
-    bar); each configuration equal to its own unbatched solve (rel. 1e-4);
-    one ensemble cycle launches what one configuration's cycle launches.
-    Returns the summary."""
+    build_hierarchies_batched (setup_check: one dense_update launch a
+    smooth call for the batch, G = 2 candidates a configuration) and
+    solve_ensemble with the launch counters set to 0 before the solve. Max
+    relative residual < 1e-5 (bench.py's bar); each configuration equal to
+    its own unbatched solve (rel. 1e-4); one ensemble cycle launches what
+    one configuration's cycle launches. The warm setup is timed in turns
+    with the per-configuration loop of build_hierarchy it replaces, and
+    once more at B_scale configurations. Returns the summary."""
     cs = mgt.ops.cuda_stencil
     ens = mgt.solver.ensemble
-    cfg = mgt.MGConfig(L=L, stencil="wilson", m=-0.005, nlevels=2, ntl=True,
-                       num_iters=4, null_iters=60, dtype="complex64",
-                       res_threshold=1e-6, smoother="rbgs")
+    cfg = ensemble_cfg(mgt, L)
     rng = np.random.default_rng(cfg.seed)
 
-    def gauges():
-        ph = np.stack([0.2 * rng.normal(size=(2, L, L)) for _ in range(B)])
+    def gauges(n=B):
+        ph = np.stack([0.2 * rng.normal(size=(2, L, L)) for _ in range(n)])
         return mgt.models.gauge.gauge_from_phases(ph, cfg.cdtype, dev)
 
     Us, Us2 = gauges(), gauges()
+    hier_b, setup = setup_check(torch, mgt, dev, cfg, Us, "dense_update",
+                                f"ensemble x{B}")
+
+    def loop(U):
+        return [mgt.build_hierarchy(mgt.models.operators.assemble(
+            cfg.stencil, U[i], cfg.m), cfg, check=False)
+            for i in range(U.shape[0])]
+
+    warm, warm_loop = [], []
+    for _ in range(2):          # in turns: batched, loop, loop, batched
+        warm.append(timed(torch, lambda: mgt.build_hierarchies_batched(
+            Us2, cfg))[1])
+        warm_loop.append(timed(torch, lambda: loop(Us2))[1])
+    Us32 = gauges(B_scale)
+    t32 = [timed(torch, lambda: mgt.build_hierarchies_batched(Us32, cfg))[1]
+           for _ in range(2)]
+    del Us32
     b = mgt.point_source(cfg, device=dev)
     bs = b.expand(B, *b.shape).contiguous()
     cs.reset_launches()
-    hier_b, t_setup = timed(torch, lambda: mgt.build_hierarchies_batched(
-        Us, cfg))
-    _, t_setup_warm = timed(torch, lambda: mgt.build_hierarchies_batched(
-        Us2, cfg))
     (phi, res), t_cold = timed(torch, lambda: mgt.solve_ensemble(
         hier_b, bs, cfg, n_cyc))
     (phi, res), t_warm = timed(torch, lambda: mgt.solve_ensemble(
@@ -1812,17 +2028,59 @@ def ensemble_phase(torch, mgt, dev, B=8, L=128, n_cyc=18):
                          f"ensemble x{B}", b=bs)
     check(cyc["port_launches"] == want, f"ensemble: a cycle launched "
           f"{cyc['port_launches']}, one configuration's {want}")
-    out = {"B": B, "L": L, "n_cycles": n_cyc, "max_rel_res": float(res.max()),
-           "setup_s": t_setup, "setup_warm_s": t_setup_warm,
-           "solve_cold_s": t_cold, "solve_warm_s": t_warm,
-           "configs_per_s_warm": B / t_warm, "ms_per_cycle": ms,
-           "max_rel_diff_vs_single": worst, "cycle": cyc,
-           "launches": launches}
-    print(f"ensemble8 L={L} x{B} c64: setup {t_setup:.3f} s cold, "
-          f"{t_setup_warm:.3f} s warm; solve {n_cyc} cycles {t_cold:.3f} s "
-          f"cold, {t_warm:.3f} s warm ({B / t_warm:.2f} configs/s); max rel "
-          f"residual {out['max_rel_res']:.3e}; max rel diff vs one "
-          f"configuration's solve {worst:.3e}; {ms:.3f} ms a cycle")
+    out = dict(setup, B=B, L=L, n_cycles=n_cyc,
+               max_rel_res=float(res.max()), setup_s=setup["setup_cold_s"],
+               setup_warm_s=min(warm), setup_warm_turns_s=warm,
+               setup_loop_warm_s=min(warm_loop),
+               setup_loop_warm_turns_s=warm_loop, B_scale=B_scale,
+               setup_scale_cold_s=t32[0], setup_scale_warm_s=t32[1],
+               solve_cold_s=t_cold, solve_warm_s=t_warm,
+               configs_per_s_warm=B / t_warm, ms_per_cycle=ms,
+               max_rel_diff_vs_single=worst, cycle=cyc, launches=launches)
+    print(f"ensemble8 L={L} x{B} c64: setup {setup['setup_cold_s']:.3f} s "
+          f"cold, {min(warm):.3f} s warm (turns {warm}; the loop of "
+          f"build_hierarchy {min(warm_loop):.3f}, turns {warm_loop}); x"
+          f"{B_scale} {t32[0]:.3f} s cold, {t32[1]:.3f} s warm; setup "
+          f"launches {setup['setup_launches']}, "
+          f"{setup['group_calls_checked']} G > 1 calls checked (plain "
+          f"{setup['group_max_rel_err_vs_plain']:.2e}, copied D "
+          f"{setup['group_max_diff_vs_copied']:.1e}); batched hierarchy vs "
+          f"own {setup['max_rel_diff_vs_own_setup']:.2e}; solve {n_cyc} "
+          f"cycles {t_cold:.3f} s cold, {t_warm:.3f} s warm "
+          f"({B / t_warm:.2f} configs/s); max rel residual "
+          f"{out['max_rel_res']:.3e}; max rel diff vs one configuration's "
+          f"solve {worst:.3e}; {ms:.3f} ms a cycle")
+    return out
+
+
+def ensemble_tiled_phase(torch, mgt, dev, B=2, L=512):
+    """The ensemble setup past the L2: ensemble_cfg(L) on B gauges, whose
+    levels 0 (n=2 L=512) and 1 (n=4 L=256) relax on the x-tiled B6 with G =
+    2 candidates a configuration (smoother_mode), through setup_check: one
+    dense_update_tiled launch a sweep for the batch, every G > 1 call
+    against its plain version and the copied-D launch, the hierarchy
+    against the configurations' own. Returns the summary."""
+    cfg = ensemble_cfg(mgt, L)
+    cs = mgt.ops.cuda_stencil
+    for lvl in range(cfg.nlevels):
+        check(cs.smoother_mode(cfg.n_dof[lvl], cfg.sizes[lvl]) == "tiled",
+              f"ensemble L={L}: level {lvl} would not take the x-tiled "
+              "smoother")
+    rng = np.random.default_rng(cfg.seed + 1)
+    ph = np.stack([0.2 * rng.normal(size=(2, L, L)) for _ in range(B)])
+    Us = mgt.models.gauge.gauge_from_phases(ph, cfg.cdtype, dev)
+    _, out = setup_check(torch, mgt, dev, cfg, Us, "dense_update_tiled",
+                         f"ensemble L={L} x{B}")
+    out["setup_warm_s"] = timed(torch, lambda: mgt.build_hierarchies_batched(
+        Us, cfg))[1]
+    out.update(B=B, L=L)
+    print(f"ensemble L={L} x{B} c64 (x-tiled setup): setup "
+          f"{out['setup_cold_s']:.3f} s cold, {out['setup_warm_s']:.3f} s "
+          f"warm; launches {out['setup_launches']}; "
+          f"{out['group_calls_checked']} G > 1 calls checked (plain "
+          f"{out['group_max_rel_err_vs_plain']:.2e}, copied D "
+          f"{out['group_max_diff_vs_copied']:.1e}); batched hierarchy vs "
+          f"own {out['max_rel_diff_vs_own_setup']:.2e}")
     return out
 
 
@@ -2051,6 +2309,8 @@ def main():
     # ---- the ensemble, and the CLI's geometric programs ----
     ensemble = ensemble_phase(torch, mgt, dev)
     print(f"ensemble done at {time.perf_counter() - t_start:.1f} s")
+    ens_tiled = ensemble_tiled_phase(torch, mgt, dev)
+    print(f"ensemble x-tiled done at {time.perf_counter() - t_start:.1f} s")
     geo = geo_phase(torch, mgt, dev)
     print(f"geo done at {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches on the main path that runs it: the flagship's
@@ -2060,20 +2320,27 @@ def main():
                            if k.endswith("_tiled")})
     phase_launches.update({k: flag_launches for k in FLAGSHIP_KERNELS})
     phase_launches.update({k: block8_launches for k in BLOCK8_KERNELS})
+    # the grouped launches: each ensemble setup's
+    phase_launches["dense_update_groups"] = {
+        "dense_update_groups":
+        ensemble["setup_group_launches"]["dense_update"]}
+    phase_launches["dense_update_tiled_groups"] = {
+        "dense_update_tiled_groups":
+        ens_tiled["setup_group_launches"]["dense_update_tiled"]}
 
     batched_cycle = dict(batched["cycle"]["port_launches"],
                          **large_b["cycle"]["port_launches"])
     kernels = [{"name": k, "route": "cuda", "source": SOURCES[k],
                 "replaces": REPLACES[k],
                 "launches": phase_launches[k][k],
-                "cli_launches": cli_launches[k],
+                "cli_launches": cli_launches.get(k, 0),
                 **{f: per_kernel[k][f] for f in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "library", "case", "device_us",
                     "device_us_cold", "device_us_cold_clean",
                     "bound_share_cold", "copy_us_cold", "cold_over_copy",
                     "unfused_ms", "unfused_device_us",
-                    "unfused_device_us_cold")
+                    "unfused_device_us_cold", "max_diff_vs_copied")
                    if f in per_kernel[k]},
                 **({"batched": dict(per_kernel[k]["batched"],
                                     cycle_launches=batched_cycle.get(k, 0))}
@@ -2092,6 +2359,7 @@ def main():
                       "card": card}))
     print(json.dumps({"chebyshev": cheb, "card": card}))
     print(json.dumps({"ensemble8": ensemble, "card": card}))
+    print(json.dumps({"ensemble_tiled": ens_tiled, "card": card}))
     print(json.dumps({"geo": geo, "card": card}))
     print(json.dumps({"block8": block8, "card": card}))
     print(json.dumps({"mesh": mesh, "card": card}))

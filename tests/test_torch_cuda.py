@@ -447,6 +447,103 @@ def test_dense_smooth_tiled(dev, dtype, kind, omega, n, B, L, shared, tile):
     assert _rel(got, want) < BARS[dtype]
 
 
+def _groups(rng, C, G, n, L, dtype, dev, shared_r):
+    """C groups of G fields [C, G, n, L, L], each group on its own D and
+    D0inv [C, ...]; r shared [n, L, L] or one a field."""
+    D, Dinv = _dense(rng, C, n, L, dtype, dev)
+    phi = _c(rng, (C, G, n, L, L), dtype, dev)
+    r = _c(rng, (n, L, L) if shared_r else (C, G, n, L, L), dtype, dev)
+    return D, Dinv, phi, r
+
+
+def _copied(D, Dinv, phi, r):
+    """The same call with every D and D0inv copied for each field of its
+    group: a copy an entry (G = 1), fields and r flattened to [C G, ...]."""
+    G = phi.shape[1]
+    flat = phi.reshape(-1, *phi.shape[2:])
+    return (D.repeat_interleave(G, dim=0).contiguous(),
+            Dinv.repeat_interleave(G, dim=0).contiguous(), flat,
+            r if r.dim() == 3 else r.reshape(flat.shape))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", ["rbgs", "jacobi"])
+@pytest.mark.parametrize("n", [1, 2, 4])
+@pytest.mark.parametrize("G", [1, 2, 4])
+@pytest.mark.parametrize("tiled", [False, True], ids=["global", "tiled"])
+def test_dense_smooth_groups(dev, dtype, kind, n, G, tiled):
+    """B3 / B6 with C = 3 groups (an odd C) of G fields, each group on its
+    own D and D0inv, on L = 20 (no multiple of the red-black tile's 16 x
+    32) and L = 128 (the ensemble's level 0): one launch a call (a sweep
+    tiled), counted as grouped where G > 1; the plain version's result (D
+    broadcast over its group); the same bits as the call with each D
+    copied G times; the caller's phi untouched."""
+    rng = np.random.default_rng(15)
+    name = "dense_update_tiled" if tiled else "dense_update"
+    fn = cs.dense_smooth_tiled if tiled else cs.dense_smooth
+    for L, shared_r in ((20, True), (128, False)):
+        D, Dinv, phi, r = _groups(rng, 3, G, n, L, dtype, dev, shared_r)
+        keep = phi.clone()
+        n0, g0 = cs.launches[name], cs.group_launches[name]
+        got = fn(D, Dinv, phi, r, 3, kind, 0.9)
+        assert cs.launches[name] == n0 + (3 if tiled else 1)
+        assert cs.group_launches[name] == g0 + (0 if G == 1 else
+                                                3 if tiled else 1)
+        assert torch.equal(phi, keep)
+        want = sm.smooth_plain(D, Dinv, phi, r, 3, kind, 0.9)
+        assert _rel(got, want) < BARS[dtype]
+        copied = fn(*_copied(D, Dinv, phi, r), 3, kind, 0.9)
+        assert torch.equal(got.reshape(copied.shape), copied)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("staged", [True, False], ids=["staged", "streamed"])
+@pytest.mark.parametrize("G,rows", [(2, 3), (4, 7), (4, 1), (3, 5)])
+def test_dense_smooth_groups_band_edges(dev, monkeypatch, dtype, staged, G,
+                                        rows):
+    """B3's bands cut through groups and x rows: a band of `rows` rows that
+    is no multiple of G (the rows g = (c L + x) G + m of one (c, x) split
+    between two bands) nor divides the B L rows; staged and streamed
+    operands; against the plain version and the copied-D launch."""
+    rng = np.random.default_rng(16)
+    n, L, C = 4, 12, 3
+    D, Dinv, phi, r = _groups(rng, C, G, n, L, dtype, dev, False)
+    size = phi.element_size()
+    total = C * G * L
+
+    def band(name, dt, n_, B, L_, device, G_=1):
+        return cs.Band(rows, -(-total // rows), staged,
+                       cs.dense_band_bytes(n_, L_, rows, size, G_)
+                       if staged else 0)
+
+    monkeypatch.setattr(cs, "_band", band)
+    for kind in ("rbgs", "jacobi"):
+        got = cs.dense_smooth(D, Dinv, phi, r, 3, kind, 0.9)
+        want = sm.smooth_plain(D, Dinv, phi, r, 3, kind, 0.9)
+        assert _rel(got, want) < BARS[dtype]
+        copied = cs.dense_smooth(*_copied(D, Dinv, phi, r), 3, kind, 0.9)
+        assert torch.equal(got.reshape(copied.shape), copied)
+
+
+def test_dense_smooth_groups_refused(dev):
+    """Operators whose copies match neither the groups nor the entries, or
+    a third batch axis: ValueError, nothing launched."""
+    rng = np.random.default_rng(17)
+    D, Dinv, phi, r = _groups(rng, 3, 2, 2, 8, torch.complex64, dev, True)
+    n0 = dict(cs.launches)
+    for fn in (cs.dense_smooth, cs.dense_smooth_tiled):
+        with pytest.raises(ValueError):      # 2 copies for 3 groups
+            fn(D[:2], Dinv[:2], phi, r, 1)
+        with pytest.raises(ValueError):      # a copy a field: use [C G]
+            fn(D.repeat_interleave(2, 0), Dinv.repeat_interleave(2, 0),
+               phi, r, 1)
+        with pytest.raises(ValueError):      # r batched by group only
+            fn(D, Dinv, phi, r.expand(3, -1, -1, -1).contiguous(), 1)
+        with pytest.raises(ValueError):
+            fn(D, Dinv, phi[None], r, 1)
+    assert cs.launches == n0
+
+
 def test_smooth_dispatches_tiled_past_the_l2(dev):
     """smooth() on a level past the L2 (n=4, L=256) launches the tiled
     kernel only (once per sweep); on one within it (n=4, L=128) the global
@@ -519,7 +616,7 @@ def test_fused_red_black_sweep(dev, dtype, form, L, tile):
         def raw(src, dst):
             return cs._entry(name, dtype)(
                 D.data_ptr(), Dinv.data_ptr(), src.data_ptr(), r.data_ptr(),
-                dst.data_ptr(), *dims, 1, omega, TX, TY,
+                dst.data_ptr(), *dims.args(), 1, omega, TX, TY,
                 torch.cuda.current_stream().cuda_stream)
     keep = phi.clone()
     n0 = cs.launches[name]

@@ -19,7 +19,8 @@ levels, complex128) take JAX's single-device cycle count and JAX's
 (2, 2)-mesh count, with fields within JAX's own atol 1e-10 of the
 single-device solve (test_parallel.py:98) and within 1e-12 relative of
 JAX's sharded one; the sharded setup from JAX's starts matches JAX's
-sharded setup and the port's single-device one to 1e-12 relative;
+sharded setup and the port's single-device one to 1e-12 relative; a
+singular min-res system on tiles gives non-finite weights, as JAX's does;
 dryrun_multichip's complex64 rows hold phi to the complex64 bar (2e-5
 relative) against JAX's sharded answers, and the 20-cycle residual to
 that function's own 5e-3.
@@ -55,6 +56,15 @@ SETUPS = {"laplace": ("laplace", L, None), "wilson": ("wilson", L, None),
           "wilson_L12": ("wilson", 12, 12)}
 SMOOTHERS = (("jacobi", 0.8), ("rbgs", 1.0), ("chebyshev", 1.0))
 CHEBY = (0.3, 2.2)
+
+
+# the sharded min-res weights on a singular system: every correction zero
+# (A = 0), or every one the same field (A of rank 1)
+MINRES_SINGULAR = {"zero": 0.0, "rank1": 1.0}
+
+
+def _minres_cfg(config_cls):
+    return config_cls(L=L, stencil="wilson", m=-0.05, nlevels=2, ntl=True)
 
 
 def _setup_cfg(stencil, config_cls):
@@ -116,6 +126,12 @@ def _rank_main(rank, world, store, inputs, out):
                        mesh, omega, cheby_interval=CHEBY)))
         record((m, "global_norm"), lambda: float(
             halo.global_norm_sharded(tile(o["v"]), mesh)))
+        for kind, scale in MINRES_SINGULAR.items():
+            # four equal corrections: the min-res system is 0 or of rank 1
+            record((m, "minres_singular", kind), lambda scale=scale: np_of(
+                sharded._min_res_weights_sharded(
+                    tile(o["D"]), tile(o["v"]), [tile(scale * o["v"])] * 4,
+                    _minres_cfg(mgt.MGConfig), mesh)))
 
         for name, (cfg_d, levels, ntl, b) in inp["solves"].items():
             cfg = config_from_dict(cfg_d)
@@ -388,6 +404,12 @@ def _answers(inputs, state):
     o = inputs["ops"]
     ops = {"apply": np.asarray(jst.apply_D(jnp.asarray(o["D"]),
                                            jnp.asarray(o["v"])))}
+    from tpu_multigrid.solver import cycles as jcyc
+    for kind, scale in MINRES_SINGULAR.items():
+        ops["minres_" + kind] = np.asarray(jcyc.min_res_weights(
+            jnp.asarray(o["D"]), jnp.asarray(o["v"]),
+            jnp.stack([scale * jnp.asarray(o["v"])] * 4),
+            _minres_cfg(mg.MGConfig)))
     for kind, omega in SMOOTHERS:
         ops[kind] = np.asarray(jsm.smooth(
             jnp.asarray(o["Dl"]), jnp.asarray(o["Dl_inv"]),
@@ -528,6 +550,25 @@ def test_global_norm_sharded(ranks, refs, world, shape):
     got = _got(ranks, world, (_m(shape), "global_norm"))
     want = np.linalg.norm(refs[2]["ops"]["v"])
     assert abs(got - want) < C128_BAR * want
+
+
+@pytest.mark.parametrize("world,shape", CASES, ids=IDS)
+@pytest.mark.parametrize("kind", list(MINRES_SINGULAR))
+def test_sharded_min_res_singular_gives_non_finite(ranks, refs, world, shape,
+                                                   kind):
+    """A singular min-res system on tiles: non-finite weights and no
+    exception, as JAX's min_res_weights and the port's single-device one
+    give."""
+    got = _got(ranks, world, (_m(shape), "minres_singular", kind))
+    assert got.shape == (4,) and not np.isfinite(got).all()
+    assert not np.isfinite(refs[3]["ops"]["minres_" + kind]).all()
+    import tpu_multigrid_torch as mgt
+    o = refs[2]["ops"]
+    v = t_of(o["v"])
+    single = mgt.solver.cycles.min_res_weights(
+        t_of(o["D"]), v, torch.stack([MINRES_SINGULAR[kind] * v] * 4),
+        _minres_cfg(mgt.MGConfig))
+    assert not torch.isfinite(single).all()
 
 
 SOLVE_CASES = [(w, s, n, ov) for w, s in CASES for n in SOLVES

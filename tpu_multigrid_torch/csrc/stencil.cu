@@ -327,12 +327,19 @@ __global__ void __launch_bounds__(128)
 // (scripts/torch_smoother_ab.py; PERF.md).
 //
 // Design: one cooperative launch; the grid barrier between half-sweeps
-// takes the place of the launch boundary. Block g owns `rows` consecutive
-// (batch, x) rows for every sweep. STAGED: the block first copies, with
-// cp.async, its rows of D's 4 n^2 hop planes, D0inv's n^2 planes and r's n
-// planes (each a contiguous run of L words a row, the layout being
-// site-minor) into shared memory, (5 n^2 + n) L words a row (86 KB at n=4
-// L=128 c64), and reads them from there in every sweep. Else (a band past
+// takes the place of the launch boundary. The B entries come in groups of
+// G that share one operator (entry b reads D and D0inv of copy b / G; G = 1
+// a copy an entry, or one shared copy at stride 0; G = k for an ensemble's
+// k near-null candidates a configuration, as the TPU kernels see them
+// under the JAX package's vmap). The B L rows are ordered
+// g = (c L + x) G + m for entry b = c G + m, so that the G entries of a
+// group at one x are neighbours, as in links_update_kernel. Block g owns
+// `rows` consecutive rows for every sweep. STAGED: the block first copies,
+// with cp.async, D's 4 n^2 hop planes and D0inv's n^2 planes of each (c, x)
+// row that its rows touch, once for the group, and r's n planes of each
+// of its rows (each a contiguous run of L words a row, the layout being
+// site-minor) into shared memory, (5 n^2 + n) L words a row at G = 1 (86
+// KB at n=4 L=128 c64), and reads them from there in every sweep. Else (a band past
 // the shared memory: L=1024, or setup at n=2 L=256 in c128) it reads them
 // from global memory each sweep, in the same launch. n threads per site,
 // thread i computing row i of the block product: it loads phi_i of each
@@ -348,39 +355,69 @@ __global__ void __launch_bounds__(128)
 // In-place red/black as in links_update_kernel: a site of one colour reads
 // only the other colour and itself; half-sweep 0 copies the other colour of
 // the caller's phi into out.
+// The (group, x) rows c L + x that a band of `rows` consecutive rows
+// g = (c L + x) G + m touches, at most (rows at G = 1).
+__host__ __device__ __forceinline__ int band_ops_rows(int rows, int G) {
+  return (rows + G - 2) / G + 1;
+}
+
+// Row g of a dense smoother launch: (c L + x) G + m, entry b = c G + m.
+struct DenseRow {
+  int c, x, b;
+};
+
+__device__ __forceinline__ DenseRow dense_row(int g, int G, int L) {
+  const int cx = g / G, c = cx / L;
+  return DenseRow{c, cx - c * L, c * G + (g - cx * G)};
+}
+
 template <typename T, int N, bool STAGED>
 __global__ void __launch_bounds__(256)
     dense_update_kernel(const cplx<T>* __restrict__ D,
                         const cplx<T>* __restrict__ Dinv, const cplx<T>* phi,
                         const cplx<T>* __restrict__ r, cplx<T>* out,
-                        cplx<T>* scratch, int B, int L, long long d_bstride,
-                        long long dinv_bstride, long long r_bstride, int rb,
-                        int n_sweeps, T omega, int rows) {
-  constexpr int kHop = 4 * N * N;  // staged planes: hop blocks, D0inv, r
-  constexpr int kPlanes = kHop + N * N + N;
+                        cplx<T>* scratch, int B, int L, int G,
+                        long long d_bstride, long long dinv_bstride,
+                        long long r_bstride, int rb, int n_sweeps, T omega,
+                        int rows) {
+  constexpr int kHop = 4 * N * N;  // staged planes: hop blocks, D0inv; r
+  constexpr int kOps = kHop + N * N;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cplx<T>* const sm = reinterpret_cast<cplx<T>*>(smem_raw);
   const size_t LL = (size_t)L * L;
-  const size_t band = (size_t)rows * L;  // plane stride in shared memory
+  // plane strides in shared memory: D's and D0inv's planes a (c, x) row,
+  // then r's planes a row
+  const size_t band_ops = (size_t)band_ops_rows(rows, G) * L;
+  const size_t band = (size_t)rows * L;
+  cplx<T>* const sr = sm + kOps * band_ops;
   const int row0 = blockIdx.x * rows;
   const int nrows = min(rows, B * L - row0);
+  const int cx0 = row0 / G;  // the band's first (c, x) row
 
   if constexpr (STAGED) {
-    const int per_plane = nrows * L;
-    for (int k = threadIdx.x; k < kPlanes * per_plane; k += blockDim.x) {
-      const int p = k / per_plane, rem = k - p * per_plane;
-      const int j = rem / L, y = rem - j * L;
-      const int g = row0 + j, b = g / L, x = g - b * L;
-      const size_t s = (size_t)x * L + y;
-      const cplx<T>* src;
-      if (p < kHop) {
-        src = D + b * (size_t)d_bstride + (size_t)(N * N + p) * LL + s;
-      } else if (p < kHop + N * N) {
-        src = Dinv + b * (size_t)dinv_bstride + (size_t)(p - kHop) * LL + s;
+    const int per_ops = ((row0 + nrows - 1) / G - cx0 + 1) * L;
+    const int per_r = nrows * L;
+    for (int k = threadIdx.x; k < kOps * per_ops + N * per_r;
+         k += blockDim.x) {
+      if (k < kOps * per_ops) {
+        const int p = k / per_ops, rem = k - p * per_ops;
+        const int cx = cx0 + rem / L, y = rem % L;
+        const int c = cx / L;
+        const size_t s = (size_t)(cx - c * L) * L + y;
+        const cplx<T>* src =
+            p < kHop ? D + c * (size_t)d_bstride + (size_t)(N * N + p) * LL + s
+                     : Dinv + c * (size_t)dinv_bstride +
+                           (size_t)(p - kHop) * LL + s;
+        cp_async(sm + p * band_ops + rem, src);
       } else {
-        src = r + b * (size_t)r_bstride + (size_t)(p - kHop - N * N) * LL + s;
+        const int q = k - kOps * per_ops;
+        const int p = q / per_r, rem = q - p * per_r;
+        const int j = rem / L, y = rem - j * L;
+        const DenseRow w = dense_row(row0 + j, G, L);
+        cp_async(sr + p * band + rem,
+                 r + w.b * (size_t)r_bstride + (size_t)p * LL +
+                     (size_t)w.x * L + y);
       }
-      cp_async(sm + p * band + rem, src);
     }
     cp_async_wait();
     __syncthreads();
@@ -398,9 +435,10 @@ __global__ void __launch_bounds__(256)
     if (red_black && h == 0) {  // the other colour, phi -> out
       for (int t = threadIdx.x; t < work; t += blockDim.x) {
         const int i = t % N, q = t / N;
-        const int j = q / per_row, g = row0 + j, b = g / L, x = g - b * L;
-        const int y = 2 * (q - j * per_row) + ((x + 1) & 1);
-        const size_t k = b * (N * LL) + i * LL + (size_t)x * L + y;
+        const int j = q / per_row;
+        const DenseRow w = dense_row(row0 + j, G, L);
+        const int y = 2 * (q - j * per_row) + ((w.x + 1) & 1);
+        const size_t k = w.b * (N * LL) + i * LL + (size_t)w.x * L + y;
         out[k] = ld_cg(phi + k);
       }
     }
@@ -411,27 +449,30 @@ __global__ void __launch_bounds__(256)
       const int t = base + threadIdx.x;
       const bool active = t < work;
       const int q = (active ? t : lane_i) / N;
-      const int j = q / per_row, g = row0 + j, b = g / L, x = g - b * L;
+      const int j = q / per_row, g = row0 + j;
+      const DenseRow w = dense_row(g, G, L);
+      const int x = w.x;
+      const size_t b = w.b;
       const int idx = q - j * per_row;
       const int y = ps.colour < 0 ? idx : 2 * idx + ((x + ps.colour) & 1);
       const Nbrs n = neighbours(x, y, L);
       const size_t nb[4] = {n.xp, n.xm, n.yp, n.ym};
-      const size_t band_s = (size_t)j * L + y;  // the site in the band
 
       const cplx<T>* Dp;  // plane (d, i, 0) of the hop blocks at this site
       const cplx<T>* Dip;
       const cplx<T>* rp;
       size_t stride;
       if constexpr (STAGED) {
-        Dp = sm + (size_t)(lane_i * N) * band + band_s;
-        Dip = sm + (size_t)(kHop + lane_i * N) * band + band_s;
-        rp = sm + (size_t)(kHop + N * N + lane_i) * band + band_s;
-        stride = band;
+        const size_t ops_s = (size_t)(g / G - cx0) * L + y;  // (c, x) row
+        Dp = sm + (size_t)(lane_i * N) * band_ops + ops_s;
+        Dip = sm + (size_t)(kHop + lane_i * N) * band_ops + ops_s;
+        rp = sr + (size_t)lane_i * band + (size_t)j * L + y;
+        stride = band_ops;
       } else {
-        Dp = D + b * (size_t)d_bstride + (size_t)(N * N + lane_i * N) * LL +
-             n.s;
-        Dip = Dinv + b * (size_t)dinv_bstride + (size_t)(lane_i * N) * LL +
-              n.s;
+        Dp = D + w.c * (size_t)d_bstride +
+             (size_t)(N * N + lane_i * N) * LL + n.s;
+        Dip = Dinv + w.c * (size_t)dinv_bstride +
+              (size_t)(lane_i * N) * LL + n.s;
         rp = r + b * (size_t)r_bstride + (size_t)lane_i * LL + n.s;
         stride = LL;
       }
@@ -1225,16 +1266,16 @@ const void* dense_update_fn(int n, int staged) {
 template <typename T>
 int dense_update(const void* D, const void* Dinv, const void* phi,
                  const void* r, void* out, void* scratch, int B, int n, int L,
-                 long long d_bs, long long dinv_bs, long long r_bs, int rb,
-                 int n_sweeps, double omega, int rows, int staged,
+                 int G, long long d_bs, long long dinv_bs, long long r_bs,
+                 int rb, int n_sweeps, double omega, int rows, int staged,
                  long long smem, void* stream) {
   const void* fn = dense_update_fn<T>(n, staged);
   if (fn == nullptr || rows < 1 || n_sweeps < 1 || B < 1 || L < 2 ||
-      (rb && L % 2)) {
+      (rb && L % 2) || G < 1 || B % G) {
     return (int)cudaErrorInvalidValue;
   }
-  if (staged &&
-      smem < (long long)(5 * n * n + n) * rows * L * sizeof(cplx<T>)) {
+  if (staged && smem < (long long)(5 * n * n * band_ops_rows(rows, G) +
+                                   n * rows) * L * sizeof(cplx<T>)) {
     return (int)cudaErrorInvalidValue;
   }
   const unsigned grid = (unsigned)((B * L + rows - 1) / rows);
@@ -1245,9 +1286,9 @@ int dense_update(const void* D, const void* Dinv, const void* phi,
   cplx<T>* op = (cplx<T>*)out;
   cplx<T>* sp = (cplx<T>*)scratch;
   T om = T(omega);
-  void* args[] = {&Dp, &Dip, &pp,      &rp,     &op, &sp,
-                  &B,  &L,   &d_bs,    &dinv_bs, &r_bs, &rb,
-                  &n_sweeps, &om, &rows};
+  void* args[] = {&Dp,      &Dip,  &pp,   &rp, &op,       &sp,
+                  &B,       &L,    &G,    &d_bs, &dinv_bs, &r_bs,
+                  &rb,      &n_sweeps, &om, &rows};
   return launch_cooperative(fn, grid, kDenseThreads, staged ? smem : 0,
                             stream, args);
 }
@@ -1598,23 +1639,26 @@ int tmg_links_update_occupancy_c128(int staged, long long smem, int* blocks) {
                    blocks);
 }
 
+// B entries in groups of G sharing one D and D0inv (copy b / G, at d_bs
+// and dinv_bs a copy; 0: shared), r batched (r_bs = n L^2) or shared (0).
 int tmg_dense_update_c64(const void* D, const void* Dinv, const void* phi,
                          const void* r, void* out, void* scratch, int B,
-                         int n, int L, long long d_bs, long long dinv_bs,
-                         long long r_bs, int rb, int n_sweeps, double omega,
-                         int rows, int staged, long long smem, void* stream) {
-  return dense_update<float>(D, Dinv, phi, r, out, scratch, B, n, L, d_bs,
+                         int n, int L, int G, long long d_bs,
+                         long long dinv_bs, long long r_bs, int rb,
+                         int n_sweeps, double omega, int rows, int staged,
+                         long long smem, void* stream) {
+  return dense_update<float>(D, Dinv, phi, r, out, scratch, B, n, L, G, d_bs,
                              dinv_bs, r_bs, rb, n_sweeps, omega, rows, staged,
                              smem, stream);
 }
 int tmg_dense_update_c128(const void* D, const void* Dinv, const void* phi,
                           const void* r, void* out, void* scratch, int B,
-                          int n, int L, long long d_bs, long long dinv_bs,
-                          long long r_bs, int rb, int n_sweeps, double omega,
-                          int rows, int staged, long long smem,
-                          void* stream) {
-  return dense_update<double>(D, Dinv, phi, r, out, scratch, B, n, L, d_bs,
-                              dinv_bs, r_bs, rb, n_sweeps, omega, rows,
+                          int n, int L, int G, long long d_bs,
+                          long long dinv_bs, long long r_bs, int rb,
+                          int n_sweeps, double omega, int rows, int staged,
+                          long long smem, void* stream) {
+  return dense_update<double>(D, Dinv, phi, r, out, scratch, B, n, L, G,
+                              d_bs, dinv_bs, r_bs, rb, n_sweeps, omega, rows,
                               staged, smem, stream);
 }
 int tmg_dense_update_occupancy_c64(int n, int staged, long long smem,

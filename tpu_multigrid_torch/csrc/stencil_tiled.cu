@@ -17,9 +17,10 @@
 // Layouts are stencil.cu's: U[2][L][L], phi/r/v/out[B][n][L][L],
 // D[B][5][n][n][L][L], D0inv[B][n][n][L][L], site (x, y) at x*L + y. The
 // dense kernels take n in {1, 2, 4} and a batch axis with a stride per
-// operand (0: shared by the batch); the links kernels a batch axis on phi,
-// out and r (r's stride 0: shared), with U shared by the batch. The batch
-// entry is blockIdx.z.
+// operand (0: shared by the batch), the entries in groups of G that share
+// one copy of D (and D0inv): entry b reads copy b / G; the links kernels a
+// batch axis on phi, out and r (r's stride 0: shared), with U shared by the
+// batch. The batch entry is blockIdx.z (entry_of for the dense smoothers).
 //
 // What bounds them on the H100: bytes. At L=2048 the level-0 links set is
 // ~270 MB (c64) and level 1's dense D ~670 MB, far past the 50 MB L2, so
@@ -80,13 +81,25 @@ struct Tile {
   int tx, ty;  // its extent, clipped to the lattice
 };
 
-__device__ __forceinline__ Tile tile_of(int TX, int TY, int L) {
+// The tile of this block; G > 1: grid.x runs over (y tile, member of a
+// group), the G members of a group side by side (entry_of).
+__device__ __forceinline__ Tile tile_of(int TX, int TY, int L, int G = 1) {
   Tile t;
   t.x0 = blockIdx.y * TX;
-  t.y0 = blockIdx.x * TY;
+  t.y0 = (blockIdx.x / G) * TY;
   t.tx = min(TX, L - t.x0);
   t.ty = min(TY, L - t.y0);
   return t;
+}
+
+// Batch entry of a dense smoother block: group blockIdx.z, member
+// blockIdx.x % G. The G blocks that read one tile of a group's D and D0inv
+// are neighbours in the grid, so they run together and all but the first
+// find the tile's operands in L2: HBM gives each word of a group's
+// operators once (the TPU kernel, under the JAX package's vmap, reads
+// them once per entry).
+__device__ __forceinline__ size_t entry_of(int G) {
+  return (size_t)blockIdx.z * G + blockIdx.x % G;
 }
 
 // Periodic index of i in [-L, 2L).
@@ -371,7 +384,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // One Jacobi sweep of the dense 5-point block smoother on one tile of
-// batch entry blockIdx.z, into a separate out (dense_relax). Sites per
+// batch entry entry_of(G), into a separate out (dense_relax). Sites per
 // thread as in links_tiled_kernel; phi [N][TX+2][TY+2] staged. D and D0inv
 // (5 n^2 words a site) are read in the update itself, where their loads
 // keep enough bytes in flight.
@@ -381,15 +394,15 @@ __global__ void __launch_bounds__(kThreads)
                        const cplx<T>* __restrict__ Dinv,
                        const cplx<T>* __restrict__ phi,
                        const cplx<T>* __restrict__ r,
-                       cplx<T>* __restrict__ out, int L,
+                       cplx<T>* __restrict__ out, int L, int G,
                        long long d_bstride, long long dinv_bstride,
                        long long r_bstride, T omega, int TX, int TY) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Tile t = tile_of(TX, TY, L);
+  const Tile t = tile_of(TX, TY, L, G);
   const size_t LL = (size_t)L * L;
-  const size_t b = blockIdx.z;
-  const cplx<T>* Db = D + b * (size_t)d_bstride;
-  const cplx<T>* Dib = Dinv + b * (size_t)dinv_bstride;
+  const size_t b = entry_of(G);
+  const cplx<T>* Db = D + blockIdx.z * (size_t)d_bstride;
+  const cplx<T>* Dib = Dinv + blockIdx.z * (size_t)dinv_bstride;
   const cplx<T>* rb = r + b * (size_t)r_bstride;
   cplx<T>* ob = out + b * (N * LL);
   const int vp = TY + 2;
@@ -593,7 +606,7 @@ __global__ void __launch_bounds__(kRbThreads)
 }
 
 // One red-black sweep of the dense 5-point block smoother on one tile of
-// batch entry blockIdx.z (see above). Shared memory: src phi
+// batch entry entry_of(G) (see above). Shared memory: src phi
 // [N][TX+4][TY+4], then the black site's operands of every thread,
 // [5N^2 + N][threads] (D's 4N^2 hop blocks, D0inv's N^2, r's N), copied
 // with cp.async at the start, after phi's copies (two commit groups: the
@@ -607,16 +620,16 @@ __global__ void __launch_bounds__(kRbThreads, 1)
                           const cplx<T>* __restrict__ Dinv,
                           const cplx<T>* __restrict__ src,
                           const cplx<T>* __restrict__ r,
-                          cplx<T>* __restrict__ dst, int L,
+                          cplx<T>* __restrict__ dst, int L, int G,
                           long long d_bstride, long long dinv_bstride,
                           long long r_bstride, T omega, int TX, int TY) {
   constexpr int kW = 5 * N * N + N;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Tile t = tile_of(TX, TY, L);
+  const Tile t = tile_of(TX, TY, L, G);
   const size_t LL = (size_t)L * L;
-  const size_t b = blockIdx.z;
-  const cplx<T>* Db = D + b * (size_t)d_bstride;
-  const cplx<T>* Dib = Dinv + b * (size_t)dinv_bstride;
+  const size_t b = entry_of(G);
+  const cplx<T>* Db = D + blockIdx.z * (size_t)d_bstride;
+  const cplx<T>* Dib = Dinv + blockIdx.z * (size_t)dinv_bstride;
   const cplx<T>* rb = r + b * (size_t)r_bstride;
   cplx<T>* ob = dst + b * (N * LL);
   const int vp = TY + 4;
@@ -753,13 +766,14 @@ __global__ void __launch_bounds__(kThreads)
 // ---- host side -------------------------------------------------------------
 
 // Grid over (y tiles, x tiles, batch), or cudaErrorInvalidValue for a tile
-// or batch the kernels do not take.
-inline int grid_of(int L, int TX, int TY, int B, dim3& grid) {
+// or batch the kernels do not take; G > 1 (the dense smoothers): over
+// (y tiles x G members, x tiles, B / G groups).
+inline int grid_of(int L, int TX, int TY, int B, dim3& grid, int G = 1) {
   if (L < 1 || TX < 1 || TX > kMaxTX || TY < 1 || TY > kMaxTY || B < 1 ||
-      B > 65535 || (L + TX - 1) / TX > 65535)
+      G < 1 || B % G || B / G > 65535 || (L + TX - 1) / TX > 65535)
     return (int)cudaErrorInvalidValue;
-  grid = dim3((unsigned)((L + TY - 1) / TY), (unsigned)((L + TX - 1) / TX),
-              (unsigned)B);
+  grid = dim3((unsigned)((L + TY - 1) / TY * G),
+              (unsigned)((L + TX - 1) / TX), (unsigned)(B / G));
   return 0;
 }
 
@@ -827,20 +841,20 @@ int links_update(const void* U, const void* phi, const void* r, void* out,
 
 template <typename T, int N>
 int dense_update_n(const void* D, const void* Dinv, const void* phi,
-                   const void* r, void* out, int B, int L, long long d_bs,
-                   long long dinv_bs, long long r_bs, int rb, double omega,
-                   int TX, int TY, void* stream) {
+                   const void* r, void* out, int B, int L, int G,
+                   long long d_bs, long long dinv_bs, long long r_bs, int rb,
+                   double omega, int TX, int TY, void* stream) {
   if (overlap(phi, out, sizeof(cplx<T>) * (size_t)B * N * L * L) ||
       (rb && L % 2))
     return (int)cudaErrorInvalidValue;
   dim3 grid;
-  const int err = grid_of(L, TX, TY, B, grid);
+  const int err = grid_of(L, TX, TY, B, grid, G);
   if (err) return err;
   const auto run = [&](auto kernel, dim3 block, size_t smem) {
     return launch(kernel, grid, block, smem, stream, (const cplx<T>*)D,
                   (const cplx<T>*)Dinv, (const cplx<T>*)phi,
-                  (const cplx<T>*)r, (cplx<T>*)out, L, d_bs, dinv_bs, r_bs,
-                  T(omega), TX, TY);
+                  (const cplx<T>*)r, (cplx<T>*)out, L, G, d_bs, dinv_bs,
+                  r_bs, T(omega), TX, TY);
   };
   if (!rb)
     return run(dense_tiled_kernel<T, N>, dim3(kThreadsY, kThreadsX),
@@ -853,19 +867,19 @@ int dense_update_n(const void* D, const void* Dinv, const void* phi,
 
 template <typename T>
 int dense_update(const void* D, const void* Dinv, const void* phi,
-                 const void* r, void* out, int B, int n, int L, long long d_bs,
-                 long long dinv_bs, long long r_bs, int rb, double omega,
-                 int TX, int TY, void* stream) {
+                 const void* r, void* out, int B, int n, int L, int G,
+                 long long d_bs, long long dinv_bs, long long r_bs, int rb,
+                 double omega, int TX, int TY, void* stream) {
   switch (n) {
     case 1:
-      return dense_update_n<T, 1>(D, Dinv, phi, r, out, B, L, d_bs, dinv_bs,
-                                  r_bs, rb, omega, TX, TY, stream);
+      return dense_update_n<T, 1>(D, Dinv, phi, r, out, B, L, G, d_bs,
+                                  dinv_bs, r_bs, rb, omega, TX, TY, stream);
     case 2:
-      return dense_update_n<T, 2>(D, Dinv, phi, r, out, B, L, d_bs, dinv_bs,
-                                  r_bs, rb, omega, TX, TY, stream);
+      return dense_update_n<T, 2>(D, Dinv, phi, r, out, B, L, G, d_bs,
+                                  dinv_bs, r_bs, rb, omega, TX, TY, stream);
     case 4:
-      return dense_update_n<T, 4>(D, Dinv, phi, r, out, B, L, d_bs, dinv_bs,
-                                  r_bs, rb, omega, TX, TY, stream);
+      return dense_update_n<T, 4>(D, Dinv, phi, r, out, B, L, G, d_bs,
+                                  dinv_bs, r_bs, rb, omega, TX, TY, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -952,21 +966,24 @@ int tmg_links_update_tiled_c128(const void* U, const void* phi, const void* r,
                               TY, stream);
 }
 
+// The dense smoother sweep: B entries in groups of G sharing one D and
+// D0inv (copy b / G, at d_bs and dinv_bs a copy; 0: shared), r batched or
+// shared.
 int tmg_dense_update_tiled_c64(const void* D, const void* Dinv,
                                const void* phi, const void* r, void* out,
-                               int B, int n, int L, long long d_bs,
+                               int B, int n, int L, int G, long long d_bs,
                                long long dinv_bs, long long r_bs, int rb,
                                double omega, int TX, int TY, void* stream) {
-  return dense_update<float>(D, Dinv, phi, r, out, B, n, L, d_bs, dinv_bs,
+  return dense_update<float>(D, Dinv, phi, r, out, B, n, L, G, d_bs, dinv_bs,
                              r_bs, rb, omega, TX, TY, stream);
 }
 int tmg_dense_update_tiled_c128(const void* D, const void* Dinv,
                                 const void* phi, const void* r, void* out,
-                                int B, int n, int L, long long d_bs,
+                                int B, int n, int L, int G, long long d_bs,
                                 long long dinv_bs, long long r_bs, int rb,
                                 double omega, int TX, int TY, void* stream) {
-  return dense_update<double>(D, Dinv, phi, r, out, B, n, L, d_bs, dinv_bs,
-                              r_bs, rb, omega, TX, TY, stream);
+  return dense_update<double>(D, Dinv, phi, r, out, B, n, L, G, d_bs,
+                              dinv_bs, r_bs, rb, omega, TX, TY, stream);
 }
 
 int tmg_links_apply_tiled_c64(const void* U, const void* v, void* out, int B,

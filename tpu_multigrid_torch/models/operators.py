@@ -5,6 +5,9 @@ a 5-point block stencil ``D[5, n, n, L, L]`` (directions 0=same, 1=+x,
   laplace: D0 = -(4+m) I;  D_{+mu} = U_mu(x);  D_{-mu} = U_mu(x-mu)^*
   wilson:  D0 = (2+m) I;   D_{+mu} = U_mu(x) * 1/2 (I - gamma_mu)
            D_{-mu} = U_mu(x-mu)^* * 1/2 (I + gamma_mu)
+
+Links U [C?, 2, L, L] with an optional leading configuration axis give
+stencils [C?, 5, n, n, L, L] (the JAX package vmaps over it).
 """
 from __future__ import annotations
 
@@ -27,17 +30,18 @@ def gamma5(n: int, dtype=np.complex128):
 
 
 def assemble_laplace(U: torch.Tensor, m: float) -> torch.Tensor:
-    """Gauged Laplace stencil, n=1: D[5, 1, 1, L, L]."""
-    d0 = -(4.0 + m) * torch.ones_like(U[0])
-    dxm = torch.conj(torch.roll(U[0], 1, dims=-2))
-    dym = torch.conj(torch.roll(U[1], 1, dims=-1))
-    D = torch.stack([d0, U[0], dxm, U[1], dym])
-    return D[:, None, None, :, :].contiguous()
+    """Gauged Laplace stencil, n=1: D[C?, 5, 1, 1, L, L]."""
+    ux, uy = U[..., 0, :, :], U[..., 1, :, :]
+    d0 = -(4.0 + m) * torch.ones_like(ux)
+    dxm = torch.conj(torch.roll(ux, 1, dims=-2))
+    dym = torch.conj(torch.roll(uy, 1, dims=-1))
+    D = torch.stack([d0, ux, dxm, uy, dym], dim=-3)
+    return D[..., None, None, :, :].contiguous()
 
 
 def assemble_wilson(U: torch.Tensor, m: float) -> torch.Tensor:
-    """Wilson-Dirac stencil, n=2: D[5, 2, 2, L, L], hopping terms stored
-    with a + sign and projectors 1/2(I -+ gamma) (reference
+    """Wilson-Dirac stencil, n=2: D[C?, 5, 2, 2, L, L], hopping terms
+    stored with a + sign and projectors 1/2(I -+ gamma) (reference
     level.h:165-171)."""
     g1, g2 = gamma_matrices()
     eye = np.eye(2, dtype=np.complex128)
@@ -45,18 +49,19 @@ def assemble_wilson(U: torch.Tensor, m: float) -> torch.Tensor:
     def const(a):
         return torch.as_tensor(a, dtype=U.dtype, device=U.device)
 
-    ux, uy = U[0], U[1]
+    ux, uy = U[..., 0, :, :], U[..., 1, :, :]
     uxm = torch.conj(torch.roll(ux, 1, dims=-2))
     uym = torch.conj(torch.roll(uy, 1, dims=-1))
 
     def hop(proj, link):
-        return const(proj)[:, :, None, None] * link[None, None]
+        return const(proj)[:, :, None, None] * link[..., None, None, :, :]
 
-    d0 = (2.0 + m) * const(eye)[:, :, None, None] * torch.ones_like(ux)[None, None]
+    d0 = (2.0 + m) * const(eye)[:, :, None, None] * torch.ones_like(
+        ux)[..., None, None, :, :]
     return torch.stack([d0, hop(0.5 * (eye - g1), ux),
                         hop(0.5 * (eye + g1), uxm),
                         hop(0.5 * (eye - g2), uy),
-                        hop(0.5 * (eye + g2), uym)])
+                        hop(0.5 * (eye + g2), uym)], dim=-5)
 
 
 def assemble(stencil: str, U: torch.Tensor, m: float) -> torch.Tensor:

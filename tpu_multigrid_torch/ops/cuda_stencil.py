@@ -122,11 +122,17 @@ launches = {"links_update": 0, "links_residual": 0,
 # sat: staged in shared memory or streamed from global memory (plan_band).
 band_launches = {k: {"staged": 0, "streamed": 0}
                  for k in ("links_update", "dense_update")}
+# Launches of the dense smoothers whose entries came in groups of G > 1
+# sharing one operator (an ensemble's near-null candidates; each is also
+# counted in `launches`).
+group_launches = {"dense_update": 0, "dense_update_tiled": 0}
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+    for k in group_launches:
+        group_launches[k] = 0
     for modes in band_launches.values():
         for k in modes:
             modes[k] = 0
@@ -204,14 +210,14 @@ _SIGNATURES = {
     "links_update": (_P, _P, _P, _P, _P, _I, _I, _D, _D, _I, _I, _LL, _I, _I,
                      _LL, _P),
     "links_update_occupancy": (_I, _LL, _PI),
-    "dense_update": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _I,
-                     _I, _D, _I, _I, _LL, _P),
+    "dense_update": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL,
+                     _I, _I, _D, _I, _I, _LL, _P),
     "dense_update_occupancy": (_I, _I, _LL, _PI),
     "links_residual_tiled": (_P, _P, _P, _P, _I, _I, _D, _LL, _I, _I, _P),
     "links_update_tiled": (_P, _P, _P, _P, _I, _I, _D, _D, _I, _LL, _I, _I,
                            _P),
-    "dense_update_tiled": (_P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _LL,
-                           _I, _D, _I, _I, _P),
+    "dense_update_tiled": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL,
+                           _LL, _I, _D, _I, _I, _P),
     "links_apply": (_P, _P, _P, _I, _I, _D, _I, _P),
     "dense_apply": (_P, _P, _P, _I, _I, _I, _I, _LL, _LL, _P),
     "dense_residual": (_P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _P),
@@ -372,10 +378,19 @@ def links_band_bytes(L: int, rows: int, itemsize: int, B: int = 1) -> int:
     return (2 * nx + 1 + 2 * rows) * L * itemsize
 
 
-def dense_band_bytes(n: int, L: int, rows: int, itemsize: int) -> int:
-    """Shared memory of a dense band: D's 4n^2 hop planes, D0inv's n^2 and
-    r's n over its rows (5n^2 + n words a site)."""
-    return (5 * n * n + n) * rows * L * itemsize
+def band_ops_rows(rows: int, G: int) -> int:
+    """The most (group, x) rows that `rows` consecutive rows g = (c L + x)
+    G + m of a dense smoother touch (csrc/stencil.cu band_ops_rows)."""
+    return (rows + G - 2) // G + 1
+
+
+def dense_band_bytes(n: int, L: int, rows: int, itemsize: int,
+                     G: int = 1) -> int:
+    """Shared memory of a dense band: D's 4n^2 hop planes and D0inv's n^2
+    over the (group, x) rows its rows touch, once for each group of G
+    entries that share them, and r's n over its rows ((5n^2 + n) L words a
+    row at G = 1)."""
+    return (5 * n * n * band_ops_rows(rows, G) + n * rows) * L * itemsize
 
 
 def plan_band(total_rows: int, band_bytes: Callable[[int], int],
@@ -422,7 +437,7 @@ def _occupancy(name: str, dtype: torch.dtype, *head) -> Callable:
 
 @functools.lru_cache(maxsize=None)
 def _band(name: str, dtype: torch.dtype, n: int, B: int, L: int,
-          device: torch.device) -> Band:
+          device: torch.device, G: int = 1) -> Band:
     """plan_band for one call's shapes with the card's SM count and the
     kernel's occupancy (cached per shape)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -430,8 +445,8 @@ def _band(name: str, dtype: torch.dtype, n: int, B: int, L: int,
     if name == "links_update":
         return plan_band(B * L, lambda k: links_band_bytes(L, k, size, B),
                          sms, _occupancy(name, dtype))
-    return plan_band(B * L, lambda k: dense_band_bytes(n, L, k, size), sms,
-                     _occupancy(name, dtype, n))
+    return plan_band(B * L, lambda k: dense_band_bytes(n, L, k, size, G),
+                     sms, _occupancy(name, dtype, n))
 
 
 def _smooth_once(name: str, band: Band, phi, n_sweeps: int, kind: str,
@@ -783,23 +798,63 @@ def _batch_stride(t: torch.Tensor, unbatched_ndim: int, B: int) -> int:
                      f"batch {B}")
 
 
-def _dense_operands(name, D, D0inv, phi, r, kind):
-    """Checks of a dense smoother call; (B, n, L, d_bs, dinv_bs, r_bs)."""
-    batched = phi.dim() == 4
-    B = phi.shape[0] if batched else 1
+@dataclasses.dataclass(frozen=True)
+class DenseDims:
+    """The shapes of a dense smoother call: B entries of n components on an
+    L x L lattice, in groups of G that share one copy of D and D0inv, and
+    the element strides between copies of D, of D0inv and between entries
+    of r (0: shared)."""
+    B: int
+    n: int
+    L: int
+    G: int
+    d_bs: int
+    dinv_bs: int
+    r_bs: int
+
+    def args(self):
+        return (self.B, self.n, self.L, self.G, self.d_bs, self.dinv_bs,
+                self.r_bs)
+
+
+def _op_stride(name: str, t: torch.Tensor, unbatched_ndim: int, lead) -> int:
+    """Element stride between copies of a dense operator: 0 for one shared
+    by every entry, else one copy for each index of phi's first batch axis
+    (an entry, or a group of entries)."""
+    if t.dim() == unbatched_ndim:
+        return 0
+    if t.dim() == unbatched_ndim + 1 and lead and t.shape[0] == lead[0]:
+        return t[0].numel()
+    raise ValueError(f"{name} of shape {tuple(t.shape)} does not match the "
+                     f"batch {tuple(lead)} of phi")
+
+
+def _dense_operands(name, D, D0inv, phi, r, kind) -> DenseDims:
+    """Checks of a dense smoother call. phi [n, L, L], [B, n, L, L] or [C,
+    k, n, L, L] (C groups of G = k entries); D [5, n, n, L, L] and D0inv [n,
+    n, L, L] shared, or with a copy for each index of phi's first batch axis
+    (an entry of [B], a group of [C, k]); r shared [n, L, L] or batched like
+    phi."""
     n, L = phi.shape[-3], phi.shape[-1]
+    lead = tuple(phi.shape[:-3])
     if n not in (1, 2, 4):
         raise ValueError(f"{name} takes n in (1, 2, 4), got {n}")
+    if len(lead) > 2:
+        raise ValueError(f"{name} takes phi [C?, k?, n, L, L], got "
+                         f"{tuple(phi.shape)}")
     _check_lattice(L, kind)
-    bd = (B,) if batched else ()
-    _check("phi", phi, phi, bd + (n, L, L))
-    d_bs = _batch_stride(D, 5, B)
-    dinv_bs = _batch_stride(D0inv, 4, B)
-    r_bs = _batch_stride(r, 3, B)
-    _check("D", D, phi, ((B,) if d_bs else ()) + (5, n, n, L, L))
-    _check("D0inv", D0inv, phi, ((B,) if dinv_bs else ()) + (n, n, L, L))
-    _check("r", r, phi, ((B,) if r_bs else ()) + (n, L, L))
-    return B, n, L, d_bs, dinv_bs, r_bs
+    _check("phi", phi, phi, lead + (n, L, L))
+    d_bs = _op_stride("D", D, 5, lead)
+    dinv_bs = _op_stride("D0inv", D0inv, 4, lead)
+    _check("D", D, phi, lead[:1 if d_bs else 0] + (5, n, n, L, L))
+    _check("D0inv", D0inv, phi, lead[:1 if dinv_bs else 0] + (n, n, L, L))
+    r_bs = 0 if r.dim() == 3 else n * L * L
+    _check("r", r, phi, (lead if r_bs else ()) + (n, L, L))
+    B = 1
+    for k in lead:
+        B *= k
+    return DenseDims(B, n, L, lead[1] if len(lead) == 2 else 1, d_bs,
+                     dinv_bs, r_bs)
 
 
 def dense_smooth(D, D0inv, phi, r, n_sweeps: int, kind: str = "rbgs",
@@ -811,21 +866,27 @@ def dense_smooth(D, D0inv, phi, r, n_sweeps: int, kind: str = "rbgs",
     rbgs_smooth_pallas) and _jacobi_kernel (via jacobi_smooth_pallas):
     one cooperative launch runs every sweep, each block on its band of
     (batch, x) rows (plan_band). phi [B?, n, L, L] with an optional batch
-    axis; D [B?, 5, n, n, L, L], D0inv [B?, n, n, L, L] and r [B?, n, L, L]
-    each shared or batched. Bound by bytes: D's 4n^2 hop blocks, D0inv's
-    n^2, r, phi in and out, once per smooth (92 complex words per site at
-    n=4). The result is a new tensor; phi is left as it was."""
+    axis, or [C, k, n, L, L]: C groups of k entries, each group on its own
+    D [C, 5, n, n, L, L] and D0inv [C, n, n, L, L] (an ensemble's k
+    near-null candidates a configuration), which a band stages once for
+    the group; else D [B?, 5, n, n, L, L], D0inv [B?, n, n, L, L] each
+    shared or batched; r [n, L, L] shared or batched like phi. Bound by
+    bytes: D's 4n^2 hop blocks and D0inv's n^2 once a copy, r, phi in and
+    out, once per smooth (92 complex words per site at n=4). The result is
+    a new tensor; phi is left as it was."""
     if not phi.is_cuda:
         return smoothers.smooth_plain(D, D0inv, phi, r, n_sweeps, kind, omega)
-    B, n, L, d_bs, dinv_bs, r_bs = _dense_operands("dense_update", D, D0inv,
-                                                   phi, r, kind)
-    band = _band("dense_update", phi.dtype, n, B, L, phi.device)
+    dims = _dense_operands("dense_update", D, D0inv, phi, r, kind)
+    band = _band("dense_update", phi.dtype, dims.n, dims.B, dims.L,
+                 phi.device, dims.G)
 
     def launch(out, scratch, rb):
         _launch("dense_update", phi.dtype, phi.device, D.data_ptr(),
                 D0inv.data_ptr(), phi.data_ptr(), r.data_ptr(), out, scratch,
-                B, n, L, d_bs, dinv_bs, r_bs, rb, n_sweeps, float(omega),
-                band.rows, int(band.staged), band.smem_bytes)
+                *dims.args(), rb, n_sweeps, float(omega), band.rows,
+                int(band.staged), band.smem_bytes)
+        if dims.G > 1:
+            group_launches["dense_update"] += 1
 
     return _smooth_once("dense_update", band, phi, n_sweeps, kind, launch)
 
@@ -833,8 +894,9 @@ def dense_smooth(D, D0inv, phi, r, n_sweeps: int, kind: str = "rbgs",
 def dense_smooth_tiled(D, D0inv, phi, r, n_sweeps: int, kind: str = "rbgs",
                        omega: float = 1.0, tile=None):
     """dense_smooth on (TX, TY) tiles (default: rb_tile for red-black,
-    default_tile(L) for Jacobi), with the same batch axis and per-operand
-    batch strides.
+    default_tile(L) for Jacobi), with the same batch axes, groups and
+    per-operand batch strides; the G blocks of a group's tile run side by
+    side, so HBM gives the group's operators once.
 
     Replaces tpu_multigrid/ops/pallas_stencil.py _tiled_update_kernel (via
     _tiled_update_call / smooth_pallas_tiled): one launch per sweep, a
@@ -850,15 +912,17 @@ def dense_smooth_tiled(D, D0inv, phi, r, n_sweeps: int, kind: str = "rbgs",
                                      TX, TY), phi, n_sweeps, kind)
 
 
-def _dense_sweep(D, D0inv, r, dims, omega: float, TX: int, TY: int, src,
-                 dst, rb: int) -> None:
+def _dense_sweep(D, D0inv, r, dims: DenseDims, omega: float, TX: int,
+                 TY: int, src, dst, rb: int) -> None:
     """One launch of dense_update_tiled, src -> dst: a whole red-black
-    sweep (rb=1) or a Jacobi sweep (rb=0); dims = (B, n, L, d_bs, dinv_bs,
-    r_bs) of _dense_operands; dst must not overlap src."""
+    sweep (rb=1) or a Jacobi sweep (rb=0); dims of _dense_operands; dst
+    must not overlap src."""
     _check_out_of_place(src, dst)
     _launch("dense_update_tiled", src.dtype, src.device, D.data_ptr(),
             D0inv.data_ptr(), src.data_ptr(), r.data_ptr(), dst.data_ptr(),
-            *dims, rb, float(omega), TX, TY)
+            *dims.args(), rb, float(omega), TX, TY)
+    if dims.G > 1:
+        group_launches["dense_update_tiled"] += 1
 
 
 @dataclasses.dataclass(frozen=True)

@@ -6,7 +6,10 @@ Update rule (reference Level::f_relax, level.h:100-128):
     phi(x) <- -D0(x)^{-1} ( sum_{mu != 0} D_mu(x) phi(x+mu) - r(x) )
 
 `phi` and `r` may carry a leading batch axis; `D` and `D0inv` may be
-shared by the batch or batched with it. The Jacobi and red-black sweeps
+shared by the batch or batched with it. Fields [C, k, n, L, L] with
+operators [C, ...] are C groups of k fields, each group on its own
+operator (an ensemble's near-null candidates: k a configuration); the
+plain sweeps broadcast each operator over its group. The Jacobi and red-black sweeps
 here are the plain torch versions of the dense_update and
 dense_update_tiled kernels (ops/cuda_stencil.py), which `smooth` runs for
 CUDA tensors. `gs_lex` has no kernel, here as in the JAX package (which
@@ -115,6 +118,19 @@ def _check_kind(kind: str):
         raise NotImplementedError(f"no smoother {kind!r} (have {KINDS})")
 
 
+def _over_groups(t: torch.Tensor, site_ndim: int, phi: torch.Tensor):
+    """A batched operator t (site_ndim axes a site block: 5 for D, 4 for
+    D0inv) with an axis of size 1 inserted after its batch axes for each
+    batch axis that phi has beyond them, so that it broadcasts over the
+    fields of its group: D [C, 5, n, n, L, L] against phi [C, k, n, L, L]
+    becomes [C, 1, 5, n, n, L, L]. A shared operator is left as it is."""
+    lead = t.dim() - site_ndim
+    extra = phi.dim() - 3 - lead
+    if lead == 0 or extra <= 0:
+        return t
+    return t.reshape(t.shape[:lead] + (1,) * extra + t.shape[lead:])
+
+
 def smooth_plain(D, D0inv, phi, r, n_sweeps: int, kind: str = "rbgs",
                  omega: float = 1.0):
     """n_sweeps plain torch sweeps on any device (jacobi, rbgs, gs_lex)."""
@@ -122,6 +138,7 @@ def smooth_plain(D, D0inv, phi, r, n_sweeps: int, kind: str = "rbgs",
         _check_kind(kind)
         raise ValueError(f"{kind} is not a sweep: use smooth")
     sweep = _SWEEPS[kind]
+    D, D0inv = _over_groups(D, 5, phi), _over_groups(D0inv, 4, phi)
     for _ in range(n_sweeps):
         phi = sweep(D, D0inv, phi, r, omega)
     return phi

@@ -54,14 +54,15 @@ _CMAC_FLOPS = 8
 
 def kernel_work(kernel: str, n: int, L: int, itemsize: int, batch: int = 1,
                 op_batch: int = 1, n_sweeps: int = 1, nc: int = 4,
-                block: int = 4):
+                block: int = 4, r_batch: int = None):
     """(bytes, flops) the least that one call of a hand kernel must do:
     each input word read once and each output word written once, whatever
     the kernel reads again. `kernel` is a cuda_stencil.launches key (the
     x-tiled kernels do the same work as the global ones); `batch` fields,
     `op_batch` copies of the operator (1: shared by the batch; B / G for a
-    dense SpMV or residual in groups of G; for the links kernels, copies of
-    r, the links U being always shared); a smoother call runs `n_sweeps`
+    dense SpMV, residual or smoother in groups of G; for the links kernels,
+    copies of r, the links U being always shared); `r_batch` copies of a
+    dense smoother's r (default op_batch); a smoother call runs `n_sweeps`
     sweeps; the fused residual-restriction has `nc` near-null rows and
     blocks of `block` fine sites. Words a site:
     - links smoother / residual: U 2, r 2 a copy, phi 2 and out 2 a field
@@ -71,8 +72,8 @@ def kernel_work(kernel: str, n: int, L: int, itemsize: int, batch: int = 1,
     - links apply: U 2, v 2 and out 2 a field (6 unbatched);
     - links residual norm (the level-0 check): U 2, b 2 a copy, phi 2 a
       field, and one real a field out (6 words a site unbatched);
-    - dense smoother: per operator copy D's 4n^2 hop blocks, D0inv's n^2
-      and r's n; per field phi in and out (2n): 92 at n=4;
+    - dense smoother: per operator copy D's 4n^2 hop blocks and D0inv's
+      n^2, per copy of r n; per field phi in and out (2n): 92 at n=4;
     - dense apply: 5n^2 per operator copy, v in and out per field;
     - dense residual: the apply's, and r per field (92 at n=4)."""
     LL = L * L
@@ -92,7 +93,8 @@ def kernel_work(kernel: str, n: int, L: int, itemsize: int, batch: int = 1,
                  "links_apply": _HOP_FLOPS + 8}[base]
         return words * LL * itemsize, flops * batch * LL
     if base == "dense_update":
-        words = (5 * n * n + n) * op_batch + 2 * n * batch
+        words = (5 * n * n * op_batch + n * (op_batch if r_batch is None
+                                             else r_batch) + 2 * n * batch)
         flops = (_CMAC_FLOPS * 5 * n * n + 2 * n) * n_sweeps * batch
         return words * LL * itemsize, flops * LL
     if base in ("dense_apply", "dense_residual"):

@@ -3,9 +3,12 @@ configurations (counterpart of tpu_multigrid/solver/ensemble.py).
 
 Lattice field theorists solve the same system on many gauge
 configurations. The JAX package vmaps the whole pipeline over a leading
-configuration axis. Here the setup runs per configuration (build_hierarchy
-on each, the JAX package's per-level setup without the host checks) and
-its tensors are stacked on a leading batch axis; the solve then runs every
+configuration axis. Here the setup is one batched pass over that axis
+(hierarchy._build_levels, the JAX package's per-level setup without the
+host checks): each smooth call of the near-null relaxation is one
+dense_update launch for every configuration's candidates, each group of
+candidates on its configuration's operator, and the transfers and
+Galerkin products are einsums over the batch. The solve then runs every
 configuration through each cycle together: each smoother kernel launch
 covers the whole batch, each configuration with its own operators. The
 hierarchies carry no gauge, as in JAX, so level 0 runs the dense kernels.
@@ -25,7 +28,8 @@ from ..config import MGConfig
 from ..models.operators import assemble
 from ..ops.nearnull import random_starts
 from .driver import solve_batched
-from .hierarchy import Hierarchy, LevelOps, NTLOps, build_hierarchy
+from .hierarchy import (Hierarchy, LevelOps, NTLOps, _build_levels,
+                        _n_candidates)
 
 
 def _stack(ts):
@@ -71,23 +75,19 @@ def build_hierarchies_batched(Us: torch.Tensor, cfg: MGConfig,
     generator: torch.Generator of the near-null random starts (default: a
     CPU generator seeded with cfg.seed), drawn level by level, one per
     configuration; starts: per-level start stacks [batch, k, nf, S, S] to
-    use instead (tests inject the JAX package's). The setup runs per
-    configuration with no host checks, as JAX's vmapped setup."""
+    use instead (tests inject the JAX package's). The setup runs once for
+    the whole batch with no host checks, as JAX's vmapped setup."""
     batch, device = Us.shape[0], Us.device
     if starts is None:
         if generator is None:
             generator = torch.Generator().manual_seed(cfg.seed)
-        starts = []
-        for lvl in range(cfg.nlevels):
-            nf, nc = cfg.n_dof[lvl], cfg.n_dof[lvl + 1]
-            k = nc // 2 if cfg.stencil == "wilson" else nc
-            starts.append(torch.stack([
-                random_starts(generator, k, nf, cfg.sizes[lvl], cfg.cdtype,
-                              device) for _ in range(batch)]))
-    hiers = [build_hierarchy(assemble(cfg.stencil, Us[i], cfg.m), cfg,
-                             starts=[s[i] for s in starts], check=False)
-             for i in range(batch)]
-    return stack_hierarchies(hiers)
+        starts = [torch.stack([
+            random_starts(generator, _n_candidates(cfg, lvl), cfg.n_dof[lvl],
+                          cfg.sizes[lvl], cfg.cdtype, device)
+            for _ in range(batch)]) for lvl in range(cfg.nlevels)]
+    levels, ntl = _build_levels(assemble(cfg.stencil, Us, cfg.m), cfg,
+                                starts, None, check=False)
+    return Hierarchy(levels=levels, ntl=ntl)
 
 
 def solve_ensemble(hier_b: Hierarchy, bs: torch.Tensor, cfg: MGConfig,
