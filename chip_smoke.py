@@ -1958,6 +1958,49 @@ def setup_check(torch, mgt, dev, cfg, Us, kernel, tag):
         "max_rel_diff_vs_own_setup": worst}
 
 
+SETUP_STAGES = ("relax_null_vectors", "candidates_to_phi_null",
+                "normalize_rows", "ortho_pass", "coarse_operator",
+                "site_inverse")
+
+
+def setup_breakdown(torch, mgt, build):
+    """Where a warm setup's time goes: one run of build() under
+    torch.profiler (device ops, device ms, the top device kernels), and one
+    with each stage of solver.hierarchy (SETUP_STAGES, in the levels and
+    the NTL copies alike) synchronized before and after, its host seconds
+    summed by stage (the rest: assembly, the starts, stacking)."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    build()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        _, wall = timed(torch, build)
+    events = [e for e in p.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(getattr(e, "device_time_total", None)
+                  or getattr(e, "cuda_time_total", 0.0) for e in events) / 1e3
+    top = device_time_by_name(p).most_common(5)
+    h = mgt.solver.hierarchy
+    secs = collections.Counter()
+
+    def timed_stage(name, fn):
+        def run(*a, **kw):
+            out, t = timed(torch, lambda: fn(*a, **kw))
+            secs[name] += t
+            return out
+        return run
+
+    with contextlib.ExitStack() as stack:
+        for name in SETUP_STAGES:
+            stack.enter_context(patched(h, name, timed_stage(
+                name, getattr(h, name))))
+        _, total = timed(torch, build)
+    return {"device_ops": len(events), "device_ms": busy_ms,
+            "wall_ms_profiled": wall * 1e3,
+            "top_device_us": [[n[:80], us] for n, us in top],
+            "stages_s": dict(secs), "staged_total_s": total,
+            "other_s": total - sum(secs.values())}
+
+
 def ensemble_phase(torch, mgt, dev, B=8, L=128, n_cyc=18, B_scale=32):
     """bench.py's ensemble phase on the card: ensemble_cfg(L), B gauges of
     phases 0.2 N(0,1) from default_rng(cfg.seed) (a second ensemble for
@@ -1993,6 +2036,17 @@ def ensemble_phase(torch, mgt, dev, B=8, L=128, n_cyc=18, B_scale=32):
         warm.append(timed(torch, lambda: mgt.build_hierarchies_batched(
             Us2, cfg))[1])
         warm_loop.append(timed(torch, lambda: loop(Us2))[1])
+    split = setup_breakdown(torch, mgt, lambda: mgt.build_hierarchies_batched(
+        Us2, cfg))
+    split["idle_share"] = 1 - split["device_ms"] / 1e3 / min(warm)
+    print(f"  warm setup x{B}: {split['device_ops']} device ops, "
+          f"{split['device_ms']:.3f} ms of device time, idle "
+          f"{split['idle_share']:.3f} of {min(warm):.3f} s; by stage (each "
+          f"synchronized, {split['staged_total_s']:.3f} s in all): "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in split["stages_s"].items())
+          + f", other {split['other_s']:.4f} s")
+    for name, us in split["top_device_us"]:
+        print(f"    {us:9.1f} us  {name}")
     Us32 = gauges(B_scale)
     t32 = [timed(torch, lambda: mgt.build_hierarchies_batched(Us32, cfg))[1]
            for _ in range(2)]
@@ -2032,7 +2086,8 @@ def ensemble_phase(torch, mgt, dev, B=8, L=128, n_cyc=18, B_scale=32):
                max_rel_res=float(res.max()), setup_s=setup["setup_cold_s"],
                setup_warm_s=min(warm), setup_warm_turns_s=warm,
                setup_loop_warm_s=min(warm_loop),
-               setup_loop_warm_turns_s=warm_loop, B_scale=B_scale,
+               setup_loop_warm_turns_s=warm_loop, setup_breakdown=split,
+               B_scale=B_scale,
                setup_scale_cold_s=t32[0], setup_scale_warm_s=t32[1],
                solve_cold_s=t_cold, solve_warm_s=t_warm,
                configs_per_s_warm=B / t_warm, ms_per_cycle=ms,

@@ -14,7 +14,8 @@
 //   links_out_kernel<T, true, PAIRED>
 //                                     <- _u_apply_vmem_kernel  (B8, :656)
 //   links_update_kernel<T, STAGED>    <- _u_smooth_vmem_kernel (B1, :669)
-//   dense_update_kernel<T, N, STAGED> <- _rbgs_kernel (B3, :125) and
+//   dense_update_kernel<T, N, STAGED, GROUPED>
+//                                     <- _rbgs_kernel (B3, :125) and
 //                                        _jacobi_kernel (B4, :86)
 //   dense_apply_kernel<T, N, KG, RESID>
 //                                     <- _apply_d_kernel       (B7a, :64;
@@ -339,18 +340,23 @@ __global__ void __launch_bounds__(128)
 // row that its rows touch, once for the group, and r's n planes of each
 // of its rows (each a contiguous run of L words a row, the layout being
 // site-minor) into shared memory, (5 n^2 + n) L words a row at G = 1 (86
-// KB at n=4 L=128 c64), and reads them from there in every sweep. Else (a band past
-// the shared memory: L=1024, or setup at n=2 L=256 in c128) it reads them
-// from global memory each sweep, in the same launch. n threads per site,
-// thread i computing row i of the block product: it loads phi_i of each
-// neighbour once (through L2 only) and gets the other components by warp
-// shuffles within its n-lane group, then shares its hop row the same way for
-// the D0inv product. So a level-2 row (L=64, n=4) keeps 128 threads busy a
-// half-sweep, four times the first design's. Blocks of 256 threads; at the
-// flagship's level 1 one row a block, 128 blocks of 86 KB of shared memory
-// (172 KB in c128). Registers (-Xptxas -v, staged / streamed): n=4 64 / 71
-// in c64, 64 (8 bytes spilled) / 96 in c128; n=2 63 / 64 and 72 / 70; no
-// other spills.
+// KB at n=4 L=128 c64), and reads them from there in every sweep. Else (a
+// band past the shared memory: L=1024, or setup at n=2 L=256 in c128) it
+// reads them from global memory each sweep, in the same launch. An
+// ensemble's level 0 (8 configurations of 2 candidates, n=2 L=128, G = 2:
+// 2048 rows) takes 105.7 us cold a rbgs x4 call against a bound of 8.8 us
+// with D read once a group, on an H100 80GB HBM3 at 700 W (chip_smoke.py;
+// PERF.md), the same bits as the launch on D copied for each candidate. n
+// threads per site, thread i computing row i of the block product: it loads
+// phi_i of each neighbour once (through L2 only) and gets the other
+// components by warp shuffles within its n-lane group, then shares its hop
+// row the same way for the D0inv product. So a level-2 row (L=64, n=4) keeps
+// 128 threads busy a half-sweep, four times the first design's. Blocks of
+// 256 threads; at the flagship's level 1 one row a block, 128 blocks of 86
+// KB of shared memory (172 KB in c128). Registers (-Xptxas -v, staged /
+// streamed), G = 1: n=4 64 / 64 in c64, 64 (8 bytes spilled) / 96 in c128;
+// n=2 62 / 64 and 72 / 70; G > 1: n=4 64 / 71 and 80 / 94, n=2 64 / 60 and
+// 78 / 70; no other spills.
 //
 // In-place red/black as in links_update_kernel: a site of one colour reads
 // only the other colour and itself; half-sweep 0 copies the other colour of
@@ -371,7 +377,9 @@ __device__ __forceinline__ DenseRow dense_row(int g, int G, int L) {
   return DenseRow{c, cx - c * L, c * G + (g - cx * G)};
 }
 
-template <typename T, int N, bool STAGED>
+// GROUPED false: G is 1 at compile time, so that the ungrouped call pays
+// no division by G.
+template <typename T, int N, bool STAGED, bool GROUPED>
 __global__ void __launch_bounds__(256)
     dense_update_kernel(const cplx<T>* __restrict__ D,
                         const cplx<T>* __restrict__ Dinv, const cplx<T>* phi,
@@ -382,6 +390,7 @@ __global__ void __launch_bounds__(256)
                         int rows) {
   constexpr int kHop = 4 * N * N;  // staged planes: hop blocks, D0inv; r
   constexpr int kOps = kHop + N * N;
+  if constexpr (!GROUPED) G = 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cplx<T>* const sm = reinterpret_cast<cplx<T>*>(smem_raw);
   const size_t LL = (size_t)L * L;
@@ -1243,21 +1252,27 @@ int links_update(const void* U, const void* phi, const void* r, void* out,
                             staged ? smem : 0, stream, args);
 }
 
-template <typename T, int N>
+template <typename T, int N, bool GROUPED>
 const void* dense_update_fn(int staged) {
-  return staged ? (const void*)dense_update_kernel<T, N, true>
-                : (const void*)dense_update_kernel<T, N, false>;
+  return staged ? (const void*)dense_update_kernel<T, N, true, GROUPED>
+                : (const void*)dense_update_kernel<T, N, false, GROUPED>;
+}
+
+template <typename T, int N>
+const void* dense_update_fn(int staged, int grouped) {
+  return grouped ? dense_update_fn<T, N, true>(staged)
+                 : dense_update_fn<T, N, false>(staged);
 }
 
 template <typename T>
-const void* dense_update_fn(int n, int staged) {
+const void* dense_update_fn(int n, int staged, int grouped) {
   switch (n) {
     case 1:
-      return dense_update_fn<T, 1>(staged);
+      return dense_update_fn<T, 1>(staged, grouped);
     case 2:
-      return dense_update_fn<T, 2>(staged);
+      return dense_update_fn<T, 2>(staged, grouped);
     case 4:
-      return dense_update_fn<T, 4>(staged);
+      return dense_update_fn<T, 4>(staged, grouped);
     default:
       return nullptr;
   }
@@ -1269,7 +1284,7 @@ int dense_update(const void* D, const void* Dinv, const void* phi,
                  int G, long long d_bs, long long dinv_bs, long long r_bs,
                  int rb, int n_sweeps, double omega, int rows, int staged,
                  long long smem, void* stream) {
-  const void* fn = dense_update_fn<T>(n, staged);
+  const void* fn = dense_update_fn<T>(n, staged, G > 1);
   if (fn == nullptr || rows < 1 || n_sweeps < 1 || B < 1 || L < 2 ||
       (rb && L % 2) || G < 1 || B % G) {
     return (int)cudaErrorInvalidValue;
@@ -1661,15 +1676,16 @@ int tmg_dense_update_c128(const void* D, const void* Dinv, const void* phi,
                               d_bs, dinv_bs, r_bs, rb, n_sweeps, omega, rows,
                               staged, smem, stream);
 }
-int tmg_dense_update_occupancy_c64(int n, int staged, long long smem,
-                                   int* blocks) {
-  const void* fn = dense_update_fn<float>(n, staged);
+// grouped: the kernel of G > 1 (the launches' kernel differs at G = 1).
+int tmg_dense_update_occupancy_c64(int n, int grouped, int staged,
+                                   long long smem, int* blocks) {
+  const void* fn = dense_update_fn<float>(n, staged, grouped);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   return occupancy(fn, kDenseThreads, smem, blocks);
 }
-int tmg_dense_update_occupancy_c128(int n, int staged, long long smem,
-                                    int* blocks) {
-  const void* fn = dense_update_fn<double>(n, staged);
+int tmg_dense_update_occupancy_c128(int n, int grouped, int staged,
+                                    long long smem, int* blocks) {
+  const void* fn = dense_update_fn<double>(n, staged, grouped);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   return occupancy(fn, kDenseThreads, smem, blocks);
 }

@@ -7,9 +7,11 @@
 //                                     one Jacobi sweep a launch)
 //   links_tiled_kernel<T, kResid>  <- _u_resid_tile_kernel  (B5b, :703)
 //   links_tiled_kernel<T, kApply>  <- _u_apply_tile_kernel  (B5c, :695)
-//   dense_rb_tiled_kernel<T, N>    <- _tiled_update_kernel  (B6, :358; one
+//   dense_rb_tiled_kernel<T, N, GROUPED>
+//                                  <- _tiled_update_kernel  (B6, :358; one
 //                                     whole red-black sweep a launch)
-//   dense_tiled_kernel<T, N>       <- _tiled_update_kernel  (B6, :358; one
+//   dense_tiled_kernel<T, N, GROUPED>
+//                                  <- _tiled_update_kernel  (B6, :358; one
 //                                     Jacobi sweep a launch)
 //   dense_apply_tiled_kernel<T, N, RESID>
 //                                  <- _tiled_apply_kernel   (B7b, :236;
@@ -94,10 +96,12 @@ __device__ __forceinline__ Tile tile_of(int TX, int TY, int L, int G = 1) {
 
 // Batch entry of a dense smoother block: group blockIdx.z, member
 // blockIdx.x % G. The G blocks that read one tile of a group's D and D0inv
-// are neighbours in the grid, so they run together and all but the first
-// find the tile's operands in L2: HBM gives each word of a group's
-// operators once (the TPU kernel, under the JAX package's vmap, reads
-// them once per entry).
+// are neighbours in the grid, so that they run together and all but the
+// first can find the tile's operands in L2 (the TPU kernel, under the JAX
+// package's vmap, reads them once per entry). An ensemble's level 0 at
+// L=512 (2 configurations of 2 candidates, n=2, G = 2) takes 268.1 us cold
+// a rbgs x4 call (4 launches) against a bound of 36.3 us with D read once a
+// group, on an H100 80GB HBM3 at 700 W (chip_smoke.py; PERF.md).
 __device__ __forceinline__ size_t entry_of(int G) {
   return (size_t)blockIdx.z * G + blockIdx.x % G;
 }
@@ -388,7 +392,7 @@ __global__ void __launch_bounds__(kThreads)
 // thread as in links_tiled_kernel; phi [N][TX+2][TY+2] staged. D and D0inv
 // (5 n^2 words a site) are read in the update itself, where their loads
 // keep enough bytes in flight.
-template <typename T, int N>
+template <typename T, int N, bool GROUPED>
 __global__ void __launch_bounds__(kThreads)
     dense_tiled_kernel(const cplx<T>* __restrict__ D,
                        const cplx<T>* __restrict__ Dinv,
@@ -398,6 +402,7 @@ __global__ void __launch_bounds__(kThreads)
                        long long d_bstride, long long dinv_bstride,
                        long long r_bstride, T omega, int TX, int TY) {
   extern __shared__ __align__(16) unsigned char smem[];
+  if constexpr (!GROUPED) G = 1;  // no division by G at G = 1
   const Tile t = tile_of(TX, TY, L, G);
   const size_t LL = (size_t)L * L;
   const size_t b = entry_of(G);
@@ -483,8 +488,9 @@ __global__ void __launch_bounds__(kThreads)
 // -Xptxas -v (no spills; shared memory at the default tiles, rb_tile):
 //   links_rb_tiled_kernel   c64  64 registers, c128 127; 2 (TX+4)(TY+4)
 //                           words (11.3 KB c64 at 16 x 32)
-//   dense_rb_tiled_kernel   c64  n=1 72, n=2 95, n=4 204 registers;
-//                           c128 n=1 80, n=2 150, n=4 254; n (TX+4)(TY+4)
+//   dense_rb_tiled_kernel   c64  n=1 72, n=2 95, n=4 204 registers (G > 1:
+//                           76, 95, 255); c128 n=1 80, n=2 150, n=4 254
+//                           (81, 146, 252); n (TX+4)(TY+4)
 //                           + (5n^2 + n) 16 TX words (n=4 c64 12 x 32:
 //                           144 KB, one block an SM; c128 6 x 32: 148.5 KB)
 
@@ -614,7 +620,7 @@ __global__ void __launch_bounds__(kRbThreads)
 // same 32-byte sectors (into registers before the barrier in complex64),
 // so each sector crosses HBM once and the black phase reads its operands
 // from shared memory; a ring red reads its own from global memory.
-template <typename T, int N>
+template <typename T, int N, bool GROUPED>
 __global__ void __launch_bounds__(kRbThreads, 1)
     dense_rb_tiled_kernel(const cplx<T>* __restrict__ D,
                           const cplx<T>* __restrict__ Dinv,
@@ -625,6 +631,7 @@ __global__ void __launch_bounds__(kRbThreads, 1)
                           long long r_bstride, T omega, int TX, int TY) {
   constexpr int kW = 5 * N * N + N;
   extern __shared__ __align__(16) unsigned char smem[];
+  if constexpr (!GROUPED) G = 1;  // no division by G at G = 1
   const Tile t = tile_of(TX, TY, L, G);
   const size_t LL = (size_t)L * L;
   const size_t b = entry_of(G);
@@ -856,13 +863,17 @@ int dense_update_n(const void* D, const void* Dinv, const void* phi,
                   (const cplx<T>*)r, (cplx<T>*)out, L, G, d_bs, dinv_bs,
                   r_bs, T(omega), TX, TY);
   };
-  if (!rb)
-    return run(dense_tiled_kernel<T, N>, dim3(kThreadsY, kThreadsX),
-                sizeof(cplx<T>) * N * (size_t)(TX + 2) * (TY + 2));
   const dim3 block = rb_block(TX);
-  const size_t words = (size_t)N * (TX + 4) * (TY + 4) +
-                       (size_t)(5 * N * N + N) * block.x * block.y;
-  return run(dense_rb_tiled_kernel<T, N>, block, sizeof(cplx<T>) * words);
+  const size_t jacobi = sizeof(cplx<T>) * N * (size_t)(TX + 2) * (TY + 2);
+  const size_t red_black =
+      sizeof(cplx<T>) * ((size_t)N * (TX + 4) * (TY + 4) +
+                         (size_t)(5 * N * N + N) * block.x * block.y);
+  const dim3 threads(kThreadsY, kThreadsX);
+  if (G > 1)
+    return rb ? run(dense_rb_tiled_kernel<T, N, true>, block, red_black)
+              : run(dense_tiled_kernel<T, N, true>, threads, jacobi);
+  return rb ? run(dense_rb_tiled_kernel<T, N, false>, block, red_black)
+            : run(dense_tiled_kernel<T, N, false>, threads, jacobi);
 }
 
 template <typename T>

@@ -57,7 +57,12 @@ launch, as the TPU kernels run it in one call with the lattice in VMEM: a
 grid barrier separates the red/black half-sweeps (or the Jacobi sweeps),
 and each block owns a band of (batch, x) rows for all of them, its
 read-only operands staged once in shared memory where the band fits
-(`plan_band`; counted per launch in `band_launches`). The x-tiled
+(`plan_band`; counted per launch in `band_launches`). The dense ones
+take the batch in groups of G entries that share one operator (an
+ensemble's k near-null candidates a configuration: fields [C, k, n, L,
+L] on D [C, ...]); a band stages a group's operator rows once, and the
+x-tiled grid runs a group's blocks of one tile side by side (counted in
+`group_launches`). The x-tiled
 smoothers make one launch per sweep: a Jacobi sweep, or a whole red-black
 sweep (red, then black) in one pass over the operands, each block updating
 the red sites of its tile and of a one-site ring around it before its
@@ -212,7 +217,7 @@ _SIGNATURES = {
     "links_update_occupancy": (_I, _LL, _PI),
     "dense_update": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL,
                      _I, _I, _D, _I, _I, _LL, _P),
-    "dense_update_occupancy": (_I, _I, _LL, _PI),
+    "dense_update_occupancy": (_I, _I, _I, _LL, _PI),
     "links_residual_tiled": (_P, _P, _P, _P, _I, _I, _D, _LL, _I, _I, _P),
     "links_update_tiled": (_P, _P, _P, _P, _I, _I, _D, _D, _I, _LL, _I, _I,
                            _P),
@@ -446,7 +451,7 @@ def _band(name: str, dtype: torch.dtype, n: int, B: int, L: int,
         return plan_band(B * L, lambda k: links_band_bytes(L, k, size, B),
                          sms, _occupancy(name, dtype))
     return plan_band(B * L, lambda k: dense_band_bytes(n, L, k, size, G),
-                     sms, _occupancy(name, dtype, n))
+                     sms, _occupancy(name, dtype, n, int(G > 1)))
 
 
 def _smooth_once(name: str, band: Band, phi, n_sweeps: int, kind: str,
@@ -531,7 +536,7 @@ def _links_operands(U, phi, r):
     B = phi.shape[0] if batched else 1
     _check("phi", phi, phi, ((B,) if batched else ()) + (2, L, L))
     _check("U", U, phi, (2, L, L))
-    r_bs = _batch_stride(r, 3, B) if batched else 0
+    r_bs = _batch_stride("r", r, 3, (B,)) if batched else 0
     _check("r", r, phi, ((B,) if r_bs else ()) + (2, L, L))
     return B, L, r_bs
 
@@ -787,17 +792,6 @@ def _check_aligned(name: str, **operands) -> None:
             raise ValueError(f"{name}: {what} is not 16-byte aligned")
 
 
-def _batch_stride(t: torch.Tensor, unbatched_ndim: int, B: int) -> int:
-    """Element stride between batch entries: 0 for a tensor shared by the
-    batch, else the size of one entry."""
-    if t.dim() == unbatched_ndim:
-        return 0
-    if t.dim() == unbatched_ndim + 1 and t.shape[0] == B:
-        return t[0].numel()
-    raise ValueError(f"batch axis of shape {tuple(t.shape)} does not match "
-                     f"batch {B}")
-
-
 @dataclasses.dataclass(frozen=True)
 class DenseDims:
     """The shapes of a dense smoother call: B entries of n components on an
@@ -817,10 +811,11 @@ class DenseDims:
                 self.r_bs)
 
 
-def _op_stride(name: str, t: torch.Tensor, unbatched_ndim: int, lead) -> int:
-    """Element stride between copies of a dense operator: 0 for one shared
-    by every entry, else one copy for each index of phi's first batch axis
-    (an entry, or a group of entries)."""
+def _batch_stride(name: str, t: torch.Tensor, unbatched_ndim: int,
+                  lead) -> int:
+    """Element stride between copies of an operand: 0 for one shared by
+    every entry, else one copy for each index of phi's first batch axis
+    (lead[0]: an entry, or a group of entries)."""
     if t.dim() == unbatched_ndim:
         return 0
     if t.dim() == unbatched_ndim + 1 and lead and t.shape[0] == lead[0]:
@@ -844,8 +839,8 @@ def _dense_operands(name, D, D0inv, phi, r, kind) -> DenseDims:
                          f"{tuple(phi.shape)}")
     _check_lattice(L, kind)
     _check("phi", phi, phi, lead + (n, L, L))
-    d_bs = _op_stride("D", D, 5, lead)
-    dinv_bs = _op_stride("D0inv", D0inv, 4, lead)
+    d_bs = _batch_stride("D", D, 5, lead)
+    dinv_bs = _batch_stride("D0inv", D0inv, 4, lead)
     _check("D", D, phi, lead[:1 if d_bs else 0] + (5, n, n, L, L))
     _check("D0inv", D0inv, phi, lead[:1 if dinv_bs else 0] + (n, n, L, L))
     r_bs = 0 if r.dim() == 3 else n * L * L

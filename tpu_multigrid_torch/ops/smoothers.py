@@ -9,10 +9,10 @@ Update rule (reference Level::f_relax, level.h:100-128):
 shared by the batch or batched with it. Fields [C, k, n, L, L] with
 operators [C, ...] are C groups of k fields, each group on its own
 operator (an ensemble's near-null candidates: k a configuration); the
-plain sweeps broadcast each operator over its group. The Jacobi and red-black sweeps
-here are the plain torch versions of the dense_update and
-dense_update_tiled kernels (ops/cuda_stencil.py), which `smooth` runs for
-CUDA tensors. `gs_lex` has no kernel, here as in the JAX package (which
+plain sweeps broadcast each operator over its group. The Jacobi and
+red-black sweeps here are the plain torch versions of the dense_update
+and dense_update_tiled kernels (ops/cuda_stencil.py), which `smooth` runs
+for CUDA tensors. `gs_lex` has no kernel, here as in the JAX package (which
 runs it on plain XLA): `smooth` runs its plain sweeps on any device.
 `chebyshev` has no kernel of its own either: each step's operator apply
 goes through cuda_stencil.apply_D (the dense SpMV kernels) on CUDA

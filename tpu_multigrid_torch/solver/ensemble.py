@@ -78,15 +78,19 @@ def build_hierarchies_batched(Us: torch.Tensor, cfg: MGConfig,
     use instead (tests inject the JAX package's). The setup runs once for
     the whole batch with no host checks, as JAX's vmapped setup."""
     batch, device = Us.shape[0], Us.device
-    if starts is None:
-        if generator is None:
-            generator = torch.Generator().manual_seed(cfg.seed)
-        starts = [torch.stack([
+    if starts is None and generator is None:
+        generator = torch.Generator().manual_seed(cfg.seed)
+
+    def start_of(lvl):
+        if starts is not None:
+            return starts[lvl]
+        return torch.stack([
             random_starts(generator, _n_candidates(cfg, lvl), cfg.n_dof[lvl],
                           cfg.sizes[lvl], cfg.cdtype, device)
-            for _ in range(batch)]) for lvl in range(cfg.nlevels)]
+            for _ in range(batch)])
+
     levels, ntl = _build_levels(assemble(cfg.stencil, Us, cfg.m), cfg,
-                                starts, None, check=False)
+                                start_of, None, check=False)
     return Hierarchy(levels=levels, ntl=ntl)
 
 
