@@ -93,6 +93,21 @@ the plain path on the same hierarchy takes the same number of cycles
 (within one), and that the kernel path agrees with the plain path on a
 small complex128 problem.
 
+Every driver runs its chunks as CUDA graphs it captures once a call and
+replays (tpu_multigrid_torch/utils/compile.py). Each solve phase
+(flagship, solve_ir, large flagship, batched, chebyshev, ensemble8, MR,
+MG c128, EO-MR, CGNR-IR, FGMRES, CLI run A) also runs, in turns in the
+same call, with the drivers' bodies eager (graph_vs_eager): exactly the
+counts of COUNTS (each solve phase's), the same count eager, the fields
+within GRAPH_BAR (and whether their bits are the same), host seconds and
+capture seconds; the cycle phases also replay one captured cycle against
+the eager cycle (replayed_cycle: ms a cycle by CUDA events, the replay's
+device ops and idle share, and its launch counters, exactly
+FLAGSHIP_CYCLE and LARGE_CYCLE). Every capture runs with host syncs
+refused (torch.cuda's sync debug mode "error"). The warm-up before a
+capture runs a chunk on copies, and its launches count: a solve of N
+checked cycles launches N + 1 checks.
+
 The dense smoothers in groups (G > 1 entries sharing one operator: an
 ensemble's candidates) have rows of their own in the kernels line
 (dense_update_groups, dense_update_tiled_groups), each case also held bit
@@ -220,6 +235,14 @@ LARGE_CYCLE = {"links_update_tiled": 8, "dense_update_tiled": 24,
                "links_residual_tiled": 1, "links_residual_restrict": 0,
                "dense_residual_tiled": 2, "dense_residual": 3,
                "dense_apply": 1}
+# The counts each phase takes (cycles; solve_ir's cycles to 1e-8 and to
+# 1e-13; Krylov iterations): the JAX package's and every earlier smoke's.
+COUNTS = {"flagship": 10, "flagship solve_ir": (14, 24), "large": 8,
+          "large solve_ir": (12, 20), "chebyshev": 15, "ensemble8": 18,
+          "mr": 1200, "mg c128": 15, "cgnr_ir": (1000, 6500), "cli A": 10}
+# Graph against eager: the largest relative difference of the fields
+# (complex64 rounding).
+GRAPH_BAR = 1e-5
 
 
 @dataclasses.dataclass
@@ -1026,12 +1049,14 @@ def cycle_launches(torch, mgt, dev, cfg, hier, ms_per_cycle, want, tag,
 
 
 def solve_phase(torch, mgt, dev, cfg, gauges, kernels, max_cycles, n_cyc,
-                reps, warm_check):
+                reps, warm_check, count):
     """Setup (first gauge, with the host checks) and solve_chunked(chunk=1)
     through the entry points, with the launch counters set to 0 before the
-    setup; then a warm setup on the second gauge (freed at once), ms per
-    cycle on the kernels and on the plain versions, and the plain path's
-    cycle count on the same hierarchy. Returns (hier, summary, launches)."""
+    setup: exactly `count` cycles; then a warm setup on the second gauge
+    (freed at once), ms per cycle on the kernels and on the plain versions,
+    the plain path's cycle count on the same hierarchy, and the solve's
+    captured graphs against its bodies run eagerly (graph_vs_eager).
+    Returns (hier, summary, launches)."""
     cs = mgt.ops.cuda_stencil
     (_, U, D), (_, Ub, Db) = gauges
     b = mgt.point_source(cfg, device=dev)
@@ -1048,9 +1073,9 @@ def solve_phase(torch, mgt, dev, cfg, gauges, kernels, max_cycles, n_cyc,
           f"{out.iters} cycles to {out.resmag:.3e} in {t_solve:.3f} s")
     print(f"  launches in setup {setup_launches}; in solve {solve_launches}")
     check(math.isfinite(out.resmag), f"{tag}: residual {out.resmag}")
-    check(out.converged and out.iters <= max_cycles,
-          f"{tag} did not reach {cfg.res_threshold} in {max_cycles} cycles "
-          f"({out.iters}, {out.resmag:.3e})")
+    check(out.converged and out.iters == count,
+          f"{tag} took {out.iters} cycles to {out.resmag:.3e}: want {count} "
+          f"to {cfg.res_threshold}")
     check(tuple(out.phi.shape) == (2, cfg.L, cfg.L)
           and out.phi.dtype == torch.complex64, f"{tag}: solution shape")
     check(bool(torch.isfinite(torch.view_as_real(out.phi)).all()),
@@ -1079,12 +1104,17 @@ def solve_phase(torch, mgt, dev, cfg, gauges, kernels, max_cycles, n_cyc,
           f"{plain.resmag:.3e}")
     check(plain.converged and abs(plain.iters - out.iters) <= 1,
           f"{tag}: kernel path {out.iters} cycles vs plain path {plain.iters}")
+    graph, _ = graph_vs_eager(
+        torch, mgt, f"{tag} solve_chunked(chunk=1)",
+        lambda: mgt.solve_chunked(hier, b, cfg, max_iters=max_cycles,
+                                  chunk=1),
+        lambda o: o.iters, lambda o: o.phi)
     summary = {"L": cfg.L, "nlevels": cfg.nlevels, "cycles": out.iters,
                "res": out.resmag, "setup_s": t_setup, "setup_warm_s": t_warm,
                "solve_s": t_solve, "ms_per_cycle": ms_cycle,
                "ms_per_cycle_plain": ms_plain, "plain_cycles": plain.iters,
                "launches_setup": setup_launches,
-               "launches_solve": solve_launches}
+               "launches_solve": solve_launches, "graph": graph}
     return hier, summary, launches
 
 
@@ -1099,13 +1129,15 @@ def patched(owner, name, value):
         setattr(owner, name, orig)
 
 
-def ir_phase(torch, mgt, dev, cfg, phases, hier):
+def ir_phase(torch, mgt, dev, cfg, phases, hier, counts):
     """solve_ir on the complex64 hierarchy with the exact complex128
     level-0 operator (assembled from the same phases) to 1e-8 and 1e-13,
-    two inner cycles per outer step; its outer residual on the dense
-    residual kernels and on the plain stencil.residual, in
-    turns (kernel, plain, plain, kernel; the faster run of each), with the
-    counts equal and one outer residual launch an outer step."""
+    two inner cycles per outer step, exactly `counts` cycles; its outer
+    residual on the dense residual kernels and on the plain
+    stencil.residual, in turns (kernel, plain, plain, kernel; the faster
+    run of each), with the counts equal and one outer residual launch an
+    outer step (and one in the warm-up before the capture); then its
+    captured graphs against its bodies run eagerly (graph_vs_eager)."""
     cfg128 = cfg.replace(dtype="complex128")
     U128 = mgt.models.gauge.gauge_from_phases(phases, cfg128.cdtype, dev)
     D_outer = mgt.models.operators.assemble(cfg.stencil, U128, cfg.m)
@@ -1117,7 +1149,7 @@ def ir_phase(torch, mgt, dev, cfg, phases, hier):
         "_tiled" if cs.apply_mode(2, cfg.L, torch.complex128) == "tiled"
         else "")
     summary = {}
-    for thr in (1e-8, 1e-13):
+    for thr, count in zip((1e-8, 1e-13), counts):
         def run():
             return mgt.solve_ir(hier, b, cfg128.replace(res_threshold=thr),
                                 inner_cycles=2, max_iters=200,
@@ -1141,12 +1173,13 @@ def ir_phase(torch, mgt, dev, cfg, phases, hier):
               f"{out.iters} cycles, res {out.resmag:.3e}, {sec:.3f} s; with "
               f"the plain outer residual {ref.iters} cycles, "
               f"{sec_plain:.3f} s")
-        check(ref.iters == out.iters and n_outer == len(out.history),
+        check(ref.iters == out.iters and n_outer == len(out.history) + 1,
               f"solve_ir to {thr:g}: {out.iters} cycles and {n_outer} {key} "
-              f"launches for {len(out.history)} outer steps; {ref.iters} "
-              "cycles with the plain outer residual")
-        check(out.converged, f"solve_ir did not reach {thr:g} "
-              f"({out.iters} cycles, {out.resmag:.3e})")
+              f"launches for {len(out.history)} outer steps and the "
+              f"warm-up; {ref.iters} cycles with the plain outer residual")
+        check(out.converged and out.iters == count,
+              f"solve_ir to {thr:g}: {out.iters} cycles to "
+              f"{out.resmag:.3e}, want {count}")
         check(out.phi.dtype == torch.complex128
               and bool(torch.isfinite(torch.view_as_real(out.phi)).all()),
               "solve_ir solution not finite complex128")
@@ -1156,6 +1189,9 @@ def ir_phase(torch, mgt, dev, cfg, phases, hier):
                                "seconds_plain_outer": sec_plain,
                                "seconds_turns": secs,
                                "outer_residual_launches": n_outer}
+        summary[f"{thr:g}"]["graph"] = graph_vs_eager(
+            torch, mgt, f"solve_ir L={cfg.L} to {thr:g}", run,
+            lambda o: o.iters, lambda o: o.phi)[0]
     return summary
 
 
@@ -1261,7 +1297,8 @@ def block8_phase(torch, mgt, dev, n_cyc=3):
     on B2, then the plain restriction. n_cyc cycles of
     solve_chunked(chunk=1) with the launch counters set to 0 just before
     the solve: one links_residual launch a cycle and one
-    links_residual_norm a check. Returns (summary, launches)."""
+    links_residual_norm a check, and one of each in the warm-up before the
+    capture. Returns (summary, launches)."""
     cs = mgt.ops.cuda_stencil
     cfg, ((_, U, D), _) = flagship(torch, mgt, dev, nlevels=2)
     cfg = cfg.replace(block_x=8, block_y=8)
@@ -1277,8 +1314,8 @@ def block8_phase(torch, mgt, dev, n_cyc=3):
     check(math.isfinite(out.resmag) and out.resmag < 1.0
           and out.iters == n_cyc, f"block8: {out.iters} cycles to "
           f"{out.resmag:.3e}")
-    check(launches["links_residual"] == n_cyc
-          and launches["links_residual_norm"] == n_cyc
+    check(launches["links_residual"] == n_cyc + 1
+          and launches["links_residual_norm"] == n_cyc + 1
           and launches["links_residual_restrict"] == 0,
           f"block8: launches {launches} in {n_cyc} checked cycles")
     return {"cycles": out.iters, "res": out.resmag, "seconds": sec}, launches
@@ -1377,18 +1414,21 @@ def device_time_by_name(prof_obj):
 
 def krylov_phase(torch, mgt, dev, flag_cfg, flag_hier):
     """MR, MG, EO-MR, CGNR with complex128 defect correction, and FGMRES
-    through the package's entry points, each with the dense_apply launches
-    it made. Returns (summary, launches over the phase)."""
+    through the package's entry points, each through its captured graphs
+    against its bodies run eagerly (graph_vs_eager: the same count, the
+    field, time an iteration), with the dense_apply launches of its first
+    captured run; MR, MG and CGNR-IR take exactly their COUNTS. Returns
+    (summary, launches over the phase)."""
     cs, native = mgt.ops.cuda_stencil, mgt.utils.native
     out = {}
     cs.reset_launches()
 
-    def solve(tag, fn):
-        before = cs.launches["dense_apply"]
-        res, sec = timed(torch, fn)
-        n = cs.launches["dense_apply"] - before
+    def solve(tag, fn, count_of, field_of):
+        graph, res = graph_vs_eager(torch, mgt, f"krylov {tag}", fn,
+                                    count_of, field_of)
+        n = graph["launches"].get("dense_apply", 0)
         check(n > 0, f"krylov {tag}: dense_apply never launched")
-        return res, sec, n
+        return res, graph["seconds_graph"], n, graph
 
     # 1. MR and MG on the flagship operator, complex128, to 1e-8
     cfg = flag_cfg.replace(dtype="complex128", res_threshold=1e-8)
@@ -1397,40 +1437,51 @@ def krylov_phase(torch, mgt, dev, flag_cfg, flag_hier):
         0.2 * rng.normal(size=(2, cfg.L, cfg.L)), cfg.cdtype, dev)
     D = mgt.models.operators.assemble(cfg.stencil, U, cfg.m)
     b = mgt.point_source(cfg, device=dev)
-    (x, it, rel), sec, n = solve("mr", lambda: mgt.mr_solve(
-        D, b, tol=1e-8, max_iters=300000, chunk=100))
+    (x, it, rel), sec, n, g = solve(
+        "mr", lambda: mgt.mr_solve(D, b, tol=1e-8, max_iters=300000,
+                                   chunk=100),
+        lambda o: o[1], lambda o: o[0])
     print(f"krylov mr_solve L={cfg.L} c128: {it} iterations to {rel:.3e} "
           f"in {sec:.3f} s ({n} dense_apply launches)")
-    check(rel < 1e-8 and abs(it - 1200) <= 100,
+    check(rel < 1e-8 and it == COUNTS["mr"],
           f"mr_solve took {it} iterations to {rel:.3e} (JAX: 1200)")
-    out["mr"] = {"iters": it, "rel": rel, "seconds": sec, "launches": n}
+    out["mr"] = {"iters": it, "rel": rel, "seconds": sec, "launches": n,
+                 "graph": g}
     hier, t_setup = timed(torch, lambda: mgt.build_hierarchy(D, cfg,
                                                              check=False))
-    mgo, t_mg = timed(torch, lambda: mgt.solve_chunked(
-        hier, b, cfg, max_iters=500, chunk=5))
+    g_mg, mgo = graph_vs_eager(
+        torch, mgt, "MG c128 solve_chunked(chunk=5)",
+        lambda: mgt.solve_chunked(hier, b, cfg, max_iters=500, chunk=5),
+        lambda o: o.iters, lambda o: o.phi)
+    t_mg = g_mg["seconds_graph"]
     del hier
     print(f"  MG solve_chunked(chunk=5) c128: {mgo.iters} cycles to "
           f"{mgo.resmag:.3e} in {t_mg:.3f} s (setup {t_setup:.3f} s); "
           f"cycle_reduction {it / mgo.iters:.1f} (JAX: 15 cycles, 80x)")
-    check(mgo.converged, f"MG c128 did not reach 1e-8 ({mgo.resmag:.3e})")
+    check(mgo.converged and mgo.iters == COUNTS["mg c128"],
+          f"MG c128 took {mgo.iters} cycles to {mgo.resmag:.3e}: want "
+          f"{COUNTS['mg c128']} to 1e-8")
     out["mg"] = {"cycles": mgo.iters, "res": mgo.resmag, "seconds": t_mg,
-                 "setup_s": t_setup, "cycle_reduction": it / mgo.iters}
+                 "setup_s": t_setup, "cycle_reduction": it / mgo.iters,
+                 "graph": g_mg}
 
     # 2. even-odd MR on the same operator
-    (x, it_eo, rel), sec, n = solve("eo_mr", lambda: mgt.eo_mr_solve(
-        D, b, tol=1e-8, max_iters=300000, chunk=100))
+    (x, it_eo, rel), sec, n, g = solve(
+        "eo_mr", lambda: mgt.eo_mr_solve(D, b, tol=1e-8, max_iters=300000,
+                                         chunk=100),
+        lambda o: o[1], lambda o: o[0])
     print(f"  eo_mr_solve: {it_eo} Schur iterations to {rel:.3e} in "
           f"{sec:.3f} s ({n} dense_apply launches)")
     check(rel < 1e-8, f"eo_mr_solve reached {rel:.3e}")
     out["eo_mr"] = {"iters": it_eo, "rel": rel, "seconds": sec,
-                    "launches": n}
+                    "launches": n, "graph": g}
     del U, D, x
 
     # 3. CGNR + complex128 defect correction, indefinite Wilson m=-0.07 on
     #    beta=32 (scripts/wilson_m007.py part B), native heat-bath
     check(native.available(), "the native heat-bath did not build")
     print("  heat-bath generator: native (tpu_multigrid_torch/utils/native.py)")
-    for L in (128, 256):
+    for L, count in zip((128, 256), COUNTS["cgnr_ir"]):
         theta, t_hb = timed(torch, lambda: native.heatbath_run(
             np.zeros((2, L, L)), 32.0, 100, 4302529))
         U128 = mgt.models.gauge.gauge_from_phases(theta, torch.complex128,
@@ -1440,9 +1491,12 @@ def krylov_phase(torch, mgt, dev, flag_cfg, flag_hier):
                                             U128.to(torch.complex64), -0.07)
         b = torch.zeros((2, L, L), dtype=torch.complex128, device=dev)
         b[0, 2, 2] = 5.0
-        res, sec, n = solve(f"cgnr_ir L={L}", lambda: mgt.cgnr_solve_ir(
-            D64, D128, b, tol=1e-8, inner_tol=1e-5, inner_max=6000,
-            max_outer=8))
+        res, sec, n, g = solve(
+            f"cgnr_ir L={L}", lambda: mgt.cgnr_solve_ir(
+                D64, D128, b, tol=1e-8, inner_tol=1e-5, inner_max=6000,
+                max_outer=8),
+            lambda o: o["inner_iters"],
+            lambda o: torch.complex(*o["phi_planes"]))
         phi = torch.complex(*res["phi_planes"])
         true = float(torch.linalg.vector_norm(
             b - mgt.ops.stencil.apply_D(D128, phi))
@@ -1451,12 +1505,14 @@ def krylov_phase(torch, mgt, dev, flag_cfg, flag_hier):
               f"steps, {res['inner_iters']} inner iterations, rel "
               f"{res['rel']:.3e}, true c128 residual {true:.3e}, {sec:.3f} s "
               f"(heat-bath {t_hb:.2f} s; {n} dense_apply launches)")
-        check(true < 1e-8 and res["rel"] < 1e-8,
-              f"cgnr_solve_ir L={L}: rel {res['rel']:.3e}, true {true:.3e}")
+        check(true < 1e-8 and res["rel"] < 1e-8
+              and res["inner_iters"] == count,
+              f"cgnr_solve_ir L={L}: rel {res['rel']:.3e}, true {true:.3e}, "
+              f"{res['inner_iters']} inner iterations (want {count})")
         out[f"cgnr_ir_L{L}"] = {
             "outer": res["outer"], "inner_iters": res["inner_iters"],
             "rel": res["rel"], "true_rel": true, "seconds": sec,
-            "heatbath_s": t_hb, "launches": n,
+            "heatbath_s": t_hb, "launches": n, "graph": g,
             "plaquette": float(mgt.models.gauge.plaquette(U128).real)}
 
     # one profiled chunk of 500 inner CGNR iterations at L=256 (complex64)
@@ -1483,12 +1539,15 @@ def krylov_phase(torch, mgt, dev, flag_cfg, flag_hier):
 
     # 4. FGMRES preconditioned by the flagship hierarchy (complex64)
     bf = mgt.point_source(flag_cfg, device=dev)
-    (x, it, rel), sec, n = solve("fgmres", lambda: mgt.fgmres_solve(
-        flag_hier, bf, flag_cfg, tol=1e-6))
+    (x, it, rel), sec, n, g = solve(
+        "fgmres", lambda: mgt.fgmres_solve(flag_hier, bf, flag_cfg,
+                                           tol=1e-6),
+        lambda o: o[1], lambda o: o[0])
     print(f"  fgmres_solve on the flagship hierarchy: {it} iterations to "
           f"{rel:.3e} in {sec:.3f} s ({n} dense_apply launches)")
     check(rel < 1e-6, f"fgmres_solve reached {rel:.3e}")
-    out["fgmres"] = {"iters": it, "rel": rel, "seconds": sec, "launches": n}
+    out["fgmres"] = {"iters": it, "rel": rel, "seconds": sec, "launches": n,
+                     "graph": g}
     launches = dict(cs.launches)
     for k in KRYLOV_KERNELS:
         check(launches[k] > 0, f"krylov phase never launched {k}")
@@ -1524,6 +1583,137 @@ class Stopwatch:
         setattr(self.owner, self.name, self.orig)
 
 
+@contextlib.contextmanager
+def eager_chunks(mgt):
+    """While the block runs, the drivers' programs (CapturedChunk) run
+    their bodies eagerly on CUDA tensors too, launch by launch: the same
+    cycles and steps as the captured graphs, as the loops before them."""
+    cls = mgt.utils.compile.CapturedChunk
+    init = cls.__init__
+
+    def eager_init(self, *state):
+        init(self, *state)
+        self.cuda = False
+
+    with patched(cls, "__init__", eager_init):
+        yield
+
+
+def graph_vs_eager(torch, mgt, tag, run, count_of, field_of,
+                   order=("graph", "eager", "eager", "graph")):
+    """run() through the drivers' captured graphs and with their bodies
+    run eagerly (eager_chunks), in turns: the counts (equal), the fields
+    (within GRAPH_BAR; whether the bits are the same), host seconds
+    (synchronized; the faster run of each), and the first graph run's
+    capture seconds and captures (CapturedChunk._capture, warm-up left
+    out) and launches. Returns (summary, the first graph run's result)."""
+    cs = mgt.ops.cuda_stencil
+    secs, first = {"graph": [], "eager": []}, {}
+    for mode in order:
+        if mode == "graph":
+            n0 = dict(cs.launches)
+            with Stopwatch(torch, mgt.utils.compile.CapturedChunk,
+                           "_capture") as cap:
+                out, sec = timed(torch, run)
+            if "graph" not in first:
+                capture = (cap.seconds, cap.calls)
+                launches = {k: v - n0[k] for k, v in cs.launches.items()
+                            if v != n0[k]}
+        else:
+            with eager_chunks(mgt):
+                out, sec = timed(torch, run)
+        secs[mode].append(sec)
+        first.setdefault(mode, out)
+    n, n_eager = count_of(first["graph"]), count_of(first["eager"])
+    f, f_eager = field_of(first["graph"]), field_of(first["eager"])
+    rel = rel_diff(f, f_eager)
+    same = bool(torch.equal(f, f_eager))
+    out = {"count": n, "count_eager": n_eager, "rel_diff": rel,
+           "same_bits": same, "seconds_graph": min(secs["graph"]),
+           "seconds_eager": min(secs["eager"]), "seconds_turns": secs,
+           "capture_s": capture[0], "captures": capture[1],
+           "launches": launches}
+    if n:
+        out.update(ms_per_unit_graph=out["seconds_graph"] * 1e3 / n,
+                   ms_per_unit_eager=out["seconds_eager"] * 1e3 / n)
+    print(f"  graphs {tag}: count {n} (eager {n_eager}); field rel diff "
+          f"{rel:.3e}, same bits {same}; "
+          + (f"{out['ms_per_unit_graph']:.4f} ms a cycle or iteration "
+             f"replayed, {out['ms_per_unit_eager']:.4f} eager (host clock "
+             "over the whole call, in turns); " if n else "")
+          + f"{capture[1]} captures in {capture[0]:.4f} s")
+    check(n == n_eager, f"{tag}: {n} with graphs, {n_eager} eager")
+    check(rel < GRAPH_BAR, f"{tag}: graph and eager fields differ by "
+          f"{rel:.3e}")
+    return out, first["graph"]
+
+
+def replayed_cycle(torch, mgt, dev, cfg, hier, b, n_cyc, reps, tag,
+                   want=None):
+    """One cycle captured as the drivers capture their chunks
+    (CapturedChunk) and replayed: its capture seconds; ms a cycle replayed
+    and eager (n_cyc cycles a run, CUDA events, median of `reps` runs, in
+    turns eager, graph, graph, eager); one replay profiled (device ops,
+    device ms, idle share against the replayed ms) with the launch
+    counters set to 0 just before it: exactly `want` where given. b [B, n,
+    L, L] for a batched cycle. Returns the summary."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    cs = mgt.ops.cuda_stencil
+    cc = mgt.utils.compile.CapturedChunk
+    batch = b.shape[0] if b.dim() == 4 else None
+    chunk = cc(*mgt.zero_fields(cfg, dev, batch))
+
+    def body(*phis):
+        return mgt.cycle(hier, phis, b, cfg)[0], None
+
+    with Stopwatch(torch, cc, "_capture") as cap:
+        chunk("cycle", body)
+
+    def graph():
+        for _ in range(n_cyc):
+            chunk("cycle", body)
+
+    def eager():
+        phis = mgt.zero_fields(cfg, dev, batch)
+        for _ in range(n_cyc):
+            phis, _ = mgt.cycle(hier, phis, b, cfg)
+
+    ms = {"eager": [], "graph": []}
+    for mode in ("eager", "graph", "graph", "eager"):
+        ms[mode].append(cuda_ms(torch, graph if mode == "graph" else eager,
+                                reps=reps) / n_cyc)
+    ms_graph, ms_eager = min(ms["graph"]), min(ms["eager"])
+    torch.cuda.synchronize()
+    cs.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        chunk("cycle", body)
+        torch.cuda.synchronize()
+    counts = {k: v for k, v in cs.launches.items() if v}
+    events = [e for e in p.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(getattr(e, "device_time_total", None)
+                  or getattr(e, "cuda_time_total", 0.0) for e in events) / 1e3
+    out = {"capture_s": cap.seconds, "ms_graph": ms_graph,
+           "ms_eager": ms_eager, "ms_turns": ms,
+           "speedup": ms_eager / ms_graph, "device_ops": len(events),
+           "device_ms": busy_ms,
+           "idle_share": (1 - busy_ms / ms_graph) if events else None,
+           "launches": counts}
+    print(f"  replayed {tag} cycle: {ms_graph:.4f} ms against {ms_eager:.4f}"
+          f" ms eager ({out['speedup']:.2f}x; CUDA events, the faster of "
+          f"two medians of {reps} x {n_cyc} cycles each); capture "
+          f"{cap.seconds:.4f} s; one replay: "
+          + (f"{len(events)} device ops, {busy_ms:.4f} ms of device time, "
+             f"idle {out['idle_share']:.3f}" if events else
+             "the profiler saw no device event (not measured)")
+          + f"; launches {counts}")
+    if want is not None:
+        check(all(counts.get(k, 0) == n for k, n in want.items()),
+              f"a replayed {tag} cycle launched {counts}: want {want}")
+    return out
+
+
 def run_cli(torch, mgt, argv, out_dir):
     """tpu_multigrid_torch.cli.main(argv + --out-dir) in this process.
     Returns (exit code, what it printed, solve_summary.json, setup
@@ -1535,6 +1725,16 @@ def run_cli(torch, mgt, argv, out_dir):
         rc = mgt.cli.main(argv + ["--out-dir", str(out_dir)])
     summary = json.loads((out_dir / "solve_summary.json").read_text())
     return rc, buf.getvalue(), summary, setup.seconds, rec.seconds, rec.calls
+
+
+def last_phi_line(path):
+    """The field on the last line of a results_phi.txt ('it,' then
+    're+iim,' a value), complex128."""
+    with open(path) as f:
+        *_, line = f
+    vals = line.rstrip(",\n").split(",")[1:]
+    return np.array([complex(float(v.partition("+i")[0]),
+                             float(v.partition("+i")[2])) for v in vals])
 
 
 def self_test_line(printed, bar, tag):
@@ -1589,8 +1789,11 @@ def cli_phase(torch, mgt, dev, card, flag, phases):
     C (complex128, --solver ir to 1e-13), D (--solver fmg, fgmres with
     --roofline, cgnr, eo_mr), E (--resume, twice), F (L=32 gs_lex with
     joint-QR setup: no dense-smoother launch) and G (a two-point mass scan).
-    Every output directory lives in a temporary directory, deleted after
-    its checks. Returns (summary, launches over the phase)."""
+    Run A runs again with the drivers' bodies eager (eager_chunks; no
+    self-tests, no checkpoint): the same cycles, and its last results_phi
+    line within GRAPH_BAR of A's. Every output directory lives in a
+    temporary directory, deleted after its checks. Returns (summary,
+    launches over the phase)."""
     import shutil
     cs = mgt.ops.cuda_stencil
     L = phases.shape[-1]
@@ -1627,15 +1830,41 @@ def cli_phase(torch, mgt, dev, card, flag, phases):
         mgt.models.gauge.write_heatbath_file(str(phase_file), phases)
 
         # A: the flagship through the CLI
-        a, printed, d = run("A", flags(), files=True)
+        with Stopwatch(torch, mgt.utils.compile.CapturedChunk,
+                       "_capture") as cap:
+            a, printed, d = run("A", flags(), files=True)
         a["self_tests"], a["self_test_worst"] = self_test_line(
             printed, 1e-4, "A")
         check(nn.exists(), "cli A wrote no near-null checkpoint")
-        check(a["cycles"] == flag["cycles"]
+        check(a["cycles"] == flag["cycles"] == COUNTS["cli A"]
               and abs(a["res"] / flag["res"] - 1) < 1e-4,
               f"cli A: {a['cycles']} cycles to {a['res']:.6e}; the flagship "
               f"phase took {flag['cycles']} to {flag['res']:.6e}")
+        with eager_chunks(mgt):
+            a_eager, _, d_eager = run("A_eager", flags(checkpoint=None)
+                                      + ["--skip-tests"], files=True)
+        phi, phi_eager = (
+            torch.from_numpy(last_phi_line(x / "results_phi.txt"))
+            for x in (d, d_eager))
+        rel = rel_diff(phi, phi_eager)
+        a["graph"] = {
+            "count": a["cycles"], "count_eager": a_eager["cycles"],
+            "rel_diff": rel, "same_bits": bool(torch.equal(phi, phi_eager)),
+            "ms_per_unit_graph": a["solve_s"] * 1e3 / a["cycles"],
+            "ms_per_unit_eager": a_eager["solve_s"] * 1e3
+            / a_eager["cycles"],
+            "capture_s": cap.seconds, "captures": cap.calls}
+        print(f"  graphs cli A: {a['cycles']} cycles (eager "
+              f"{a_eager['cycles']}); last results_phi line rel diff "
+              f"{rel:.3e}, same bits {a['graph']['same_bits']}; solve "
+              f"{a['graph']['ms_per_unit_graph']:.3f} ms a cycle replayed, "
+              f"{a['graph']['ms_per_unit_eager']:.3f} eager (results files "
+              f"included); {cap.calls} captures in {cap.seconds:.4f} s")
+        check(a_eager["cycles"] == a["cycles"] and rel < GRAPH_BAR,
+              f"cli A: {a['cycles']} cycles with graphs, "
+              f"{a_eager['cycles']} eager; phi rel diff {rel:.3e}")
         shutil.rmtree(d)
+        shutil.rmtree(d_eager)
         out["A"] = a
 
         # B: the near-null vectors from A's checkpoint
@@ -1739,7 +1968,9 @@ def batched_phase(torch, mgt, dev, cfg, hier, n_rhs, n_cyc, reps, single,
     just after; each solution against its own unbatched n_cyc-cycle solve
     (rel. 1e-4); ms a batched cycle; one profiled batched cycle launches
     exactly what one unbatched cycle launched (`single`: the unbatched phase's
-    summary). Returns (summary, launches)."""
+    summary), and so does a replayed one (replayed_cycle); the solve's
+    graphs against its bodies run eagerly (graph_vs_eager). Returns
+    (summary, launches)."""
     cs = mgt.ops.cuda_stencil
     rng = np.random.default_rng(cfg.seed + n_rhs)
     shape = (n_rhs, 2, cfg.L, cfg.L)
@@ -1776,7 +2007,14 @@ def batched_phase(torch, mgt, dev, cfg, hier, n_rhs, n_cyc, reps, single,
                          f"batched x{n_rhs} {tag}", b=bs)
     check(cyc["port_launches"] == want, f"batched {tag}: a cycle launched "
           f"{cyc['port_launches']}, an unbatched cycle {want}")
-    out = {"L": cfg.L, "rhs": n_rhs, "cycles": n_cyc,
+    graph = graph_vs_eager(
+        torch, mgt, f"batched {tag} x{n_rhs}",
+        lambda: mgt.solve_batched(hier, bs, cfg, n_cyc),
+        lambda o: n_cyc, lambda o: o[0])[0]
+    graph["replayed"] = replayed_cycle(torch, mgt, dev, cfg, hier, bs,
+                                       n_cyc, reps, f"batched {tag} x{n_rhs}",
+                                       want)
+    out = {"L": cfg.L, "rhs": n_rhs, "cycles": n_cyc, "graph": graph,
            "max_rel_res": float(res.max()), "solve_s": sec,
            "max_rel_diff_vs_unbatched": worst, "ms_per_cycle": ms,
            "unbatched_ms_per_cycle": single["ms_per_cycle"],
@@ -1796,8 +2034,10 @@ def chebyshev_phase(torch, mgt, dev, cfg, hier, max_cycles=40, n_cyc=10,
     """eigs.chebyshev_config on the flagship hierarchy (lambda_max of
     D0^-1 D on every level by power iteration), then the Chebyshev-smoothed
     solve_chunked(chunk=1) to the flagship's threshold, with the launch
-    counters set to 0 before the estimate; the plain path on the same
-    hierarchy within one cycle. Returns the summary."""
+    counters set to 0 before the estimate: exactly COUNTS["chebyshev"]
+    cycles; the plain path on the same hierarchy within one cycle; the
+    solve's graphs against its bodies run eagerly, and a replayed cycle.
+    Returns the summary."""
     cs = mgt.ops.cuda_stencil
     b = mgt.point_source(cfg, device=dev)
     cs.reset_launches()
@@ -1819,14 +2059,21 @@ def chebyshev_phase(torch, mgt, dev, cfg, hier, max_cycles=40, n_cyc=10,
           + f" ({t_eig:.3f} s); {out.iters} cycles to {out.resmag:.3e} in "
           f"{sec:.3f} s, {ms:.3f} ms a cycle; plain path {plain.iters} "
           f"cycles to {plain.resmag:.3e}; launches {launches}")
-    check(math.isfinite(out.resmag) and out.converged,
-          f"chebyshev did not reach {cfg.res_threshold} in {max_cycles} "
-          f"cycles ({out.iters}, {out.resmag:.3e})")
+    check(out.converged and out.iters == COUNTS["chebyshev"],
+          f"chebyshev took {out.iters} cycles to {out.resmag:.3e}: want "
+          f"{COUNTS['chebyshev']} to {cfg.res_threshold}")
     check(plain.converged and abs(plain.iters - out.iters) <= 1,
           f"chebyshev: kernel path {out.iters} cycles, plain {plain.iters}")
     for k in CHEBYSHEV_KERNELS:
         check(launches[k] > 0, f"chebyshev never launched {k}")
-    return {"lmax": list(cc.cheby_lmax), "eig_s": t_eig,
+    graph = graph_vs_eager(
+        torch, mgt, f"chebyshev L={cfg.L}",
+        lambda: mgt.solve_chunked(hier, b, cc, max_iters=max_cycles,
+                                  chunk=1),
+        lambda o: o.iters, lambda o: o.phi)[0]
+    graph["replayed"] = replayed_cycle(torch, mgt, dev, cc, hier, b, n_cyc,
+                                       reps, f"chebyshev L={cfg.L}")
+    return {"lmax": list(cc.cheby_lmax), "eig_s": t_eig, "graph": graph,
             "cycles": out.iters, "res": out.resmag, "solve_s": sec,
             "ms_per_cycle": ms, "plain_cycles": plain.iters,
             "launches": launches}
@@ -2001,7 +2248,8 @@ def setup_breakdown(torch, mgt, build):
             "other_s": total - sum(secs.values())}
 
 
-def ensemble_phase(torch, mgt, dev, B=8, L=128, n_cyc=18, B_scale=32):
+def ensemble_phase(torch, mgt, dev, B=8, L=128, n_cyc=COUNTS["ensemble8"],
+                   B_scale=32):
     """bench.py's ensemble phase on the card: ensemble_cfg(L), B gauges of
     phases 0.2 N(0,1) from default_rng(cfg.seed) (a second ensemble for
     the warm setup), the point source, 18 cycles, through
@@ -2010,9 +2258,11 @@ def ensemble_phase(torch, mgt, dev, B=8, L=128, n_cyc=18, B_scale=32):
     solve_ensemble with the launch counters set to 0 before the solve. Max
     relative residual < 1e-5 (bench.py's bar); each configuration equal to
     its own unbatched solve (rel. 1e-4); one ensemble cycle launches what
-    one configuration's cycle launches. The warm setup is timed in turns
-    with the per-configuration loop of build_hierarchy it replaces, and
-    once more at B_scale configurations. Returns the summary."""
+    one configuration's cycle launches, and so does a replayed one; the
+    solve's graphs against its bodies run eagerly. The warm setup is timed
+    in turns with the per-configuration loop of build_hierarchy it
+    replaces, and once more at B_scale configurations. Returns the
+    summary."""
     cs = mgt.ops.cuda_stencil
     ens = mgt.solver.ensemble
     cfg = ensemble_cfg(mgt, L)
@@ -2082,7 +2332,13 @@ def ensemble_phase(torch, mgt, dev, B=8, L=128, n_cyc=18, B_scale=32):
                          f"ensemble x{B}", b=bs)
     check(cyc["port_launches"] == want, f"ensemble: a cycle launched "
           f"{cyc['port_launches']}, one configuration's {want}")
-    out = dict(setup, B=B, L=L, n_cycles=n_cyc,
+    graph = graph_vs_eager(
+        torch, mgt, f"ensemble8 x{B}",
+        lambda: mgt.solve_ensemble(hier_b, bs, cfg, n_cyc),
+        lambda o: n_cyc, lambda o: o[0])[0]
+    graph["replayed"] = replayed_cycle(torch, mgt, dev, cfg, hier_b, bs,
+                                       n_cyc, 10, f"ensemble8 x{B}", want)
+    out = dict(setup, B=B, L=L, n_cycles=n_cyc, graph=graph,
                max_rel_res=float(res.max()), setup_s=setup["setup_cold_s"],
                setup_warm_s=min(warm), setup_warm_turns_s=warm,
                setup_loop_warm_s=min(warm_loop),
@@ -2293,9 +2549,11 @@ def main():
     cfg, gauges = flagship(torch, mgt, dev)
     hier, flag, flag_launches = solve_phase(
         torch, mgt, dev, cfg, gauges, FLAGSHIP_KERNELS, max_cycles=30,
-        n_cyc=10, reps=5, warm_check=True)
+        n_cyc=10, reps=5, warm_check=True, count=COUNTS["flagship"])
     solve_l = flag["launches_solve"]
-    check(solve_l["links_residual_norm"] == flag["cycles"]
+    # N checked cycles, and one more chunk (a cycle and its check) in the
+    # warm-up before the capture
+    check(solve_l["links_residual_norm"] == flag["cycles"] + 1
           and solve_l["links_residual"] == 0,
           f"the flagship's {flag['cycles']} checks launched "
           f"{solve_l['links_residual_norm']} links_residual_norm and "
@@ -2303,8 +2561,12 @@ def main():
     flag["cycle"] = cycle_launches(
         torch, mgt, dev, cfg, hier, flag["ms_per_cycle"], FLAGSHIP_CYCLE,
         "flagship", FIRST_DESIGN_CYCLE_OPS)
+    flag["replayed"] = replayed_cycle(
+        torch, mgt, dev, cfg, hier, mgt.point_source(cfg, device=dev), 10, 5,
+        "flagship", FLAGSHIP_CYCLE)
     flag["check"] = check_phase(torch, mgt, dev, cfg, hier)
-    flag["solve_ir"] = ir_phase(torch, mgt, dev, cfg, gauges[0][0], hier)
+    flag["solve_ir"] = ir_phase(torch, mgt, dev, cfg, gauges[0][0], hier,
+                                COUNTS["flagship solve_ir"])
     batched, batched_launches = batched_phase(
         torch, mgt, dev, cfg, hier, 8, 10, 5, flag, FLAGSHIP_KERNELS,
         "L=256")
@@ -2317,19 +2579,24 @@ def main():
     cfg, gauges = flagship(torch, mgt, dev, L=2048, nlevels=6)
     hier, large, large_launches = solve_phase(
         torch, mgt, dev, cfg, gauges, LARGE_KERNELS, max_cycles=100,
-        n_cyc=4, reps=3, warm_check=False)
+        n_cyc=4, reps=3, warm_check=False, count=COUNTS["large"])
     phases0 = gauges[0][0]
     del gauges
     solve_l = large["launches_solve"]
-    check(solve_l["links_residual_norm"] == large["cycles"]
-          and solve_l["links_residual_tiled"] == large["cycles"],
+    check(solve_l["links_residual_norm"] == large["cycles"] + 1
+          and solve_l["links_residual_tiled"] == large["cycles"] + 1,
           f"the large flagship's checks launched {solve_l}: want B5b once a "
-          "cycle and links_residual_norm once a check")
+          "cycle and links_residual_norm once a check, and once more each "
+          "in the warm-up")
     large["cycle"] = cycle_launches(
         torch, mgt, dev, cfg, hier, large["ms_per_cycle"], LARGE_CYCLE,
         "large flagship")
+    large["replayed"] = replayed_cycle(
+        torch, mgt, dev, cfg, hier, mgt.point_source(cfg, device=dev), 4, 3,
+        "large flagship", LARGE_CYCLE)
     large["check"] = check_phase(torch, mgt, dev, cfg, hier, reps=10)
-    large["solve_ir"] = ir_phase(torch, mgt, dev, cfg, phases0, hier)
+    large["solve_ir"] = ir_phase(torch, mgt, dev, cfg, phases0, hier,
+                                 COUNTS["large solve_ir"])
     large_b, large_b_launches = batched_phase(
         torch, mgt, dev, cfg, hier, 2, 8, 3, large, LARGE_KERNELS, "L=2048")
     del hier
@@ -2418,6 +2685,19 @@ def main():
     print(json.dumps({"geo": geo, "card": card}))
     print(json.dumps({"block8": block8, "card": card}))
     print(json.dumps({"mesh": mesh, "card": card}))
+    print(json.dumps({"graphs": {
+        "flagship": flag["graph"], "flagship_replayed": flag["replayed"],
+        "flagship_solve_ir": {k: v["graph"]
+                              for k, v in flag["solve_ir"].items()},
+        "large": large["graph"], "large_replayed": large["replayed"],
+        "large_solve_ir": {k: v["graph"]
+                           for k, v in large["solve_ir"].items()},
+        "large_peak_gib": large["peak_mem_gb"],
+        "batched_L256": batched["graph"], "batched_L2048": large_b["graph"],
+        "chebyshev": cheb["graph"], "ensemble8": ensemble["graph"],
+        **{k: krylov[k]["graph"] for k in (
+            "mr", "mg", "eo_mr", "cgnr_ir_L128", "cgnr_ir_L256", "fgmres")},
+        "cli_A": cli["A"]["graph"]}, "card": card}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,12 @@ the NTL weights of every cycle (and the reference's results files through
 a utils.io.ResultsWriter); `solve_batched` runs a batch of right-hand sides
 through one hierarchy for a fixed number of cycles; `mr_solve` is the
 unpreconditioned baseline.
+
+Each driver runs its chunk of work as one device program, as the JAX
+package's drivers do (utils.compile.CapturedChunk): on CUDA tensors a
+CUDA graph captured once a call and replayed, the host reading back one
+scalar (or one small vector) a chunk; on CPU tensors the same body runs
+eagerly.
 """
 from __future__ import annotations
 
@@ -23,8 +29,16 @@ import torch
 from ..config import MGConfig
 from ..ops import cuda_stencil
 from ..ops.stencil import residual
+from ..utils.compile import CapturedChunk, run_steps
 from .cycles import cycle, fmg_init, residual_norm_ratio0
 from .hierarchy import Hierarchy, cast_hierarchy, zero_fields
+
+# Cycles in one program of `solve` (its host reads the stop flag once
+# every SOLVE_BLOCK cycles).
+SOLVE_BLOCK = 10
+# Steps in one program of the Krylov iterations (mr_iterate,
+# krylov.cgnr_solve); a chunk of more replays it.
+KRYLOV_BLOCK = 50
 
 
 @dataclasses.dataclass
@@ -47,37 +61,76 @@ def _stop(resmag: float, cfg: MGConfig) -> bool:
             or not math.isfinite(resmag))
 
 
+def _cycles_then_check(hier: Hierarchy, b, cfg: MGConfig, n: int):
+    """The body of n cycles on the level fields, then the level-0 check
+    residual_norm_ratio0 (JAX's run_chunk)."""
+    def body(*phis):
+        for _ in range(n):
+            phis, _ = cycle(hier, phis, b, cfg)
+        return phis, residual_norm_ratio0(hier, phis[0], b, cfg)
+    return body
+
+
 def solve(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
           phis0=None, max_iters: Optional[int] = None) -> SolveResult:
-    """Cycle until converged, checking the residual after every cycle."""
+    """Cycle until converged: the JAX package's while_loop, which checks
+    the residual after every cycle. One program runs SOLVE_BLOCK cycles,
+    each followed by its check and a stop flag on the device (the
+    residual not in (res_threshold, div_threshold), NaN included, or
+    max_iters cycles run); once the flag is set, the fields, the count
+    and the residual stay as they were, as a finished while_loop leaves
+    them. The host reads the flag once a program."""
     max_iters = max_iters or cfg.max_iters
     phis = phis0 if phis0 is not None else zero_fields(cfg, b.device)
-    it, res = 0, 1.0
-    while it < max_iters and cfg.res_threshold < res < cfg.div_threshold:
-        phis, _ = cycle(hier, phis, b, cfg)
-        res = float(residual_norm_ratio0(hier, phis[0], b, cfg))
-        it += 1
-    return SolveResult(phi=phis[0], iters=it, resmag=res,
-                       converged=res < cfg.res_threshold)
+    thr, div = cfg.res_threshold, cfg.div_threshold
+    if not (0 < max_iters and thr < 1.0 < div):
+        return SolveResult(phi=phis[0], iters=0, resmag=1.0,
+                           converged=1.0 < thr)
+    prog = CapturedChunk(
+        *phis, torch.zeros((), dtype=torch.int64, device=b.device),
+        torch.ones((), dtype=b.real.dtype, device=b.device),
+        torch.zeros((), dtype=torch.bool, device=b.device))
+
+    def cycles(n):
+        def body(*state):
+            *phis, it, res, done = state
+            for _ in range(n):
+                new, _ = cycle(hier, tuple(phis), b, cfg)
+                r = residual_norm_ratio0(hier, new[0], b, cfg)
+                live = ~done
+                phis = [torch.where(live, p, q) for p, q in zip(new, phis)]
+                res = torch.where(live, r, res)
+                it = it + live.to(it.dtype)
+                done = ~((it < max_iters) & (res > thr) & (res < div))
+            return (*phis, it, res, done), done
+        return body
+
+    while not bool(prog("block", cycles(SOLVE_BLOCK), cycles(1))):
+        pass
+    *phis, it, res, _ = prog.state
+    resmag = float(res)
+    return SolveResult(phi=phis[0], iters=int(it), resmag=resmag,
+                       converged=resmag < thr)
 
 
 def solve_chunked(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
                   phis0=None, max_iters: Optional[int] = None,
                   chunk: int = 10) -> SolveResult:
     """Run `chunk` cycles between host convergence checks (the iteration
-    count is reported at chunk granularity, as in the JAX package)."""
+    count is reported at chunk granularity, as in the JAX package): one
+    program a chunk, its check included."""
     max_iters = max_iters or cfg.max_iters
     phis = phis0 if phis0 is not None else zero_fields(cfg, b.device)
+    prog = CapturedChunk(*phis)
+    body = _cycles_then_check(hier, b, cfg, chunk)
     it = 0
     resmag = float("inf")
     while it < max_iters:
-        for _ in range(chunk):
-            phis, _ = cycle(hier, phis, b, cfg)
+        resmag = float(prog("chunk", body))
         it += chunk
-        resmag = float(residual_norm_ratio0(hier, phis[0], b, cfg))
         if _stop(resmag, cfg):
             break
-    return SolveResult(phi=phis[0], iters=it, resmag=resmag,
+    return SolveResult(phi=prog.state[0], iters=it, resmag=resmag,
                        converged=resmag < cfg.res_threshold)
 
 
@@ -110,9 +163,10 @@ def solve_ir(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
     `D_outer` (converted to cfg.dtype on b's device; default: the
     hierarchy's level-0 D). The outer residual runs on the dense residual
     kernels (cuda_stencil.residual; its plain version with cfg.pallas ==
-    'off'). The host reads the residual back every `outer_chunk` outer
-    steps; history holds one entry per read-back, with history_stride =
-    inner_cycles * outer_chunk.
+    'off'). One program is one outer step (its cycles, the update, the
+    outer residual and its norm); the host reads the residual back every
+    `outer_chunk` outer steps; history holds one entry per read-back, with
+    history_stride = inner_cycles * outer_chunk.
     """
     max_iters = max_iters or cfg.max_iters
     cfg_in = cfg.replace(dtype=inner_dtype)
@@ -125,8 +179,8 @@ def solve_ir(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
     phi = torch.zeros((cfg.n_dof[0], cfg.L, cfg.L), dtype=cfg.cdtype,
                       device=b.device)
     outer_residual = residual if cfg.pallas == "off" else cuda_stencil.residual
-    r = b
     bn = torch.sqrt(torch.sum(b.abs() ** 2))
+    prog = CapturedChunk(phi, b)
 
     def step(phi, r):
         rn = torch.sqrt(torch.sum(r.abs() ** 2))
@@ -136,20 +190,22 @@ def solve_ir(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
         for _ in range(inner_cycles):
             es, _ = cycle(hier_in, es, r_in, cfg_in)
         phi = phi + safe * es[0].to(phi.dtype)
-        return phi, outer_residual(D_outer, phi, b)
+        r = outer_residual(D_outer, phi, b)
+        return (phi, r), torch.sqrt(torch.sum(r.abs() ** 2)) / bn
 
     history = []
     resmag = float("inf")
     outer = 0
     while outer * inner_cycles < max_iters:
         for _ in range(outer_chunk):
-            phi, r = step(phi, r)
+            rel = prog("step", step)
         outer += outer_chunk
-        resmag = float(torch.sqrt(torch.sum(r.abs() ** 2)) / bn)
+        resmag = float(rel)
         history.append(resmag)
         if _stop(resmag, cfg):
             break
-    return SolveResult(phi=phi, iters=outer * inner_cycles, resmag=resmag,
+    return SolveResult(phi=prog.state[0], iters=outer * inner_cycles,
+                       resmag=resmag,
                        converged=resmag < cfg.res_threshold,
                        history=np.asarray(history),
                        history_stride=inner_cycles * outer_chunk)
@@ -161,22 +217,30 @@ def solve_with_history(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
     """Cycle until converged, recording the relative residual and the NTL
     weights of every cycle; `writer` (utils.io.ResultsWriter, the
     reference's per-iteration output surface) records cycles 1,
-    1 + write_interval, ..."""
+    1 + write_interval, ... One program a cycle, its check and its
+    weights included; the read-back and the writer stay on the host, as
+    in the JAX package's history mode."""
     max_iters = max_iters or cfg.max_iters
     phis = phis0 if phis0 is not None else zero_fields(cfg, b.device)
+    prog = CapturedChunk(*phis)
+
+    def body(*phis):
+        phis, a = cycle(hier, phis, b, cfg)
+        return phis, (residual_norm_ratio0(hier, phis[0], b, cfg), a)
+
     history, weights = [], []
     resmag = float("inf")
     it = 0
     for it in range(1, max_iters + 1):
-        phis, a = cycle(hier, phis, b, cfg)
-        resmag = float(residual_norm_ratio0(hier, phis[0], b, cfg))
+        res, a = prog("cycle", body)
+        resmag = float(res)
         history.append(resmag)
         weights.append(a.cpu().numpy())
         if writer is not None and (it - 1) % cfg.write_interval == 0:
-            writer.record(it, hier, phis, b, weights[-1])
+            writer.record(it, hier, prog.state, b, weights[-1])
         if _stop(resmag, cfg):
             break
-    return SolveResult(phi=phis[0], iters=it, resmag=resmag,
+    return SolveResult(phi=prog.state[0], iters=it, resmag=resmag,
                        converged=resmag < cfg.res_threshold,
                        history=np.asarray(history),
                        ntl_weights=np.asarray(weights))
@@ -193,13 +257,17 @@ def solve_batched(hier: Hierarchy, bs: torch.Tensor, cfg: MGConfig,
     hierarchy may itself carry the batch axis (one per right-hand side:
     solver.ensemble.solve_ensemble).
 
+    One program of a cycle and the per-RHS check, replayed n_cycles times
+    (the last check is returned): capturing a cycle costs the host about
+    what running it eagerly does, so a program of all the cycles, replayed
+    once, would save nothing.
+
     Returns (phi [batch, n, L, L] on bs's device, the per-RHS relative
     residuals as a numpy array)."""
-    phis = zero_fields(cfg, bs.device, batch=bs.shape[0])
-    for _ in range(n_cycles):
-        phis, _ = cycle(hier, phis, bs, cfg)
-    res = residual_norm_ratio0(hier, phis[0], bs, cfg)
-    return phis[0], res.cpu().numpy()
+    prog = CapturedChunk(*zero_fields(cfg, bs.device, batch=bs.shape[0]))
+    res = run_steps(prog, n_cycles, 1,
+                    lambda n: _cycles_then_check(hier, bs, cfg, n))
+    return prog.state[0], res.cpu().numpy()
 
 
 def mr_solve(D, b, tol: float = 1e-8, max_iters: int = 100000,
@@ -221,21 +289,28 @@ def mr_solve(D, b, tol: float = 1e-8, max_iters: int = 100000,
 def mr_iterate(op, r, b, tol: float, max_iters: int, chunk: int):
     """Minimal-residual steps x += alpha r, r -= alpha op(r) from x = 0 and
     residual r, alpha = <op r, r> / <op r, op r> in the field's dtype;
-    `chunk` steps between host checks of ||r|| / ||b||. Returns
-    (x, iters, rel)."""
+    `chunk` steps between host checks of ||r|| / ||b||, as programs of
+    KRYLOV_BLOCK steps and one of the rest. Returns (x, iters, rel)."""
     bn = float(torch.sqrt(torch.sum(b.abs() ** 2)))
-    x = torch.zeros_like(r)
+    prog = CapturedChunk(torch.zeros_like(r), r)
+
+    def steps(n):
+        def body(x, r):
+            for _ in range(n):
+                Ar = op(r)
+                alpha = (torch.sum(torch.conj(Ar) * r)
+                         / torch.sum(torch.conj(Ar) * Ar))
+                x = x + alpha * r
+                r = r - alpha * Ar
+            return (x, r), torch.sqrt(torch.sum(r.abs() ** 2))
+        return body
+
     it = 0
     rel = 1.0
     while it < max_iters:
-        for _ in range(chunk):
-            Ar = op(r)
-            alpha = (torch.sum(torch.conj(Ar) * r)
-                     / torch.sum(torch.conj(Ar) * Ar))
-            x = x + alpha * r
-            r = r - alpha * Ar
+        rn = run_steps(prog, chunk, KRYLOV_BLOCK, steps)
         it += chunk
-        rel = float(torch.sqrt(torch.sum(r.abs() ** 2))) / bn
+        rel = float(rn) / bn
         if rel < tol or not math.isfinite(rel):
             break
-    return x, it, rel
+    return prog.state[0], it, rel

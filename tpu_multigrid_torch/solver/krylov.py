@@ -7,8 +7,11 @@ can stagnate or diverge; FGMRES wraps the cycle as a right preconditioner,
 and CGNR (CG on D^H D, Hermitian positive definite for any invertible D)
 converges where every other solver here stalls. Every operator
 application is cuda_stencil.apply_D: the SpMV kernels on CUDA tensors
-(complex64 and complex128), the plain version on CPU ones. The loops are
-eager torch with one host read-back per chunk (CGNR) or per Arnoldi step
+(complex64 and complex128), the plain version on CPU ones. As in the JAX
+package, a chunk of CGNR iterations, and FGMRES's preconditioner and its
+operator apply, each run as one device program
+(utils.compile.CapturedChunk: a CUDA graph captured once a call on CUDA
+tensors), with one host read-back per chunk (CGNR) or per Arnoldi step
 (FGMRES, whose small Hessenberg problem is solved on the host in
 complex128 numpy).
 """
@@ -23,7 +26,9 @@ import torch
 from ..config import MGConfig
 from ..ops import cuda_stencil
 from ..ops.stencil import adjoint_stencil, _sumsq
+from ..utils.compile import CapturedChunk, run_steps
 from .cycles import cycle
+from .driver import KRYLOV_BLOCK
 from .hierarchy import Hierarchy, zero_fields
 
 
@@ -46,12 +51,22 @@ def fgmres_solve(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
     cycles from zero.
 
     Host-driven Arnoldi with modified Gram-Schmidt; the Hessenberg least
-    squares runs on the host in complex128 (np.linalg.lstsq). Returns
+    squares runs on the host in complex128 (np.linalg.lstsq). The
+    preconditioner and the operator apply after it are one program each,
+    on the Arnoldi vector loaded into its buffer. Returns
     (phi, total_iterations, rel_residual), phi a tensor on b's device.
     """
     tol = tol or cfg.res_threshold
     D = hier.levels[0].D
     bnorm = _norm(b)
+    prog = CapturedChunk(torch.zeros_like(b), torch.zeros_like(b))
+
+    def precond(v, z):
+        return (v, _mg_precond(hier, v, cfg, precond_cycles)), None
+
+    def apply(v, z):
+        return (v, z), cuda_stencil.apply_D(D, z)
+
     x = torch.zeros_like(b)
     total_iters = 0
 
@@ -67,9 +82,10 @@ def fgmres_solve(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
         g[0] = beta
         k_done = 0
         for k in range(restart):
-            z = _mg_precond(hier, V[k], cfg, precond_cycles)
-            w = cuda_stencil.apply_D(D, z)
-            Z.append(z)
+            prog.load(V[k])
+            prog("precond", precond)
+            w = prog("apply", apply).clone()
+            Z.append(prog.state[1].clone())
             for i in range(k + 1):
                 hik = complex(torch.vdot(V[i].reshape(-1), w.reshape(-1)))
                 H[i, k] = hik
@@ -113,7 +129,9 @@ def cgnr_solve(D, b, tol: float = 1e-8, max_iters: int = 50000,
     where XLA flushes float32 denormals to zero; torch keeps them until
     p^H A p underflows as well, where an unguarded 0/0 would give NaN.
     `chunk` iterations run between host checks of the true residual
-    ||b - D x|| / ||b||. Returns (x, iters, rel), x a tensor on b's device.
+    ||b - D x|| / ||b||, as programs of KRYLOV_BLOCK iterations and one of
+    the rest, each ending in the true residual's norm. Returns (x, iters,
+    rel), x a tensor on b's device.
     """
     apply = cuda_stencil.apply_D
     if Ddag is None:
@@ -122,26 +140,32 @@ def cgnr_solve(D, b, tol: float = 1e-8, max_iters: int = 50000,
     bn = math.sqrt(float(_sumsq(b)))
     x = x0 if x0 is not None else torch.zeros_like(b)
     r = apply(Ddag, b - apply(D, x))
-    p = r
-    rs = _sumsq(r)
+    prog = CapturedChunk(x, r, r, _sumsq(r))
+
+    def steps(n):
+        def body(x, r, p, rs):
+            for _ in range(n):
+                Ap = apply(Ddag, apply(D, p))
+                pAp = torch.sum(torch.conj(p) * Ap).real
+                alpha = _guarded_ratio(rs, pAp).to(rdt)
+                x = x + alpha * p
+                r = r - alpha * Ap
+                rs_new = _sumsq(r)
+                beta = _guarded_ratio(rs_new, rs).to(rdt)
+                p = r + beta.to(p.dtype) * p
+                rs = rs_new
+            return (x, r, p, rs), _sumsq(b - apply(D, x))
+        return body
+
     it = 0
     rel = float("inf")
     while it < max_iters:
-        for _ in range(chunk):
-            Ap = apply(Ddag, apply(D, p))
-            pAp = torch.sum(torch.conj(p) * Ap).real
-            alpha = _guarded_ratio(rs, pAp).to(rdt)
-            x = x + alpha * p
-            r = r - alpha * Ap
-            rs_new = _sumsq(r)
-            beta = _guarded_ratio(rs_new, rs).to(rdt)
-            p = r + beta.to(p.dtype) * p
-            rs = rs_new
+        rn2 = run_steps(prog, chunk, KRYLOV_BLOCK, steps)
         it += chunk
-        rel = math.sqrt(float(_sumsq(b - apply(D, x)))) / bn
+        rel = math.sqrt(float(rn2)) / bn
         if rel < tol or not math.isfinite(rel):
             break
-    return x, it, rel
+    return prog.state[0], it, rel
 
 
 def cgnr_solve_ir(D64, D_host, b_host, tol: float = 1e-8,

@@ -1,1 +1,1 @@
-from . import checkpoint, convert, io, native  # noqa: F401
+from . import checkpoint, compile, convert, io, native  # noqa: F401

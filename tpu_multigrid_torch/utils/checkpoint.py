@@ -78,24 +78,29 @@ def solve_resumable(hier, b, cfg: MGConfig, path: str,
                     max_iters: Optional[int] = None):
     """Chunked solve that checkpoints every `checkpoint_every` cycles and
     resumes from `path` if it exists (the stored hierarchy then replaces
-    `hier`)."""
+    `hier`); one program a chunk (utils.compile.CapturedChunk)."""
     from ..ops.stencil import residual_norm_ratio
     from ..solver.cycles import cycle
     from ..solver.driver import SolveResult, _stop
+    from .compile import CapturedChunk
 
     max_iters = max_iters or cfg.max_iters
     it, resmag = 0, float("inf")
     phis = zero_fields(cfg, b.device)
     if os.path.exists(path):
         hier, phis, it, resmag = load_solver_state(path, cfg, b.device)
+    prog = CapturedChunk(*phis)
 
-    while it < max_iters:
+    def body(*phis):
         for _ in range(checkpoint_every):
             phis, _ = cycle(hier, phis, b, cfg)
+        return phis, residual_norm_ratio(hier.levels[0].D, phis[0], b)
+
+    while it < max_iters:
+        resmag = float(prog("chunk", body))
         it += checkpoint_every
-        resmag = float(residual_norm_ratio(hier.levels[0].D, phis[0], b))
-        save_solver_state(path, cfg, hier, phis, it, resmag)
+        save_solver_state(path, cfg, hier, prog.state, it, resmag)
         if _stop(resmag, cfg):
             break
-    return SolveResult(phi=phis[0], iters=it, resmag=resmag,
+    return SolveResult(phi=prog.state[0], iters=it, resmag=resmag,
                        converged=resmag < cfg.res_threshold)

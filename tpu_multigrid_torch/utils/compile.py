@@ -1,0 +1,199 @@
+"""One device program per chunk of a driver's work (counterpart of
+tpu_multigrid/utils/compile.py, of which the drivers take only this: the
+JAX package runs each chunk of cycles or Krylov steps as one compiled
+program, and the host reads back its small result).
+
+`CapturedChunk` holds a driver's state (the right-hand side's solution
+fields, the Krylov vectors, ...) in buffers at fixed addresses. On CUDA
+tensors each body run on that state is captured once as a CUDA graph
+(torch.cuda.CUDAGraph) and then replayed: the capture ends by copying the
+body's new state into the buffers, so replays chain on the card with no
+host step between them. The graphs live as long as the object, which a
+driver makes per call: the hierarchy's tensors that a body reads are read
+where they lie, and a graph must not outlive them. On CPU tensors the
+body runs eagerly, as the caller asked for the CPU.
+
+The launch counters of ops.cuda_stencil count launches that ran: a
+wrapper adds to them when it is called under capture, where nothing
+runs, so a capture's additions are taken out again and added once per
+replay. The warm-up before a capture runs the body (or one step of it)
+once on copies of the state, on a side stream, as torch's graph recipe
+asks (the libraries' lazy set-up and the kernels' first-call queries
+stay out of the capture); its launches ran and stay counted. A capture
+runs under torch.cuda's sync debug mode "error", so a host sync inside a
+body raises. Nothing is caught: a capture or a replay that fails raises
+its error.
+
+The disk cache, the scoped-VMEM options and the ahead-of-time keying of
+the JAX package's `aot_call` belong to the TPU and are not ported.
+"""
+from __future__ import annotations
+
+import contextlib
+import functools
+from typing import Callable, Hashable
+
+import torch
+
+from ..ops import cuda_stencil
+
+
+def _counts() -> dict:
+    """The launch counters as one flat dict (a copy)."""
+    out = {("launches", k): v for k, v in cuda_stencil.launches.items()}
+    out.update({("group", k): v
+                for k, v in cuda_stencil.group_launches.items()})
+    out.update({("band", k, m): v
+                for k, modes in cuda_stencil.band_launches.items()
+                for m, v in modes.items()})
+    return out
+
+
+def _add(delta: dict, times: int) -> None:
+    """Add `times` x delta to the launch counters."""
+    for key, v in delta.items():
+        if key[0] == "launches":
+            cuda_stencil.launches[key[1]] += times * v
+        elif key[0] == "group":
+            cuda_stencil.group_launches[key[1]] += times * v
+        else:
+            cuda_stencil.band_launches[key[1]][key[2]] += times * v
+
+
+@contextlib.contextmanager
+def _counted_out():
+    """Yield a dict that, when the block ends (also by an error), holds
+    what the block added to the launch counters, which are set back to
+    their values before it."""
+    before = _counts()
+    delta: dict = {}
+    try:
+        yield delta
+    finally:
+        after = _counts()
+        delta.update({k: after[k] - before[k] for k in after
+                      if after[k] != before[k]})
+        _add(delta, -1)
+
+
+@functools.cache
+def _capture_pool(index: int):
+    """(pool, side stream, anchor) of every warm-up and capture on card
+    `index`, for the life of the process (torch's own graph trees share a
+    pool in the same way). A graph's memory goes back to the pool when the
+    graph dies and serves the next capture on the same stream; a pool of
+    its own to each graph would leave that memory reserved, and unusable,
+    until torch.cuda.empty_cache, which torch.cuda.graph calls before every
+    capture at the cost of a synchronized card and an emptied cache. The
+    anchor, a graph of one fill that is never replayed, holds the pool
+    (torch frees a pool that no live graph holds)."""
+    side = torch.cuda.Stream(index)
+    anchor = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        anchor.capture_begin(capture_error_mode="thread_local")
+        torch.zeros((), device=torch.device("cuda", index))
+        anchor.capture_end()
+    return anchor.pool(), side, anchor
+
+
+class CapturedChunk:
+    """State tensors in static buffers, and bodies run on them.
+
+    A body is body(*state) -> (new_state, out): new_state a sequence of
+    tensors of the state's shapes and dtypes (an entry may be the state
+    tensor itself, which is then left as it is; no entry may be a view of
+    another), out what the host reads back (a tensor, a tuple of them or
+    None). `chunk(key, body)` runs it once: on CUDA the first call with a
+    key warms it up and captures it, and every call replays that graph,
+    the body given later under the same key being ignored. `warm_up`, a
+    body of the same operations on the same shapes (one step of a body
+    of several), is what the warm-up runs (default: body). The returned
+    out lives in the graph's memory: the next replay of the same key
+    overwrites it, and so may the replay of another graph of the
+    process (they share one memory pool): read it before the next
+    replay.
+    """
+
+    def __init__(self, *state: torch.Tensor):
+        self.cuda = state[0].is_cuda
+        self._state = tuple(t.clone() for t in state) if self.cuda else state
+        self._graphs: dict = {}
+
+    @property
+    def state(self) -> tuple:
+        """The current state (on CUDA, the static buffers themselves)."""
+        return self._state
+
+    def load(self, *values: torch.Tensor) -> None:
+        """Set the values of the state's first len(values) tensors (copied
+        into the static buffers)."""
+        if not self.cuda:
+            self._state = tuple(values) + self._state[len(values):]
+            return
+        for s, v in zip(self._state, values):
+            s.copy_(v)
+
+    def __call__(self, key: Hashable, body: Callable,
+                 warm_up: Callable | None = None):
+        if not self.cuda:
+            new, out = body(*self._state)
+            self._state = tuple(new)
+            return out
+        if key not in self._graphs:
+            self._warm_up(warm_up or body)
+            with _counted_out() as delta:
+                graph, out = self._capture(body)
+            self._graphs[key] = (graph, out, delta)
+        graph, out, delta = self._graphs[key]
+        graph.replay()
+        _add(delta, 1)
+        return out
+
+    def _warm_up(self, body: Callable) -> None:
+        """body on copies of the state, on the side stream. The main
+        stream waits for it, so that its kernels never run beside a
+        replay's (a cooperative launch needs the whole card)."""
+        main = torch.cuda.current_stream(self._state[0].device)
+        side = _capture_pool(self._state[0].device.index)[1]
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            body(*(t.clone() for t in self._state))
+        main.wait_stream(side)
+
+    def _capture(self, body: Callable):
+        """(graph, out): body on the state buffers, its new state copied
+        into them, captured on the side stream into the shared pool, with
+        host syncs refused. The host captures while the card may still run
+        the warm-up. thread_local: another thread's calls (the watchdog of
+        a NCCL process group polls its events) do not void the capture."""
+        pool, side, _ = _capture_pool(self._state[0].device.index)
+        graph = torch.cuda.CUDAGraph()
+        sync_mode = torch.cuda.get_sync_debug_mode()
+        with torch.cuda.stream(side):
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                torch.cuda.set_sync_debug_mode("error")
+                new, out = body(*self._state)
+                for s, t in zip(self._state, new):
+                    if t is not s:
+                        s.copy_(t)
+            finally:
+                torch.cuda.set_sync_debug_mode(sync_mode)
+                graph.capture_end()
+        return graph, out
+
+
+def run_steps(chunk: CapturedChunk, n: int, block: int,
+              body_of: Callable[[int], Callable]):
+    """n steps on `chunk`: replays of the body of `block` steps
+    (body_of(block), under key block), then one of the n % block steps
+    left (n = 0: the body of no steps, once); each warmed up by one step.
+    Returns the last replay's out."""
+    if n == 0:
+        return chunk(0, body_of(0))
+    out = None
+    for _ in range(n // block):
+        out = chunk(block, body_of(block), body_of(1))
+    if n % block:
+        out = chunk(n % block, body_of(n % block), body_of(1))
+    return out
