@@ -1009,7 +1009,6 @@ def cycle_launches(torch, mgt, dev, cfg, hier, ms_per_cycle, want, tag,
     is taken against the unprofiled ms_per_cycle. b: the right-hand side
     (default the point source), [B, n, L, L] for a batched cycle."""
     from torch.profiler import ProfilerActivity, profile
-    from torch.autograd import DeviceType
     cs = mgt.ops.cuda_stencil
     if b is None:
         b = mgt.point_source(cfg, device=dev)
@@ -1024,7 +1023,7 @@ def cycle_launches(torch, mgt, dev, cfg, hier, ms_per_cycle, want, tag,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     counts = {k: v for k, v in cs.launches.items() if v}
-    events = [e for e in p.events() if e.device_type == DeviceType.CUDA]
+    events = device_ops_of(p)
     busy_us = sum(getattr(e, "device_time_total", None)
                   or getattr(e, "cuda_time_total", 0.0) for e in events)
     top = device_time_by_name(p).most_common(8)
@@ -1208,7 +1207,6 @@ def check_phase(torch, mgt, dev, cfg, hier, reps=30, rounds=3):
     check in turns, and the device ops of one checked cycle. Returns the
     summary."""
     from torch.profiler import ProfilerActivity, profile
-    from torch.autograd import DeviceType
     cy = mgt.solver.cycles
     b = mgt.point_source(cfg, device=dev)
     phis = mgt.zero_fields(cfg, dev)
@@ -1236,7 +1234,7 @@ def check_phase(torch, mgt, dev, cfg, hier, reps=30, rounds=3):
                                  ProfilerActivity.CUDA]) as p:
             fn()
             torch.cuda.synchronize()
-        return len([e for e in p.events() if e.device_type == DeviceType.CUDA])
+        return len(device_ops_of(p))
 
     out = {k: {"device_ops": device_ops(
         lambda f=f: float(f(hier, phi, b, cfg))),
@@ -1394,16 +1392,25 @@ def spmv_phase(torch, mgt, dev, card):
     return {"rows": rows}, launches
 
 
-def device_events(prof_obj):
-    """(microseconds, number) of device events (kernels, copies) by name
-    in a torch.profiler run; one stream, so the events do not overlap."""
+def device_ops_of(prof_obj):
+    """The device's ops (kernels, copies, sets) of a torch.profiler run:
+    its CUDA events less the shadows that record_function spans (the
+    program's tmg.* spans among them) leave on the device's timeline."""
     from torch.autograd import DeviceType
+    return [e for e in prof_obj.events()
+            if e.device_type == DeviceType.CUDA
+            and not (getattr(e, "is_user_annotation", False)
+                     or e.name.startswith("tmg."))]
+
+
+def device_events(prof_obj):
+    """(microseconds, number) of device ops (kernels, copies) by name in a
+    torch.profiler run; one stream, so the ops do not overlap."""
     us, n = collections.Counter(), collections.Counter()
-    for e in prof_obj.events():
-        if e.device_type == DeviceType.CUDA:
-            us[e.name] += (getattr(e, "device_time_total", None)
-                           or getattr(e, "cuda_time_total", 0.0))
-            n[e.name] += 1
+    for e in device_ops_of(prof_obj):
+        us[e.name] += (getattr(e, "device_time_total", None)
+                       or getattr(e, "cuda_time_total", 0.0))
+        n[e.name] += 1
     return us, n
 
 
@@ -1658,7 +1665,6 @@ def replayed_cycle(torch, mgt, dev, cfg, hier, b, n_cyc, reps, tag,
     counters set to 0 just before it: exactly `want` where given. b [B, n,
     L, L] for a batched cycle. Returns the summary."""
     from torch.profiler import ProfilerActivity, profile
-    from torch.autograd import DeviceType
     cs = mgt.ops.cuda_stencil
     cc = mgt.utils.compile.CapturedChunk
     batch = b.shape[0] if b.dim() == 4 else None
@@ -1691,7 +1697,7 @@ def replayed_cycle(torch, mgt, dev, cfg, hier, b, n_cyc, reps, tag,
         chunk("cycle", body)
         torch.cuda.synchronize()
     counts = {k: v for k, v in cs.launches.items() if v}
-    events = [e for e in p.events() if e.device_type == DeviceType.CUDA]
+    events = device_ops_of(p)
     busy_ms = sum(getattr(e, "device_time_total", None)
                   or getattr(e, "cuda_time_total", 0.0) for e in events) / 1e3
     out = {"capture_s": cap.seconds, "ms_graph": ms_graph,
@@ -2217,12 +2223,11 @@ def setup_breakdown(torch, mgt, build):
     the NTL copies alike) synchronized before and after, its host seconds
     summed by stage (the rest: assembly, the starts, stacking)."""
     from torch.profiler import ProfilerActivity, profile
-    from torch.autograd import DeviceType
     build()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as p:
         _, wall = timed(torch, build)
-    events = [e for e in p.events() if e.device_type == DeviceType.CUDA]
+    events = device_ops_of(p)
     busy_ms = sum(getattr(e, "device_time_total", None)
                   or getattr(e, "cuda_time_total", 0.0) for e in events) / 1e3
     top = device_time_by_name(p).most_common(5)

@@ -18,7 +18,9 @@ The launch counters' bookkeeping (the additions a capture makes, taken
 out and added once per replay) runs on a stub graph here. The tests
 marked `cuda` run on the card: every driver captured against the same
 bodies run eagerly, a capture that syncs raising, and a replayed
-flagship cycle counting chip_smoke.FLAGSHIP_CYCLE. JAX is imported by
+flagship cycle counting chip_smoke.FLAGSHIP_CYCLE, and each driver's
+spans (a warm-up, a capture and a release a chunk key, a replay a
+program run, the warm-up's device time). JAX is imported by
 the fixtures that need it, so that the card's tests run without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_compile.py
@@ -35,6 +37,7 @@ from torch_port_helpers import (crandn, jax_hierarchy_leaves, np_of,
                                 phases, rel_err, t_of)
 
 import tpu_multigrid_torch as mgt
+from tpu_multigrid_torch import profiling
 from tpu_multigrid_torch.ops import cuda_stencil as cs
 from tpu_multigrid_torch.solver import driver as tdriver
 from tpu_multigrid_torch.utils import compile as tcompile
@@ -155,9 +158,14 @@ def test_solve_ir_matches_jax(flagship, jax_pkg):
     np.testing.assert_allclose(out.history, ref.history, rtol=RES_RTOL,
                                atol=RES_ATOL)
     _same_phi(out.phi, ref.phi)
+    root = profiling.roots()[-1]
+    assert root.name == "solve_ir" and root.spans["solve_ir"][0] == 1
+    assert root.spans["driver.read_back"][0] == out.iters // 2
     out3 = mgt.solve_ir(f.thier, t_of(f.b), tcfg, inner_cycles=2,
                         max_iters=60, inner_dtype="complex128",
                         outer_chunk=3)
+    assert profiling.roots()[-1].spans["driver.read_back"][0] == \
+        out3.iters // 6
     steps = len(ref.history)
     assert out3.iters == 2 * 3 * math.ceil(steps / 3)
     np.testing.assert_allclose(out3.history[:steps // 3],
@@ -248,10 +256,13 @@ def counters():
 
 class _StubGraph:
     def __init__(self):
-        self.replays = 0
+        self.replays, self.resets = 0, 0
 
     def replay(self):
         self.replays += 1
+
+    def reset(self):
+        self.resets += 1
 
 
 class _StubChunk(tcompile.CapturedChunk):
@@ -312,6 +323,40 @@ def test_a_failed_capture_raises_and_counts_nothing(counters):
     assert tcompile._counts() == before
     assert chunk.graphs == [] and chunk._graphs == {}
     assert torch.equal(chunk.state[0], torch.zeros(3))
+
+
+def test_chunk_spans_and_close(counters):
+    """Under one root: a warm-up and a capture a key, a replay a call;
+    close resets each graph in a release span of its own, keeps the
+    state and leaves the chunk to capture again."""
+    chunk = _StubChunk(torch.zeros(3))
+    with profiling.span("t.driver"):
+        for _ in range(4):
+            chunk("step", _wrapper_calls)
+        chunk("other", lambda x: ((x,), None))
+        graphs = list(chunk.graphs)
+        chunk.close()
+    root = profiling.roots()[-1]
+    assert root.name == "t.driver"
+    assert {k: v[0] for k, v in root.spans.items()
+            if k.startswith("chunk.")} == {
+        "chunk.warm_up": 2, "chunk.capture": 2, "chunk.replay": 5,
+        "chunk.release": 2}
+    assert [g.resets for g in graphs] == [1, 1] and not chunk._graphs
+    assert torch.equal(chunk.state[0], torch.zeros(3))
+    chunk("step", _wrapper_calls)
+    assert len(chunk.graphs) == 3
+
+
+def test_cpu_chunk_opens_no_chunk_span():
+    """On CPU tensors a body runs eagerly: no chunk.* span, and close
+    does nothing."""
+    chunk = tcompile.CapturedChunk(torch.zeros(()))
+    with profiling.span("t.cpu_driver"):
+        chunk("step", lambda x: ((x + 1,), x))
+        chunk.close()
+    assert set(profiling.roots()[-1].spans) == {"t.cpu_driver"}
+    assert float(chunk.state[0]) == 1.0
 
 
 def test_cpu_state_chains_eagerly():
@@ -441,6 +486,44 @@ def test_captured_driver_equals_eager(dev, eager, name):
     assert n == n_eager
     bar = 1e-12 if got.dtype == torch.complex128 else 1e-5
     assert rel_err(got, want) < bar
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", DRIVERS)
+def test_captured_driver_spans(dev, name):
+    """Each driver call is one root (cgnr_solve_ir's inner cgnr_solve
+    calls are children; solve_fmg's root is the solve_chunked it calls)
+    with as many warm-ups, captures and releases as its chunks have keys,
+    a replay a program run, and the warm-ups' time between their events,
+    above 0, read with no sync."""
+    run = _drivers(dev)[name]
+    run()
+    before = len(profiling.roots())
+    run()
+    root = profiling.roots()[-1]
+    assert len(profiling.roots()) == min(before + 1, profiling.RING)
+    assert root.name == {"solve_fmg": "solve_chunked"}.get(name, name)
+    n = {k: v[0] for k, v in root.spans.items()}
+    assert n["chunk.warm_up"] == n["chunk.capture"] == n["chunk.release"]
+    assert n["chunk.replay"] >= n["chunk.capture"] >= 1
+    assert root.device_ms["chunk.warm_up"] > 0
+
+
+@pytest.mark.cuda
+def test_solve_ir_spans_on_the_card(dev):
+    """One solve_ir call: one warm-up, one capture and one release; a
+    replay and a read-back an outer step."""
+    cfg, hier, D = _card_flagship(dev)
+    c128 = cfg.replace(dtype="complex128", res_threshold=1e-8)
+    b = mgt.point_source(cfg, device=dev).to(torch.complex128)
+    out = mgt.solve_ir(hier, b, c128, inner_cycles=2, max_iters=60)
+    root = profiling.roots()[-1]
+    n = {k: v[0] for k, v in root.spans.items()}
+    assert out.converged and root.name == "solve_ir"
+    assert n["chunk.warm_up"] == n["chunk.capture"] == \
+        n["chunk.release"] == 1
+    assert n["chunk.replay"] == n["driver.read_back"] == out.iters // 2
+    assert 0 < root.device_ms["chunk.warm_up"]
 
 
 @pytest.mark.cuda

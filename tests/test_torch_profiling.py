@@ -26,7 +26,8 @@ def test_bytes_and_nnz_match_jax(n, L, nbytes):
     assert tprof.stencil_bytes(n, L, nbytes) == jprof.stencil_bytes(n, L,
                                                                     nbytes)
     assert tprof.stencil_bytes(n, L) == jprof.stencil_bytes(n, L)
-    assert tprof.stencil_nnz(n, L) == jprof.stencil_nnz(n, L)
+    # the port keeps no stencil_nnz (nothing read it)
+    assert not hasattr(tprof, "stencil_nnz")
 
 
 def test_roofline_table_on_cpu_has_jax_plain_rows():

@@ -1,17 +1,43 @@
 """Performance observability on the card: per-kernel timing with CUDA
-events, bandwidth/roofline accounting against the card's HBM peak, and
-torch.profiler trace capture (counterpart of tpu_multigrid/profiling.py).
+events, bandwidth/roofline accounting against the card's HBM peak,
+torch.profiler trace capture (counterpart of tpu_multigrid/profiling.py),
+and the program's spans.
 
 A time from CPU tensors is a host-clock time of the plain versions and is
 reported without a roofline fraction: it says nothing of a device.
+
+Spans. `span(name)` (a context manager, or a decorator) times a stretch
+of the host's work on time.perf_counter_ns. A span opened while no other
+is open is a root: one request of a user (a solve, a setup), whose id
+every span inside it shares; an entry point called inside another (as
+solve_ensemble calls solve_batched) is a child like any other span. A
+root, once closed, keeps its name, id, start and end, and for each span
+name inside it (its own included) the count, the total ns and the self
+ns (the total less the time of the spans directly inside each); and the
+device ms recorded for a name inside it (`add_device_ms`: the warm-up's
+elapsed time between CUDA events on its stream, read once complete,
+never by a sync). `roots()` returns
+the last RING roots, oldest first. While a torch.profiler runs, a span
+also opens record_function("tmg." + name), so that it lies on the
+profiler's host timeline beside the kernels its host ops launched. The
+spans are always on; they add no host sync and no device work. They are
+kept for one thread, the one that drives the program.
+
+The program's spans: roots at the drivers' and the setups' entry points;
+chunk.warm_up, chunk.capture, chunk.replay and chunk.release in
+utils.compile; driver.read_back around every host read of the drivers
+(a chunk's result, a norm) and of the setup's checks; setup.nearnull, setup.coarsen and
+setup.check in solver.hierarchy.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import functools
 import time
 from dataclasses import dataclass, asdict
 from pathlib import Path
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
@@ -40,10 +66,6 @@ def peak_bandwidth(device=None) -> float:
 def stencil_bytes(n: int, L: int, dtype_bytes: int = 8) -> int:
     """Minimum HBM traffic of one apply_D: read D + read v + write out."""
     return (5 * n * n + 2 * n) * L * L * dtype_bytes
-
-
-def stencil_nnz(n: int, L: int) -> int:
-    return 5 * n * n * L * L
 
 
 # Real flops of one site: the links-only Wilson hop (4 complex products,
@@ -228,3 +250,104 @@ def trace(log_dir: str):
     with profile(activities=acts) as prof:
         yield prof
     prof.export_chrome_trace(str(Path(log_dir) / "trace.json"))
+
+
+# ---- spans ----
+
+# Roots kept: the busiest cell closes some 2,000 in a window.
+RING = 16384
+
+
+class Root(NamedTuple):
+    name: str
+    id: int
+    start_ns: int
+    end_ns: int
+    spans: dict        # name -> (count, total_ns, self_ns)
+    device_ms: dict    # name -> device ms recorded inside the root
+
+
+_ring: collections.deque = collections.deque(maxlen=RING)
+# open spans, outermost first: [span, record_function or None, child ns,
+# start ns]
+_stack: list = []
+_touched: list = []    # the spans closed in the open root
+_device: dict = {}     # the open root's name -> device ms
+_root_id = 0
+_clock = time.perf_counter_ns
+_profiling = torch.autograd._profiler_enabled
+
+
+class _Span:
+    """A reusable, reentrant span of one name: its state lives on the
+    stack of open spans, its sums for the open root in `acc` ([count,
+    total ns, self ns] or None)."""
+    __slots__ = ("name", "tag", "acc")
+
+    def __init__(self, name: str):
+        self.name, self.tag, self.acc = name, "tmg." + name, None
+
+    def __enter__(self):
+        global _root_id
+        rf = None
+        if _profiling():
+            rf = torch.profiler.record_function(self.tag)
+            rf.__enter__()
+        if not _stack:
+            _root_id += 1
+        _stack.append([self, rf, 0, _clock()])
+
+    def __exit__(self, *exc):
+        end = _clock()
+        span, rf, child, start = _stack.pop()
+        dur = end - start
+        acc = span.acc
+        if acc is None:
+            span.acc = [1, dur, dur - child]
+            _touched.append(span)
+        else:
+            acc[0] += 1
+            acc[1] += dur
+            acc[2] += dur - child
+        if _stack:
+            _stack[-1][2] += dur
+        else:
+            _ring.append(Root(span.name, _root_id, start, end,
+                              {t.name: tuple(t.acc) for t in _touched},
+                              dict(_device)))
+            for t in _touched:
+                t.acc = None
+            _touched.clear()
+            _device.clear()
+        if rf is not None:
+            rf.__exit__(*exc)
+
+    def __call__(self, fn: Callable) -> Callable:
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            with self:
+                return fn(*args, **kwargs)
+        return spanned
+
+
+_spans: dict = {}
+
+
+def span(name: str) -> _Span:
+    """The span `name`: `with span(name): ...` or `@span(name)`."""
+    s = _spans.get(name)
+    if s is None:
+        s = _spans[name] = _Span(name)
+    return s
+
+
+def add_device_ms(name: str, ms: float) -> None:
+    """Add `ms` of device time to span `name` of the open root (nothing
+    when no span is open)."""
+    if _stack:
+        _device[name] = _device.get(name, 0.0) + ms
+
+
+def roots() -> list:
+    """The closed roots kept, oldest first (at most RING)."""
+    return list(_ring)

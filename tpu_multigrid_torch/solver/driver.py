@@ -15,7 +15,9 @@ Each driver runs its chunk of work as one device program, as the JAX
 package's drivers do (utils.compile.CapturedChunk): on CUDA tensors a
 CUDA graph captured once a call and replayed, the host reading back one
 scalar (or one small vector) a chunk; on CPU tensors the same body runs
-eagerly.
+eagerly. Each driver is a root span (profiling.span), and each host read
+(a chunk's result, the norm of a right-hand side) a driver.read_back
+span inside it.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import profiling
 from ..config import MGConfig
 from ..ops import cuda_stencil
 from ..ops.stencil import residual
@@ -39,6 +42,9 @@ SOLVE_BLOCK = 10
 # Steps in one program of the Krylov iterations (mr_iterate,
 # krylov.cgnr_solve); a chunk of more replays it.
 KRYLOV_BLOCK = 50
+
+# every host read of the drivers and the setup's checks
+READ_BACK = profiling.span("driver.read_back")
 
 
 @dataclasses.dataclass
@@ -71,6 +77,7 @@ def _cycles_then_check(hier: Hierarchy, b, cfg: MGConfig, n: int):
     return body
 
 
+@profiling.span("solve")
 def solve(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
           phis0=None, max_iters: Optional[int] = None) -> SolveResult:
     """Cycle until converged: the JAX package's while_loop, which checks
@@ -105,14 +112,20 @@ def solve(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
             return (*phis, it, res, done), done
         return body
 
-    while not bool(prog("block", cycles(SOLVE_BLOCK), cycles(1))):
-        pass
+    while True:
+        done = prog("block", cycles(SOLVE_BLOCK), cycles(1))
+        with READ_BACK:
+            if bool(done):
+                break
     *phis, it, res, _ = prog.state
-    resmag = float(res)
-    return SolveResult(phi=phis[0], iters=int(it), resmag=resmag,
+    with READ_BACK:
+        resmag, iters = float(res), int(it)
+    prog.close()
+    return SolveResult(phi=phis[0], iters=iters, resmag=resmag,
                        converged=resmag < thr)
 
 
+@profiling.span("solve_chunked")
 def solve_chunked(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
                   phis0=None, max_iters: Optional[int] = None,
                   chunk: int = 10) -> SolveResult:
@@ -126,10 +139,13 @@ def solve_chunked(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
     it = 0
     resmag = float("inf")
     while it < max_iters:
-        resmag = float(prog("chunk", body))
+        rel = prog("chunk", body)
+        with READ_BACK:
+            resmag = float(rel)
         it += chunk
         if _stop(resmag, cfg):
             break
+    prog.close()
     return SolveResult(phi=prog.state[0], iters=it, resmag=resmag,
                        converged=resmag < cfg.res_threshold)
 
@@ -146,6 +162,7 @@ def solve_fmg(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
     return dataclasses.replace(out, iters=out.iters + 1)
 
 
+@profiling.span("solve_ir")
 def solve_ir(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
              inner_cycles: int = 2, max_iters: Optional[int] = None,
              inner_dtype: str = "complex64", D_outer=None,
@@ -200,10 +217,12 @@ def solve_ir(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
         for _ in range(outer_chunk):
             rel = prog("step", step)
         outer += outer_chunk
-        resmag = float(rel)
+        with READ_BACK:
+            resmag = float(rel)
         history.append(resmag)
         if _stop(resmag, cfg):
             break
+    prog.close()
     return SolveResult(phi=prog.state[0], iters=outer * inner_cycles,
                        resmag=resmag,
                        converged=resmag < cfg.res_threshold,
@@ -211,6 +230,7 @@ def solve_ir(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
                        history_stride=inner_cycles * outer_chunk)
 
 
+@profiling.span("solve_with_history")
 def solve_with_history(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
                        phis0=None, max_iters: Optional[int] = None,
                        writer=None) -> SolveResult:
@@ -233,19 +253,22 @@ def solve_with_history(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
     it = 0
     for it in range(1, max_iters + 1):
         res, a = prog("cycle", body)
-        resmag = float(res)
+        with READ_BACK:
+            resmag = float(res)
+            weights.append(a.cpu().numpy())
         history.append(resmag)
-        weights.append(a.cpu().numpy())
         if writer is not None and (it - 1) % cfg.write_interval == 0:
             writer.record(it, hier, prog.state, b, weights[-1])
         if _stop(resmag, cfg):
             break
+    prog.close()
     return SolveResult(phi=prog.state[0], iters=it, resmag=resmag,
                        converged=resmag < cfg.res_threshold,
                        history=np.asarray(history),
                        ntl_weights=np.asarray(weights))
 
 
+@profiling.span("solve_batched")
 def solve_batched(hier: Hierarchy, bs: torch.Tensor, cfg: MGConfig,
                   n_cycles: int):
     """Batched multi-RHS solve (counterpart of the JAX package's
@@ -267,9 +290,13 @@ def solve_batched(hier: Hierarchy, bs: torch.Tensor, cfg: MGConfig,
     prog = CapturedChunk(*zero_fields(cfg, bs.device, batch=bs.shape[0]))
     res = run_steps(prog, n_cycles, 1,
                     lambda n: _cycles_then_check(hier, bs, cfg, n))
-    return prog.state[0], res.cpu().numpy()
+    with READ_BACK:
+        res = res.cpu().numpy()
+    prog.close()
+    return prog.state[0], res
 
 
+@profiling.span("mr_solve")
 def mr_solve(D, b, tol: float = 1e-8, max_iters: int = 100000,
              chunk: int = 1000):
     """Unpreconditioned minimal-residual iteration — the baseline the MG
@@ -291,7 +318,8 @@ def mr_iterate(op, r, b, tol: float, max_iters: int, chunk: int):
     residual r, alpha = <op r, r> / <op r, op r> in the field's dtype;
     `chunk` steps between host checks of ||r|| / ||b||, as programs of
     KRYLOV_BLOCK steps and one of the rest. Returns (x, iters, rel)."""
-    bn = float(torch.sqrt(torch.sum(b.abs() ** 2)))
+    with READ_BACK:
+        bn = float(torch.sqrt(torch.sum(b.abs() ** 2)))
     prog = CapturedChunk(torch.zeros_like(r), r)
 
     def steps(n):
@@ -310,7 +338,9 @@ def mr_iterate(op, r, b, tol: float, max_iters: int, chunk: int):
     while it < max_iters:
         rn = run_steps(prog, chunk, KRYLOV_BLOCK, steps)
         it += chunk
-        rel = float(rn) / bn
+        with READ_BACK:
+            rel = float(rn) / bn
         if rel < tol or not math.isfinite(rel):
             break
+    prog.close()
     return prog.state[0], it, rel

@@ -24,10 +24,11 @@ from typing import Optional, Sequence
 
 import torch
 
+from .. import profiling
 from ..config import MGConfig
 from ..models.operators import assemble
 from ..ops.nearnull import random_starts
-from .driver import solve_batched
+from .driver import READ_BACK, solve_batched
 from .hierarchy import (Hierarchy, LevelOps, NTLOps, _build_levels,
                         _n_candidates)
 
@@ -66,6 +67,7 @@ def unstack_hierarchy(hier_b: Hierarchy, i: int) -> Hierarchy:
     return Hierarchy(levels=levels, ntl=ntl)
 
 
+@profiling.span("build_hierarchies_batched")
 def build_hierarchies_batched(Us: torch.Tensor, cfg: MGConfig,
                               generator: Optional[torch.Generator] = None,
                               starts: Optional[Sequence] = None) -> Hierarchy:
@@ -94,6 +96,7 @@ def build_hierarchies_batched(Us: torch.Tensor, cfg: MGConfig,
     return Hierarchy(levels=levels, ntl=ntl)
 
 
+@profiling.span("solve_ensemble")
 def solve_ensemble(hier_b: Hierarchy, bs: torch.Tensor, cfg: MGConfig,
                    n_cycles: int, mesh=None):
     """Fixed-cycle MG solve of a batch of hierarchies and right-hand sides
@@ -118,8 +121,10 @@ def solve_ensemble(hier_b: Hierarchy, bs: torch.Tensor, cfg: MGConfig,
     hier_b, bs = shard_ensemble((hier_b, bs), mesh, batch=batch)
     phi, res = solve_batched(hier_b, bs, cfg, n_cycles)
     res = torch.as_tensor(res, device=mesh.device)
-    return (torch.cat(all_gather(phi, mesh)),
-            torch.cat(all_gather(res, mesh)).cpu().numpy())
+    phi = torch.cat(all_gather(phi, mesh))
+    with READ_BACK:
+        res = torch.cat(all_gather(res, mesh)).cpu().numpy()
+    return phi, res
 
 
 def _tree_map(fn, x):

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import profiling
 from ..config import SAME
 from ..ops import cuda_stencil, gauge_stencil
 from ..ops.stencil import apply_hop, _site_matvec, site_inverse
@@ -57,6 +58,7 @@ def eo_reconstruct(D: torch.Tensor, D0inv: torch.Tensor, xe: torch.Tensor,
     return xe + (1.0 - even) * xo
 
 
+@profiling.span("eo_mr_solve")
 def eo_mr_solve(D: torch.Tensor, b: torch.Tensor, tol: float = 1e-8,
                 max_iters: int = 100000, chunk: int = 1000):
     """Minimal-residual iteration on the even-odd Schur system.

@@ -20,6 +20,12 @@ reduced-precision passes left the transfer rows orthonormal only to
 ~1e-2; here `_pin_setup_precision` turns TF32 off
 (torch.backends.cuda.matmul.allow_tf32 = False) and sets
 torch.set_float32_matmul_precision("highest") before every setup.
+
+Spans (profiling.span): setup.nearnull around the near-null relaxation;
+setup.coarsen around each site inverse, the rows' normalization and
+ortho passes and the Galerkin product (each level and NTL copy);
+setup.check around the host checks, each host read in them a
+driver.read_back.
 """
 from __future__ import annotations
 
@@ -29,12 +35,18 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import profiling
 from ..config import MGConfig
 from ..ops.stencil import site_inverse
 from ..ops.transfer import normalize_rows, ortho_pass, check_ortho, block_norms
 from ..ops.galerkin import coarse_operator
 from ..ops.nearnull import (relax_null_vectors, candidates_to_phi_null,
                             random_starts)
+
+_NEARNULL = profiling.span("setup.nearnull")
+_COARSEN = profiling.span("setup.coarsen")
+_CHECK = profiling.span("setup.check")
+_READ_BACK = profiling.span("driver.read_back")
 
 
 @dataclasses.dataclass
@@ -69,7 +81,8 @@ def _check_block_norms_host(phi_null, quad, bx, by, where: str):
     """Host-side NaN / tiny-norm guards (reference f_block_norm exit(1)
     guards, modules_indiv.h:119-126; f_check_null_norm, near_null.h:50-94)."""
     for d, row in enumerate(phi_null.unbind(-4)):
-        n = block_norms(row, quad, bx, by).cpu().numpy()
+        with _READ_BACK:
+            n = block_norms(row, quad, bx, by).cpu().numpy()
         if np.isnan(n).any():
             raise FloatingPointError(f"NaN block norm in {where}, row {d}")
         if (n < 1e-40).any():
@@ -91,28 +104,35 @@ def _setup_level(D, cfg: MGConfig, lvl: int, quad: int, start=None,
     configurations at once; check=True checks every one of them."""
     nc = cfg.n_dof[lvl + 1]
     bx, by = cfg.block_x, cfg.block_y
-    D0inv = site_inverse(D[..., 0, :, :, :, :])
+    with _COARSEN:
+        D0inv = site_inverse(D[..., 0, :, :, :, :])
     if phi_null_init is None:
-        kind = "rbgs" if cfg.smoother == "chebyshev" else cfg.smoother
-        vecs = relax_null_vectors(D, D0inv, start, cfg.null_iters,
-                                  cfg.iters_per_norm, kind, cfg.omega,
-                                  cfg.null_joint_qr, pallas=cfg.pallas)
-        phi_null = candidates_to_phi_null(vecs, cfg.stencil, nc)
+        with _NEARNULL:
+            kind = "rbgs" if cfg.smoother == "chebyshev" else cfg.smoother
+            vecs = relax_null_vectors(D, D0inv, start, cfg.null_iters,
+                                      cfg.iters_per_norm, kind, cfg.omega,
+                                      cfg.null_joint_qr, pallas=cfg.pallas)
+            phi_null = candidates_to_phi_null(vecs, cfg.stencil, nc)
     else:
         phi_null = phi_null_init
-    phi_null = normalize_rows(phi_null, quad, bx, by)
-    for _ in range(cfg.ortho_passes):
-        phi_null = ortho_pass(phi_null, quad, bx, by)
-    Dc = coarse_operator(D, phi_null, quad, bx, by)
+    with _COARSEN:
+        phi_null = normalize_rows(phi_null, quad, bx, by)
+        for _ in range(cfg.ortho_passes):
+            phi_null = ortho_pass(phi_null, quad, bx, by)
+        Dc = coarse_operator(D, phi_null, quad, bx, by)
     if check:
-        _check_block_norms_host(phi_null, quad, bx, by, f"level {lvl} norm")
-        worst = float(check_ortho(phi_null, quad, bx, by).max())
+        with _CHECK:
+            _check_block_norms_host(phi_null, quad, bx, by,
+                                    f"level {lvl} norm")
+            with _READ_BACK:
+                worst = float(check_ortho(phi_null, quad, bx, by).max())
         if worst > _ortho_tol(cfg):
             raise FloatingPointError(
                 f"near-null rows not orthogonal at level {lvl}: {worst:.3e}")
     return D0inv, phi_null, Dc
 
 
+@profiling.span("build_hierarchy")
 def build_hierarchy(D0: torch.Tensor, cfg: MGConfig,
                     generator: Optional[torch.Generator] = None,
                     phi_null_init: Optional[Sequence] = None,
@@ -176,8 +196,9 @@ def _build_levels(D0: torch.Tensor, cfg: MGConfig, start_of, phi_null_init,
                                            init, check)
         levels.append(LevelOps(D=D, D0inv=D0inv, phi_null=phi_null))
         D = Dc
-    levels.append(LevelOps(D=D, D0inv=site_inverse(D[..., 0, :, :, :, :]),
-                           phi_null=None))
+    with _COARSEN:
+        D0inv = site_inverse(D[..., 0, :, :, :, :])
+    levels.append(LevelOps(D=D, D0inv=D0inv, phi_null=None))
     ntl = build_ntl(levels, cfg, check) if cfg.ntl else None
     return tuple(levels), ntl
 
@@ -192,15 +213,17 @@ def build_ntl(levels, cfg: MGConfig, check: bool = True) -> NTLOps:
     pns, Ds, Dinvs, worsts = [], [], [], []
     for q in range(cfg.n_copies):
         quad = q + 1
-        pn = normalize_rows(base.phi_null, cfg.quad, bx, by)
-        for _ in range(cfg.ortho_passes):
-            pn = ortho_pass(pn, quad, bx, by)
-        Dc = coarse_operator(base.D, pn, quad, bx, by)
-        pns.append(pn)
-        Ds.append(Dc)
-        Dinvs.append(site_inverse(Dc[..., 0, :, :, :, :]))
+        with _COARSEN:
+            pn = normalize_rows(base.phi_null, cfg.quad, bx, by)
+            for _ in range(cfg.ortho_passes):
+                pn = ortho_pass(pn, quad, bx, by)
+            Dc = coarse_operator(base.D, pn, quad, bx, by)
+            pns.append(pn)
+            Ds.append(Dc)
+            Dinvs.append(site_inverse(Dc[..., 0, :, :, :, :]))
         if check:
-            worsts.append(float(check_ortho(pn, quad, bx, by).max()))
+            with _CHECK, _READ_BACK:
+                worsts.append(float(check_ortho(pn, quad, bx, by).max()))
     if check and max(worsts) > _ortho_tol(cfg):
         raise FloatingPointError(f"NTL copies not orthogonal: {worsts}")
     return NTLOps(phi_null=torch.stack(pns, dim=-5),

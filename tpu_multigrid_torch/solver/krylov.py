@@ -13,7 +13,8 @@ operator apply, each run as one device program
 (utils.compile.CapturedChunk: a CUDA graph captured once a call on CUDA
 tensors), with one host read-back per chunk (CGNR) or per Arnoldi step
 (FGMRES, whose small Hessenberg problem is solved on the host in
-complex128 numpy).
+complex128 numpy). Each public solver is a root span (profiling.span),
+and each host read (a chunk's result, a norm) a driver.read_back span.
 """
 from __future__ import annotations
 
@@ -23,12 +24,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import profiling
 from ..config import MGConfig
 from ..ops import cuda_stencil
 from ..ops.stencil import adjoint_stencil, _sumsq
 from ..utils.compile import CapturedChunk, run_steps
 from .cycles import cycle
-from .driver import KRYLOV_BLOCK
+from .driver import KRYLOV_BLOCK, READ_BACK
 from .hierarchy import Hierarchy, zero_fields
 
 
@@ -44,6 +46,7 @@ def _norm(v: torch.Tensor) -> float:
     return float(torch.linalg.vector_norm(v))
 
 
+@profiling.span("fgmres_solve")
 def fgmres_solve(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
                  tol: Optional[float] = None, restart: int = 10,
                  max_restarts: int = 50, precond_cycles: int = 1):
@@ -58,7 +61,8 @@ def fgmres_solve(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
     """
     tol = tol or cfg.res_threshold
     D = hier.levels[0].D
-    bnorm = _norm(b)
+    with READ_BACK:
+        bnorm = _norm(b)
     prog = CapturedChunk(torch.zeros_like(b), torch.zeros_like(b))
 
     def precond(v, z):
@@ -72,8 +76,10 @@ def fgmres_solve(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
 
     for _ in range(max_restarts):
         r = b - cuda_stencil.apply_D(D, x)
-        beta = _norm(r)
+        with READ_BACK:
+            beta = _norm(r)
         if beta / bnorm < tol:
+            prog.close()
             return x, total_iters, beta / bnorm
         V = [r / beta]
         Z = []
@@ -87,10 +93,13 @@ def fgmres_solve(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
             w = prog("apply", apply).clone()
             Z.append(prog.state[1].clone())
             for i in range(k + 1):
-                hik = complex(torch.vdot(V[i].reshape(-1), w.reshape(-1)))
+                with READ_BACK:
+                    hik = complex(torch.vdot(V[i].reshape(-1),
+                                             w.reshape(-1)))
                 H[i, k] = hik
                 w = w - hik * V[i]
-            hk1 = _norm(w)
+            with READ_BACK:
+                hk1 = _norm(w)
             H[k + 1, k] = hk1
             k_done = k + 1
             total_iters += 1
@@ -105,8 +114,11 @@ def fgmres_solve(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
                                 rcond=None)
         x = x + sum(complex(y[i]) * Z[i] for i in range(k_done))
 
+    prog.close()
     r = b - cuda_stencil.apply_D(D, x)
-    return x, total_iters, _norm(r) / bnorm
+    with READ_BACK:
+        rel = _norm(r) / bnorm
+    return x, total_iters, rel
 
 
 def _guarded_ratio(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
@@ -116,6 +128,7 @@ def _guarded_ratio(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
                        torch.zeros((), dtype=torch.float64, device=num.device))
 
 
+@profiling.span("cgnr_solve")
 def cgnr_solve(D, b, tol: float = 1e-8, max_iters: int = 50000,
                chunk: int = 500, Ddag=None, x0=None):
     """CG on the normal equations D^H D x = D^H b (CGNR), the solver of
@@ -137,7 +150,8 @@ def cgnr_solve(D, b, tol: float = 1e-8, max_iters: int = 50000,
     if Ddag is None:
         Ddag = adjoint_stencil(D)
     rdt = b.real.dtype
-    bn = math.sqrt(float(_sumsq(b)))
+    with READ_BACK:
+        bn = math.sqrt(float(_sumsq(b)))
     x = x0 if x0 is not None else torch.zeros_like(b)
     r = apply(Ddag, b - apply(D, x))
     prog = CapturedChunk(x, r, r, _sumsq(r))
@@ -162,12 +176,15 @@ def cgnr_solve(D, b, tol: float = 1e-8, max_iters: int = 50000,
     while it < max_iters:
         rn2 = run_steps(prog, chunk, KRYLOV_BLOCK, steps)
         it += chunk
-        rel = math.sqrt(float(rn2)) / bn
+        with READ_BACK:
+            rel = math.sqrt(float(rn2)) / bn
         if rel < tol or not math.isfinite(rel):
             break
+    prog.close()
     return prog.state[0], it, rel
 
 
+@profiling.span("cgnr_solve_ir")
 def cgnr_solve_ir(D64, D_host, b_host, tol: float = 1e-8,
                   inner_tol: float = 1e-5, inner_max: int = 6000,
                   max_outer: int = 10, chunk: int = 500):
@@ -186,7 +203,8 @@ def cgnr_solve_ir(D64, D_host, b_host, tol: float = 1e-8,
     dev = D64.device
     D128 = torch.as_tensor(D_host).to(device=dev, dtype=torch.complex128)
     b = torch.as_tensor(b_host).to(device=dev, dtype=torch.complex128)
-    bn = math.sqrt(float(_sumsq(b)))
+    with READ_BACK:
+        bn = math.sqrt(float(_sumsq(b)))
     Ddag64 = adjoint_stencil(D64)
     phi = torch.zeros_like(b)
     r = b
@@ -194,7 +212,8 @@ def cgnr_solve_ir(D64, D_host, b_host, tol: float = 1e-8,
     rel = float("inf")
     outer = 0
     for outer in range(1, max_outer + 1):
-        rn = math.sqrt(float(_sumsq(r)))
+        with READ_BACK:
+            rn = math.sqrt(float(_sumsq(r)))
         if rn == 0.0:
             break
         r64 = (r * (1.0 / rn)).to(torch.complex64)
@@ -203,7 +222,8 @@ def cgnr_solve_ir(D64, D_host, b_host, tol: float = 1e-8,
         total_inner += it
         phi = phi + rn * e.to(torch.complex128)
         r = b - cuda_stencil.apply_D(D128, phi)
-        rel = math.sqrt(float(_sumsq(r))) / bn
+        with READ_BACK:
+            rel = math.sqrt(float(_sumsq(r))) / bn
         if rel < tol or not math.isfinite(rel):
             break
     return {"rel": rel, "outer": outer, "inner_iters": total_inner,

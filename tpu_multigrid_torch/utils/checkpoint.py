@@ -17,6 +17,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import profiling
 from ..config import MGConfig
 from ..solver.hierarchy import Hierarchy, LevelOps, NTLOps, zero_fields
 from .io import host
@@ -73,6 +74,7 @@ def load_solver_state(path: str, cfg: MGConfig, device=None
             int(meta["iter"]), float(meta["resmag"]))
 
 
+@profiling.span("solve_resumable")
 def solve_resumable(hier, b, cfg: MGConfig, path: str,
                     checkpoint_every: int = 50,
                     max_iters: Optional[int] = None):
@@ -81,7 +83,7 @@ def solve_resumable(hier, b, cfg: MGConfig, path: str,
     `hier`); one program a chunk (utils.compile.CapturedChunk)."""
     from ..ops.stencil import residual_norm_ratio
     from ..solver.cycles import cycle
-    from ..solver.driver import SolveResult, _stop
+    from ..solver.driver import READ_BACK, SolveResult, _stop
     from .compile import CapturedChunk
 
     max_iters = max_iters or cfg.max_iters
@@ -97,10 +99,13 @@ def solve_resumable(hier, b, cfg: MGConfig, path: str,
         return phis, residual_norm_ratio(hier.levels[0].D, phis[0], b)
 
     while it < max_iters:
-        resmag = float(prog("chunk", body))
+        rel = prog("chunk", body)
+        with READ_BACK:
+            resmag = float(rel)
         it += checkpoint_every
         save_solver_state(path, cfg, hier, prog.state, it, resmag)
         if _stop(resmag, cfg):
             break
+    prog.close()
     return SolveResult(phi=prog.state[0], iters=it, resmag=resmag,
                        converged=resmag < cfg.res_threshold)

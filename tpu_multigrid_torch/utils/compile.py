@@ -22,7 +22,15 @@ asks (the libraries' lazy set-up and the kernels' first-call queries
 stay out of the capture); its launches ran and stay counted. A capture
 runs under torch.cuda's sync debug mode "error", so a host sync inside a
 body raises. Nothing is caught: a capture or a replay that fails raises
-its error.
+its error. `close` drops the graphs; a driver calls it once it has read
+what it returns.
+
+Spans (profiling.span): chunk.warm_up, chunk.capture and chunk.release
+once a key, chunk.replay once a replay. The warm-up's time on the side
+stream, between a pair of CUDA events, is read at `close` (by then the
+driver's read-backs have waited for the card) and added to the open
+root's chunk.warm_up: the stream's elapsed time, the warm-up's device
+work where the card runs it slower than the host launches it.
 
 The disk cache, the scoped-VMEM options and the ahead-of-time keying of
 the JAX package's `aot_call` belong to the TPU and are not ported.
@@ -35,7 +43,13 @@ from typing import Callable, Hashable
 
 import torch
 
+from .. import profiling
 from ..ops import cuda_stencil
+
+_WARM_UP = profiling.span("chunk.warm_up")
+_CAPTURE = profiling.span("chunk.capture")
+_REPLAY = profiling.span("chunk.replay")
+_RELEASE = profiling.span("chunk.release")
 
 
 def _counts() -> dict:
@@ -111,13 +125,14 @@ class CapturedChunk:
     out lives in the graph's memory: the next replay of the same key
     overwrites it, and so may the replay of another graph of the
     process (they share one memory pool): read it before the next
-    replay.
+    replay, and before `close`.
     """
 
     def __init__(self, *state: torch.Tensor):
         self.cuda = state[0].is_cuda
         self._state = tuple(t.clone() for t in state) if self.cuda else state
         self._graphs: dict = {}
+        self._warm_events: list = []
 
     @property
     def state(self) -> tuple:
@@ -140,24 +155,47 @@ class CapturedChunk:
             self._state = tuple(new)
             return out
         if key not in self._graphs:
-            self._warm_up(warm_up or body)
-            with _counted_out() as delta:
+            with _WARM_UP:
+                self._warm_up(warm_up or body)
+            with _CAPTURE, _counted_out() as delta:
                 graph, out = self._capture(body)
             self._graphs[key] = (graph, out, delta)
         graph, out, delta = self._graphs[key]
-        graph.replay()
+        with _REPLAY:
+            graph.replay()
         _add(delta, 1)
         return out
 
+    def close(self) -> None:
+        """Destroy the graphs (their memory goes back to the shared pool;
+        the outs they returned are void) and add the warm-ups' ms between
+        their events to the open root. The state stays."""
+        for key in list(self._graphs):
+            with _RELEASE:
+                self._graphs.pop(key)[0].reset()
+        for start, end in self._warm_events:
+            # complete after any read-back that followed the warm-up;
+            # else its time is left out rather than waited for
+            if end.query():
+                profiling.add_device_ms("chunk.warm_up",
+                                        start.elapsed_time(end))
+        self._warm_events.clear()
+
     def _warm_up(self, body: Callable) -> None:
-        """body on copies of the state, on the side stream. The main
-        stream waits for it, so that its kernels never run beside a
-        replay's (a cooperative launch needs the whole card)."""
+        """body on copies of the state, on the side stream, between a pair
+        of timing events. The main stream waits for it, so that its
+        kernels never run beside a replay's (a cooperative launch needs the
+        whole card)."""
         main = torch.cuda.current_stream(self._state[0].device)
         side = _capture_pool(self._state[0].device.index)[1]
         side.wait_stream(main)
+        events = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
         with torch.cuda.stream(side):
+            events[0].record()
             body(*(t.clone() for t in self._state))
+            events[1].record()
+        self._warm_events.append(events)
         main.wait_stream(side)
 
     def _capture(self, body: Callable):
