@@ -94,7 +94,8 @@ the plain path on the same hierarchy takes the same number of cycles
 small complex128 problem.
 
 Every driver runs its chunks as CUDA graphs it captures once a call and
-replays (tpu_multigrid_torch/utils/compile.py). Each solve phase
+replays (tpu_multigrid_torch/utils/compile.py); solve_ir keeps its program
+with the hierarchy, so a repeat call only replays. Each solve phase
 (flagship, solve_ir, large flagship, batched, chebyshev, ensemble8, MR,
 MG c128, EO-MR, CGNR-IR, FGMRES, CLI run A) also runs, in turns in the
 same call, with the drivers' bodies eager (graph_vs_eager): exactly the
@@ -1135,8 +1136,10 @@ def ir_phase(torch, mgt, dev, cfg, phases, hier, counts):
     residual on the dense residual kernels and on the plain
     stencil.residual, in turns (kernel, plain, plain, kernel; the faster
     run of each), with the counts equal and one outer residual launch an
-    outer step (and one in the warm-up before the capture); then its
-    captured graphs against its bodies run eagerly (graph_vs_eager)."""
+    outer step (and one in the warm-up before the capture: each of these
+    runs releases the program kept on the hierarchy first); then its
+    captured graphs against its bodies run eagerly (graph_vs_eager; the
+    graph runs replay the program kept by the last of them)."""
     cfg128 = cfg.replace(dtype="complex128")
     U128 = mgt.models.gauge.gauge_from_phases(phases, cfg128.cdtype, dev)
     D_outer = mgt.models.operators.assemble(cfg.stencil, U128, cfg.m)
@@ -1156,6 +1159,7 @@ def ir_phase(torch, mgt, dev, cfg, phases, hier, counts):
         secs = {"kernel": [], "plain": []}
         for design in ("kernel", "plain", "plain", "kernel"):
             n0 = cs.launches[key]
+            mgt.solver.driver.release_kept(hier)
             with patched(mgt.solver.driver, "cuda_stencil",
                          cs if design == "kernel" else plain_outer):
                 res, sec = timed(torch, run)
@@ -1594,7 +1598,9 @@ class Stopwatch:
 def eager_chunks(mgt):
     """While the block runs, the drivers' programs (CapturedChunk) run
     their bodies eagerly on CUDA tensors too, launch by launch: the same
-    cycles and steps as the captured graphs, as the loops before them."""
+    cycles and steps as the captured graphs, as the loops before them;
+    solve_ir makes a program of its own, neither using nor keeping the
+    one kept on its hierarchy."""
     cls = mgt.utils.compile.CapturedChunk
     init = cls.__init__
 
@@ -1602,7 +1608,9 @@ def eager_chunks(mgt):
         init(self, *state)
         self.cuda = False
 
-    with patched(cls, "__init__", eager_init):
+    with patched(cls, "__init__", eager_init), \
+            patched(mgt.solver.driver, "_kept_program",
+                    lambda hier, held, key, make: (make(), False)):
         yield
 
 

@@ -20,7 +20,9 @@ marked `cuda` run on the card: every driver captured against the same
 bodies run eagerly, a capture that syncs raising, and a replayed
 flagship cycle counting chip_smoke.FLAGSHIP_CYCLE, and each driver's
 spans (a warm-up, a capture and a release a chunk key, a replay a
-program run, the warm-up's device time). JAX is imported by
+program run, the warm-up's device time; solve_ir's program kept with
+its hierarchy, reused bit for bit as a fresh one, also after other
+drivers' captures in the shared pool). JAX is imported by
 the fixtures that need it, so that the card's tests run without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_compile.py
@@ -380,6 +382,151 @@ def test_cpu_state_chains_eagerly():
     assert float(tcompile.run_steps(chunk, 0, 10, steps)) == 7.0
 
 
+# ---- solve_ir's program, kept with its hierarchy ----
+
+class _ReplayGraph(_StubGraph):
+    """A stub graph whose replay runs its body eagerly on the chunk's
+    buffers and writes the new state and the out in place, as a replay
+    of the captured body does."""
+
+    def __init__(self, state, body, out):
+        super().__init__()
+        self.state, self.body, self.out = state, body, out
+
+    def replay(self):
+        super().replay()
+        new, out = self.body(*self.state)
+        for s, t in zip(self.state, new):
+            if t is not s:
+                s.copy_(t)
+        self.out.copy_(out)
+
+
+class _ReplayChunk(_StubChunk):
+    """_StubChunk with its state in buffers of its own (as on the card),
+    whose graphs replay their body eagerly."""
+
+    def __init__(self, *state):
+        super().__init__(*state)
+        self._state = tuple(t.clone() for t in state)
+
+    def _capture(self, body):
+        _, out = body(*self.state)
+        self.graphs.append(_ReplayGraph(self.state, body, out.clone()))
+        return self.graphs[-1], self.graphs[-1].out
+
+
+@pytest.fixture
+def replayed(monkeypatch):
+    """solve_ir's chunks on _ReplayChunk: the CUDA branch, on the CPU."""
+    monkeypatch.setattr(tdriver, "CapturedChunk", _ReplayChunk)
+
+
+def _fresh(f):
+    """A new port hierarchy of the flagship (a program of its own)."""
+    return hierarchy_from_numpy(*jax_hierarchy_leaves(f.jhier),
+                                dtype=torch.complex128)
+
+
+def _ir(hier, b, cfg, **kw):
+    return mgt.solve_ir(hier, b, cfg, **{"inner_cycles": 2, "max_iters": 60,
+                                         "inner_dtype": "complex128", **kw})
+
+
+def _chunk_spans():
+    return {k: v[0] for k, v in profiling.roots()[-1].spans.items()
+            if k.startswith("chunk.")}
+
+
+def _kept_chunk(hier):
+    return hier.__dict__[tdriver._KEPT].chunk
+
+
+def test_solve_ir_keeps_its_program(flagship, replayed):
+    """Two calls on one hierarchy make one warm-up and one capture; the
+    second opens chunk.reuse once and replays, and answers its b as a
+    fresh program does, bit for bit."""
+    f = flagship
+    cfg = f.tcfg.replace(res_threshold=1e-10)
+    hier = _fresh(f)
+    b2 = t_of(crandn(np.random.default_rng(5), f.b.shape))
+    first = _ir(hier, t_of(f.b), cfg)
+    spans = _chunk_spans()
+    second = _ir(hier, b2, cfg)
+    assert spans == {"chunk.warm_up": 1, "chunk.capture": 1,
+                     "chunk.replay": first.iters // 2}
+    assert _chunk_spans() == {"chunk.reuse": 1,
+                              "chunk.replay": second.iters // 2}
+    chunk = _kept_chunk(hier)
+    assert chunk.warm_ups == 1 and len(chunk.graphs) == 1
+    assert chunk.graphs[0].resets == 0
+    fresh = _ir(_fresh(f), b2, cfg)
+    assert first.converged and second.converged
+    assert (second.iters, second.resmag) == (fresh.iters, fresh.resmag)
+    np.testing.assert_array_equal(second.history, fresh.history)
+    assert torch.equal(second.phi, fresh.phi)
+
+
+@pytest.mark.parametrize("change", ["D_outer", "inner_cycles", "b_dtype"])
+def test_solve_ir_new_key_recaptures(flagship, replayed, change):
+    """A call with another D_outer object, inner_cycles or b dtype
+    releases the kept graph (reset once, in a chunk.release span) and
+    captures anew; a repeat of that call reuses the new program."""
+    f = flagship
+    cfg = f.tcfg.replace(res_threshold=1e-10)
+    hier = _fresh(f)
+    b = t_of(f.b)
+    _ir(hier, b, cfg)
+    old = _kept_chunk(hier)
+    kw = {"D_outer": {"D_outer": t_of(f.D)},
+          "inner_cycles": {"inner_cycles": 3}, "b_dtype": {}}[change]
+    if change == "b_dtype":
+        b = b.to(torch.complex64)
+    out = _ir(hier, b, cfg, **kw)
+    spans = _chunk_spans()
+    assert _kept_chunk(hier) is not old
+    assert [g.resets for g in old.graphs] == [1]
+    assert spans["chunk.release"] == spans["chunk.warm_up"] == \
+        spans["chunk.capture"] == 1 and "chunk.reuse" not in spans
+    again = _ir(hier, b, cfg, **kw)
+    assert _chunk_spans()["chunk.reuse"] == 1
+    assert out.converged and torch.equal(again.phi, out.phi)
+
+
+def test_solve_ir_program_dies_with_its_hierarchy(flagship, replayed):
+    """The kept program holds no reference to its hierarchy: dropping the
+    hierarchy frees the program and its graph by reference counting
+    alone, with the collector off."""
+    import gc
+    import weakref
+    f = flagship
+    hier = _fresh(f)
+    _ir(hier, t_of(f.b), f.tcfg.replace(res_threshold=1e-10))
+    prog = hier.__dict__[tdriver._KEPT]
+    refs = [weakref.ref(x) for x in (prog, prog.chunk, prog.chunk.graphs[0])]
+    del prog
+    gc.disable()
+    try:
+        del hier
+        assert [r() for r in refs] == [None, None, None]
+    finally:
+        gc.enable()
+
+
+def test_solve_ir_phi_is_a_copy(flagship, replayed):
+    """The phi a call returns is not the kept program's buffer: a second
+    call with another b leaves it as it was."""
+    f = flagship
+    cfg = f.tcfg.replace(res_threshold=1e-10)
+    hier = _fresh(f)
+    first = _ir(hier, t_of(f.b), cfg)
+    kept = first.phi.clone()
+    second = _ir(hier, (2 - 1j) * t_of(f.b), cfg)
+    assert torch.equal(first.phi, kept)
+    assert not torch.equal(second.phi, first.phi)
+    assert first.phi.data_ptr() != _kept_chunk(hier).state[0].data_ptr()
+
+
 # ---- on the card ----
 
 @pytest.fixture
@@ -392,7 +539,9 @@ def dev():
 @pytest.fixture
 def eager(monkeypatch):
     """A context in which CapturedChunk runs its bodies eagerly on CUDA
-    tensors too (the reference of a captured run)."""
+    tensors too (the reference of a captured run), and solve_ir makes a
+    program of its own, neither using nor keeping one on the
+    hierarchy."""
     import contextlib
 
     @contextlib.contextmanager
@@ -405,6 +554,8 @@ def eager(monkeypatch):
 
         with monkeypatch.context() as m:
             m.setattr(tcompile.CapturedChunk, "__init__", eager_init)
+            m.setattr(tdriver, "_kept_program",
+                      lambda hier, held, key, make: (make(), False))
             yield
     return ctx
 
@@ -495,7 +646,9 @@ def test_captured_driver_spans(dev, name):
     calls are children; solve_fmg's root is the solve_chunked it calls)
     with as many warm-ups, captures and releases as its chunks have keys,
     a replay a program run, and the warm-ups' time between their events,
-    above 0, read with no sync."""
+    above 0, read with no sync. solve_ir's repeat call on its hierarchy
+    replays the kept program: one chunk.reuse, no warm-up, capture or
+    release."""
     run = _drivers(dev)[name]
     run()
     before = len(profiling.roots())
@@ -504,6 +657,11 @@ def test_captured_driver_spans(dev, name):
     assert len(profiling.roots()) == min(before + 1, profiling.RING)
     assert root.name == {"solve_fmg": "solve_chunked"}.get(name, name)
     n = {k: v[0] for k, v in root.spans.items()}
+    if name == "solve_ir":
+        assert n["chunk.reuse"] == 1 and n["chunk.replay"] >= 1
+        assert not {"chunk.warm_up", "chunk.capture", "chunk.release"} & \
+            set(n) and "chunk.warm_up" not in root.device_ms
+        return
     assert n["chunk.warm_up"] == n["chunk.capture"] == n["chunk.release"]
     assert n["chunk.replay"] >= n["chunk.capture"] >= 1
     assert root.device_ms["chunk.warm_up"] > 0
@@ -511,19 +669,85 @@ def test_captured_driver_spans(dev, name):
 
 @pytest.mark.cuda
 def test_solve_ir_spans_on_the_card(dev):
-    """One solve_ir call: one warm-up, one capture and one release; a
-    replay and a read-back an outer step."""
+    """solve_ir's first call on a hierarchy: one warm-up and one capture,
+    and no release (the program is kept); its repeat call: one
+    chunk.reuse and no warm-up, capture or release. A replay and a
+    read-back an outer step in each."""
     cfg, hier, D = _card_flagship(dev)
     c128 = cfg.replace(dtype="complex128", res_threshold=1e-8)
     b = mgt.point_source(cfg, device=dev).to(torch.complex128)
-    out = mgt.solve_ir(hier, b, c128, inner_cycles=2, max_iters=60)
-    root = profiling.roots()[-1]
-    n = {k: v[0] for k, v in root.spans.items()}
-    assert out.converged and root.name == "solve_ir"
-    assert n["chunk.warm_up"] == n["chunk.capture"] == \
-        n["chunk.release"] == 1
-    assert n["chunk.replay"] == n["driver.read_back"] == out.iters // 2
-    assert 0 < root.device_ms["chunk.warm_up"]
+    for call in ("first", "repeat"):
+        out = mgt.solve_ir(hier, b, c128, inner_cycles=2, max_iters=60)
+        root = profiling.roots()[-1]
+        n = {k: v[0] for k, v in root.spans.items()}
+        assert out.converged and root.name == "solve_ir"
+        assert n["chunk.replay"] == n["driver.read_back"] == out.iters // 2
+        if call == "first":
+            assert n["chunk.warm_up"] == n["chunk.capture"] == 1
+            assert "chunk.release" not in n and "chunk.reuse" not in n
+            assert 0 < root.device_ms["chunk.warm_up"]
+        else:
+            assert n["chunk.reuse"] == 1 and not {
+                "chunk.warm_up", "chunk.capture", "chunk.release"} & set(n)
+
+
+def _same_result(got, want):
+    assert (got.iters, got.resmag) == (want.iters, want.resmag)
+    np.testing.assert_array_equal(got.history, want.history)
+    assert torch.equal(got.phi, want.phi)
+
+
+@pytest.mark.cuda
+def test_solve_ir_reuse_equals_a_fresh_capture(dev):
+    """On one hierarchy, a second solve_ir call with another b answers as
+    that b solved by a fresh program (the kept one released first): the
+    same count, residual and history, and the same bits; the first
+    call's phi stays as it was."""
+    cfg, hier, D = _card_flagship(dev)
+    c128 = cfg.replace(dtype="complex128", res_threshold=1e-8)
+    b = mgt.point_source(cfg, device=dev).to(torch.complex128)
+    b2 = torch.roll(b, (5, 9), (-2, -1)) * (1 - 2j)
+    D128 = D.to(torch.complex128)
+
+    def run(rhs):
+        return mgt.solve_ir(hier, rhs, c128, inner_cycles=2, max_iters=60,
+                            D_outer=D128)
+    first = run(b)
+    kept = first.phi.clone()
+    again = run(b2)
+    assert profiling.roots()[-1].spans["chunk.reuse"][0] == 1
+    tdriver.release_kept(hier)
+    fresh = run(b2)
+    assert "chunk.reuse" not in profiling.roots()[-1].spans
+    torch.cuda.synchronize()
+    _same_result(again, fresh)
+    assert torch.equal(first.phi, kept) and again.converged
+
+
+@pytest.mark.cuda
+def test_solve_ir_reuse_across_other_captures(dev):
+    """Hierarchy A's kept program, replayed after solve and solve_batched
+    captured (and released) graphs on hierarchy B in the same memory
+    pool, answers bit for bit as a fresh program on A."""
+    cfg, hier_a, _ = _card_flagship(dev)
+    cfg_b, hier_b, _ = _card_flagship(dev, L=128)
+    c128 = cfg.replace(dtype="complex128", res_threshold=1e-8)
+    b = mgt.point_source(cfg, device=dev).to(torch.complex128)
+    b_b = mgt.point_source(cfg_b, device=dev)
+
+    def run_a(rhs):
+        return mgt.solve_ir(hier_a, rhs, c128, inner_cycles=2, max_iters=60)
+    run_a(b)
+    mgt.solve(hier_b, b_b, cfg_b, max_iters=40)
+    mgt.solve_batched(hier_b, torch.stack([b_b, 2 * b_b]), cfg_b, 6)
+    b2 = (1 + 1j) * torch.roll(b, 7, -1)
+    again = run_a(b2)
+    assert profiling.roots()[-1].spans["chunk.reuse"][0] == 1
+    after = run_a(b)
+    tdriver.release_kept(hier_a)
+    _same_result(again, run_a(b2))
+    tdriver.release_kept(hier_a)
+    _same_result(after, run_a(b))
 
 
 @pytest.mark.cuda

@@ -13,17 +13,17 @@ unpreconditioned baseline.
 
 Each driver runs its chunk of work as one device program, as the JAX
 package's drivers do (utils.compile.CapturedChunk): on CUDA tensors a
-CUDA graph captured once a call and replayed, the host reading back one
-scalar (or one small vector) a chunk; on CPU tensors the same body runs
-eagerly. Each driver is a root span (profiling.span), and each host read
-(a chunk's result, the norm of a right-hand side) a driver.read_back
-span inside it.
+CUDA graph captured once a call (solve_ir's once a hierarchy and key)
+and replayed, the host reading back one scalar (or one small vector) a
+chunk; on CPU tensors the same body runs eagerly. Each driver is a root
+span (profiling.span), and each host read (a chunk's result, the norm of
+a right-hand side) a driver.read_back span inside it.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -32,7 +32,7 @@ from .. import profiling
 from ..config import MGConfig
 from ..ops import cuda_stencil
 from ..ops.stencil import residual
-from ..utils.compile import CapturedChunk, run_steps
+from ..utils.compile import REUSE, CapturedChunk, run_steps
 from .cycles import cycle, fmg_init, residual_norm_ratio0
 from .hierarchy import Hierarchy, cast_hierarchy, zero_fields
 
@@ -162,6 +162,63 @@ def solve_fmg(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
     return dataclasses.replace(out, iters=out.iters + 1)
 
 
+@dataclasses.dataclass(eq=False)
+class _IrProgram:
+    """solve_ir's program for one hierarchy: its outer step captured on the
+    state (phi, r, b, |b|), and what it was made for: `held`, compared by
+    identity (the D_outer argument and the hierarchy's fields, held so
+    that no id is reused), and `key`, compared by value. It holds no
+    reference to the hierarchy object, so that it dies with it."""
+    held: tuple
+    key: tuple
+    chunk: CapturedChunk
+    step: Callable
+
+
+# the attribute of a Hierarchy that holds its solve_ir program
+_KEPT = "_solve_ir_program"
+
+
+def release_kept(hier: Hierarchy) -> None:
+    """Release the solve_ir program kept on `hier` (its graph's memory goes
+    back to the pool); the next solve_ir call on it captures anew."""
+    prog = hier.__dict__.pop(_KEPT, None)
+    if prog is not None:
+        prog.chunk.close()
+
+
+def _kept_program(hier: Hierarchy, held: tuple, key: tuple, make):
+    """(program, kept): the solve_ir program kept on `hier` where it was
+    made for `held` and `key`; else make()'s, kept on `hier` in place of
+    the one there (released)."""
+    prog = hier.__dict__.get(_KEPT)
+    if (prog is not None and prog.key == key
+            and all(a is b for a, b in zip(prog.held, held))):
+        return prog, True
+    release_kept(hier)
+    prog = make()
+    setattr(hier, _KEPT, prog)
+    return prog, False
+
+
+def _ir_step(hier_in: Hierarchy, D_outer, cfg: MGConfig, cfg_in: MGConfig,
+             inner_cycles: int):
+    """The body of one outer step of solve_ir on (phi, r, b, |b|)."""
+    outer_residual = residual if cfg.pallas == "off" else cuda_stencil.residual
+
+    def step(phi, r, b, bn):
+        rn = torch.sqrt(torch.sum(r.abs() ** 2))
+        safe = torch.where(rn > 0, rn, torch.ones_like(rn))
+        r_in = (r / safe).to(cfg_in.cdtype)
+        es = zero_fields(cfg_in, b.device)
+        for _ in range(inner_cycles):
+            es, _ = cycle(hier_in, es, r_in, cfg_in)
+        phi = phi + safe * es[0].to(phi.dtype)
+        r = outer_residual(D_outer, phi, b)
+        return (phi, r, b, bn), torch.sqrt(torch.sum(r.abs() ** 2)) / bn
+    return step
+
+
 @profiling.span("solve_ir")
 def solve_ir(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
              inner_cycles: int = 2, max_iters: Optional[int] = None,
@@ -184,47 +241,53 @@ def solve_ir(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
     outer residual and its norm); the host reads the residual back every
     `outer_chunk` outer steps; history holds one entry per read-back, with
     history_stride = inner_cycles * outer_chunk.
+
+    The program is kept with the hierarchy, as the JAX package compiles it
+    once a process: a call with the same D_outer object, cfg,
+    inner_cycles, inner_dtype and b's shape, dtype and device on the same
+    hierarchy loads b into its buffers and replays (a chunk.reuse span);
+    another captures anew, in place of the one kept. The inner view of
+    the hierarchy and the converted D_outer are kept with it. The program
+    dies with the hierarchy (or at release_kept). The returned phi is a
+    copy, which later calls leave as it is.
     """
     max_iters = max_iters or cfg.max_iters
-    cfg_in = cfg.replace(dtype=inner_dtype)
-    hier_in = cast_hierarchy(hier, cfg_in.cdtype)
-    if D_outer is None:
-        D_outer = hier.levels[0].D
-    if not isinstance(D_outer, torch.Tensor):
-        D_outer = torch.from_numpy(np.array(D_outer))
-    D_outer = D_outer.to(device=b.device, dtype=cfg.cdtype)
     phi = torch.zeros((cfg.n_dof[0], cfg.L, cfg.L), dtype=cfg.cdtype,
                       device=b.device)
-    outer_residual = residual if cfg.pallas == "off" else cuda_stencil.residual
     bn = torch.sqrt(torch.sum(b.abs() ** 2))
-    prog = CapturedChunk(phi, b)
 
-    def step(phi, r):
-        rn = torch.sqrt(torch.sum(r.abs() ** 2))
-        safe = torch.where(rn > 0, rn, torch.ones_like(rn))
-        r_in = (r / safe).to(cfg_in.cdtype)
-        es = zero_fields(cfg_in, b.device)
-        for _ in range(inner_cycles):
-            es, _ = cycle(hier_in, es, r_in, cfg_in)
-        phi = phi + safe * es[0].to(phi.dtype)
-        r = outer_residual(D_outer, phi, b)
-        return (phi, r), torch.sqrt(torch.sum(r.abs() ** 2)) / bn
+    def make():
+        cfg_in = cfg.replace(dtype=inner_dtype)
+        D = hier.levels[0].D if D_outer is None else D_outer
+        if not isinstance(D, torch.Tensor):
+            D = torch.from_numpy(np.array(D))
+        D = D.to(device=b.device, dtype=cfg.cdtype)
+        step = _ir_step(cast_hierarchy(hier, cfg_in.cdtype), D, cfg, cfg_in,
+                        inner_cycles)
+        return _IrProgram(held, key, CapturedChunk(phi, b, b, bn), step)
+
+    held = (D_outer, hier.levels, hier.ntl, hier.gauge)
+    key = (cfg, inner_cycles, inner_dtype, b.shape, b.dtype, b.device)
+    prog, kept = _kept_program(hier, held, key, make)
+    if kept:
+        with REUSE:
+            prog.chunk.load(phi, b, b, bn)
 
     history = []
     resmag = float("inf")
     outer = 0
     while outer * inner_cycles < max_iters:
         for _ in range(outer_chunk):
-            rel = prog("step", step)
+            rel = prog.chunk("step", prog.step)
         outer += outer_chunk
         with READ_BACK:
             resmag = float(rel)
         history.append(resmag)
         if _stop(resmag, cfg):
             break
-    prog.close()
-    return SolveResult(phi=prog.state[0], iters=outer * inner_cycles,
-                       resmag=resmag,
+    prog.chunk.report_warm_ups()
+    return SolveResult(phi=prog.chunk.state[0].clone(),
+                       iters=outer * inner_cycles, resmag=resmag,
                        converged=resmag < cfg.res_threshold,
                        history=np.asarray(history),
                        history_stride=inner_cycles * outer_chunk)

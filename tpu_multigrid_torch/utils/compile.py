@@ -8,10 +8,13 @@ fields, the Krylov vectors, ...) in buffers at fixed addresses. On CUDA
 tensors each body run on that state is captured once as a CUDA graph
 (torch.cuda.CUDAGraph) and then replayed: the capture ends by copying the
 body's new state into the buffers, so replays chain on the card with no
-host step between them. The graphs live as long as the object, which a
-driver makes per call: the hierarchy's tensors that a body reads are read
-where they lie, and a graph must not outlive them. On CPU tensors the
-body runs eagerly, as the caller asked for the CPU.
+host step between them. The graphs live as long as the object: the
+hierarchy's tensors that a body reads are read where they lie, and a
+graph must not outlive them. Most drivers make one per call and close it
+before they return; solve_ir keeps its program with the hierarchy it
+reads (driver.py), so that a repeat call loads its new right-hand side
+and only replays. On CPU tensors the body runs eagerly, as the caller
+asked for the CPU.
 
 The launch counters of ops.cuda_stencil count launches that ran: a
 wrapper adds to them when it is called under capture, where nothing
@@ -23,14 +26,15 @@ stay out of the capture); its launches ran and stay counted. A capture
 runs under torch.cuda's sync debug mode "error", so a host sync inside a
 body raises. Nothing is caught: a capture or a replay that fails raises
 its error. `close` drops the graphs; a driver calls it once it has read
-what it returns.
+what it returns (solve_ir, when it replaces its kept program).
 
 Spans (profiling.span): chunk.warm_up, chunk.capture and chunk.release
-once a key, chunk.replay once a replay. The warm-up's time on the side
-stream, between a pair of CUDA events, is read at `close` (by then the
-driver's read-backs have waited for the card) and added to the open
-root's chunk.warm_up: the stream's elapsed time, the warm-up's device
-work where the card runs it slower than the host launches it.
+once a key, chunk.replay once a replay; chunk.reuse, opened by a driver,
+once a call that replays a kept program. The warm-up's time on the side
+stream, between a pair of CUDA events, is read at `report_warm_ups` (by
+then the driver's read-backs have waited for the card) and added to the
+open root's chunk.warm_up: the stream's elapsed time, the warm-up's
+device work where the card runs it slower than the host launches it.
 
 The disk cache, the scoped-VMEM options and the ahead-of-time keying of
 the JAX package's `aot_call` belong to the TPU and are not ported.
@@ -50,6 +54,7 @@ _WARM_UP = profiling.span("chunk.warm_up")
 _CAPTURE = profiling.span("chunk.capture")
 _REPLAY = profiling.span("chunk.replay")
 _RELEASE = profiling.span("chunk.release")
+REUSE = profiling.span("chunk.reuse")
 
 
 def _counts() -> dict:
@@ -123,9 +128,17 @@ class CapturedChunk:
     body of the same operations on the same shapes (one step of a body
     of several), is what the warm-up runs (default: body). The returned
     out lives in the graph's memory: the next replay of the same key
-    overwrites it, and so may the replay of another graph of the
-    process (they share one memory pool): read it before the next
-    replay, and before `close`.
+    overwrites it.
+
+    The graphs of a card all capture into one memory pool, also while
+    other chunks' graphs live (a kept program lives across other
+    drivers' calls). A capture may be given the blocks a live graph
+    freed during its own capture, its intermediates, which that graph
+    writes afresh in each replay before it reads them; the state
+    buffers lie outside the pool, and a live graph's out is never given
+    away. The port keeps to this: a chunk's out is read before any other
+    chunk replays (and before `close`), and nothing a body writes outside
+    its state buffers and its out is read across another chunk's replay.
     """
 
     def __init__(self, *state: torch.Tensor):
@@ -168,11 +181,17 @@ class CapturedChunk:
 
     def close(self) -> None:
         """Destroy the graphs (their memory goes back to the shared pool;
-        the outs they returned are void) and add the warm-ups' ms between
-        their events to the open root. The state stays."""
+        the outs they returned are void) and report the warm-ups. The
+        state stays."""
         for key in list(self._graphs):
             with _RELEASE:
                 self._graphs.pop(key)[0].reset()
+        self.report_warm_ups()
+
+    def report_warm_ups(self) -> None:
+        """Add the ms between each warm-up's events to the open root, once
+        (a driver that keeps the chunk past its call calls this before it
+        returns)."""
         for start, end in self._warm_events:
             # complete after any read-back that followed the warm-up;
             # else its time is left out rather than waited for
