@@ -85,9 +85,12 @@ path (launch counters, set to 0 before the path and read after it), that
 one flagship cycle launches exactly FLAGSHIP_CYCLE (the persistent
 smoothers once per smooth call, level 0's residual fused with its
 restriction, the two coarse residuals on the dense residual kernel, the
-min-res apply on the SpMV kernel, no x-tiled kernel) and one
-large-flagship cycle exactly LARGE_CYCLE (the x-tiled smoothers once per
-sweep, the coarse residuals x-tiled past the L2 and global within it),
+min-res apply on the SpMV kernel, every other restriction and
+prolongation on the transfer kernels, the NTL copies' in one launch each
+way, no x-tiled kernel) and one large-flagship cycle exactly LARGE_CYCLE
+(the x-tiled smoothers once per sweep, the coarse residuals x-tiled past
+the L2 and global within it, six restrictions and six prolongations),
+that neither runs cuBLAS's batched gemv (the einsum transfers' kernel),
 that a batched or ensemble cycle launches as an unbatched one does, that
 the plain path on the same hierarchy takes the same number of cycles
 (within one), and that the kernel path agrees with the plain path on a
@@ -104,7 +107,8 @@ within GRAPH_BAR (and whether their bits are the same), host seconds and
 capture seconds; the cycle phases also replay one captured cycle against
 the eager cycle (replayed_cycle: ms a cycle by CUDA events, the replay's
 device ops and idle share, and its launch counters, exactly
-FLAGSHIP_CYCLE and LARGE_CYCLE). Every capture runs with host syncs
+FLAGSHIP_CYCLE and LARGE_CYCLE; the first replay, from zero fields, the
+eager cycle's fields bit for bit). Every capture runs with host syncs
 refused (torch.cuda's sync debug mode "error"). The warm-up before a
 capture runs a chunk on copies, and its launches count: a solve of N
 checked cycles launches N + 1 checks.
@@ -123,9 +127,11 @@ one-element zero_(), and a cold copy of the row's least bytes), and
 times one PyTorch call that computes the same function where there is
 one: for the
 SpMV and residual kernels torch.sparse.mm / torch.sparse.addmm on the
-operator assembled once as a CSR matrix (int32 indices), by CUDA events
-and, beside each row's kernel, by cold device time; the smoothers and the
-fused residual-restriction have none. The port never calls these.
+operator assembled once as a CSR matrix (int32 indices), for the transfer
+kernels the einsum they replace (transfer.restrict_plain / prolong_plain,
+also their plain versions), by CUDA events and, beside each row's kernel,
+by cold device time; the smoothers and the fused residual-restriction have
+none. The port never calls these.
 Beside the fused residual-restriction it times the unfused path it
 replaces (B2, then the plain restriction).
 
@@ -167,6 +173,9 @@ REPLACES = {
     "links_apply_tiled": "tpu_multigrid/ops/pallas_stencil.py:695",
     "dense_apply_tiled": "tpu_multigrid/ops/pallas_stencil.py:236",
     "dense_residual_tiled": "tpu_multigrid/ops/pallas_stencil.py:236",
+    # the cycle's transfers, which the JAX package leaves to XLA
+    "restrict": "none: tpu_multigrid/ops/transfer.py restrict (an einsum)",
+    "prolong": "none: tpu_multigrid/ops/transfer.py prolong (an einsum)",
 }
 # The dense smoothers' launches whose entries come in groups of G > 1
 # sharing one operator (an ensemble's near-null candidates, k a
@@ -174,29 +183,32 @@ REPLACES = {
 GROUP_ENTRIES = {"dense_update_groups": "dense_update",
                  "dense_update_tiled_groups": "dense_update_tiled"}
 REPLACES.update({e: REPLACES[k] for e, k in GROUP_ENTRIES.items()})
-SOURCES = {k: "tpu_multigrid_torch/csrc/" + ("stencil_tiled.cu" if
-                                             "_tiled" in k else
-                                             "stencil.cu")
+SOURCES = {k: "tpu_multigrid_torch/csrc/" + (
+    "transfer.cu" if k in ("restrict", "prolong") else
+    "stencil_tiled.cu" if "_tiled" in k else "stencil.cu")
            for k in REPLACES}
 FLAGSHIP_KERNELS = ("links_update", "links_residual_norm", "dense_update",
-                    "links_residual_restrict", "dense_residual", "dense_apply")
+                    "links_residual_restrict", "dense_residual", "dense_apply",
+                    "restrict", "prolong")
 # the unfused B2: level 0's residual where the fused residual-restriction
 # does not take the blocks (8 x 8)
 BLOCK8_KERNELS = ("links_residual",)
 LARGE_KERNELS = ("links_update_tiled", "links_residual_tiled",
-                 "links_residual_norm", "dense_update_tiled", "dense_update", "dense_residual_tiled",
-                 "dense_residual", "dense_apply")
+                 "links_residual_norm", "dense_update_tiled", "dense_update",
+                 "dense_residual_tiled", "dense_residual", "dense_apply",
+                 "restrict", "prolong")
 SPMV_KERNELS = ("dense_apply_tiled", "links_apply", "links_apply_tiled")
 KRYLOV_KERNELS = ("dense_apply",)
 CLI_KERNELS = ("links_update", "links_residual_norm", "dense_update",
-               "dense_apply")
+               "dense_apply", "restrict", "prolong")
 # the kernels that take a batch of right-hand sides on shared links (and
 # near-null rows) or a shared D
 BATCHED_KERNELS = ("links_update", "links_residual_norm",
                    "links_update_tiled", "links_residual_tiled",
                    "links_residual_restrict", "dense_residual",
-                   "dense_residual_tiled")
-ENSEMBLE_KERNELS = ("dense_update", "dense_residual", "dense_apply")
+                   "dense_residual_tiled", "restrict", "prolong")
+ENSEMBLE_KERNELS = ("dense_update", "dense_residual", "dense_apply",
+                    "restrict", "prolong")
 CHEBYSHEV_KERNELS = ("dense_apply", "links_residual_norm")
 # the gen-2 program's cycles at L=32, m=0.5, 3 levels, 4 lexicographic
 # sweeps, t_flag 0 and 1 (the count tests/test_torch_cli.py holds the
@@ -211,6 +223,8 @@ NO_LIBRARY = ("none: no single PyTorch call computes a red-black or Jacobi "
               "sweep")
 NO_LIBRARY_RESTRICT = ("none: no single PyTorch call computes the residual "
                        "and its restriction")
+# the one PyTorch call beside the transfer kernels: the einsum they replace
+EINSUM = "torch.einsum (transfer.restrict_plain / prolong_plain)"
 NO_LIBRARY_NORM = ("none: no single PyTorch call computes the residual's "
                    "norm over the right-hand side's")
 # The kernels whose rows also read the floor: the device time, cold, of a
@@ -222,20 +236,25 @@ FIRST_DESIGN_CYCLE_OPS = 313
 # Launches of one flagship cycle: rbgs x4 down and up at level 0 (links)
 # and at levels 1-2 and once on the NTL copies (dense); level 0's residual
 # fused with its restriction, levels 1-2's on the dense residual kernel,
-# the min-res apply on the SpMV kernel.
+# the min-res apply on the SpMV kernel; level 1's restriction and the
+# copies' (one launch for the four), the copies' prolongation (one) and
+# levels 2 and 1's onto the finer level's field.
 FLAGSHIP_CYCLE = {"links_update": 2, "dense_update": 5,
                   "links_update_tiled": 0, "dense_update_tiled": 0,
                   "links_residual_restrict": 1, "links_residual": 0,
-                  "dense_residual": 2, "dense_apply": 1}
+                  "dense_residual": 2, "dense_apply": 1,
+                  "restrict": 2, "prolong": 3}
 # One large-flagship cycle: one fused red-black launch a sweep (rbgs x4 at
 # level 0, 2 calls, and at levels 1-3, 2 calls each); level 0's residual on
 # B5b (then the plain restriction); the dense residuals of levels 1-2
 # (L=1024, 512) x-tiled, of levels 3-5 (L=256, 128, 64) global
-# (apply_mode); the min-res apply at level 5.
+# (apply_mode); the min-res apply at level 5; the restrictions of levels
+# 0-4 and of the copies at level 5, the copies' prolongation and levels
+# 5-1's.
 LARGE_CYCLE = {"links_update_tiled": 8, "dense_update_tiled": 24,
                "links_residual_tiled": 1, "links_residual_restrict": 0,
                "dense_residual_tiled": 2, "dense_residual": 3,
-               "dense_apply": 1}
+               "dense_apply": 1, "restrict": 6, "prolong": 6}
 # The counts each phase takes (cycles; solve_ir's cycles to 1e-8 and to
 # 1e-13; Krylov iterations): the JAX package's and every earlier smoke's.
 COUNTS = {"flagship": 10, "flagship solve_ir": (14, 24), "large": 8,
@@ -268,6 +287,8 @@ class Case:
     # the case must equal bit for bit
     entry: str = None
     copied: object = None
+    # what the library call is, where it is not torch.sparse's
+    library_what: str = None
 
 
 def stencil_csr(torch, D):
@@ -454,7 +475,7 @@ def kernel_cases(torch, mgt, dev):
         """B2 fused with the restriction of its output, at each quadrant of
         `quads`: phi [batch?, 2, L, L], r batched or shared, U and phi_null
         [nc, 2, L, L] shared; beside it (fg) the unfused path, B2 then the
-        plain restriction."""
+        restriction kernel."""
         lead = (batch,) if batch > 1 else ()
         U, phi = links(L, dtype), c(lead + (2, L, L), dtype)
         r = c((2, L, L) if shared_r else lead + (2, L, L), dtype)
@@ -467,13 +488,53 @@ def kernel_cases(torch, mgt, dev):
                 dtype,
                 functools.partial(cs.wilson_u_residual_restrict, U, m, phi, r,
                                   pn, quad, bx, by),
-                lambda q=quad: mgt.ops.transfer.restrict(
+                lambda q=quad: mgt.ops.transfer.restrict_plain(
                     pn, gs.residual_u("wilson", U, m, phi, r), q, bx, by),
-                lambda q=quad: mgt.ops.transfer.restrict(
+                lambda q=quad: cs.transfer_restrict(
                     pn, cs.wilson_u_residual(U, m, phi, r), q, bx, by),
                 work("links_residual_restrict", 2, L, phi.element_size(),
                      batch, 1 if shared_r else batch, nc=nc, block=bx * by),
                 None, batch, NO_LIBRARY_RESTRICT))
+        return out
+
+    def transfer_cases(L, nf, tag, dtype, nc=4, bx=2, by=2, quads=(1,),
+                       batch=1, shared=True, copies=False, base=True):
+        """restrict and prolong (csrc/transfer.cu) at each quadrant of
+        `quads`, or the NTL copies in one launch each way (copies: phi_null
+        [4, nc, nf, L, L], copy q at quadrant q + 1; rows restrict-q,
+        prolong-q); a batch > 1 of fields on phi_null shared or batched;
+        prolong onto a base (base). Each beside its plain version, the
+        einsum, which is also the library call."""
+        tr = mgt.ops.transfer
+        lead = (batch,) if batch > 1 else ()
+        cp = (4,) if copies else ()
+        pn = c((() if shared else lead) + cp + (nc, nf, L, L), dtype)
+        vf = c(lead + (nf, L, L), dtype)
+        vc = c(lead + cp + (nc, L // bx, L // by), dtype)
+        bs = c(lead + cp + (nf, L, L), dtype) if base else None
+        isz, entries = vf.element_size(), batch * len(cp or (1,))
+        phis = (1 if shared else batch) * len(cp or (1,))
+        out = []
+        for quad in ((None,) if copies else quads):
+            what = "copies" if quad is None else f"quad {quad}"
+            rk = functools.partial(cs.transfer_restrict, pn, vf, quad, bx, by)
+            rp = functools.partial(tr.restrict_plain, pn, vf, quad, bx, by)
+            pk = functools.partial(cs.transfer_prolong, pn, vc, quad, bx, by,
+                                   bs)
+            pp = functools.partial(tr.prolong_plain, pn, vc, quad, bx, by,
+                                   bs)
+            q = "-q" if copies else ""
+            out.append(Case(
+                "restrict", f"restrict{q} {tag} {what}", dtype, rk, rp,
+                work=work("restrict", nf, L, isz, entries, phis, nc=nc,
+                          block=bx * by, r_batch=batch),
+                library=lambda f=rp: f, batch=batch, library_what=EINSUM))
+            out.append(Case(
+                "prolong", f"prolong{q} {tag} {what}"
+                + ("" if base else " (no base)"), dtype, pk, pp,
+                work=work("prolong", nf, L, isz, entries, phis, nc=nc,
+                          block=bx * by, with_base=base),
+                library=lambda f=pp: f, batch=batch, library_what=EINSUM))
         return out
 
     def links_apply_cases(L, tag, dtype, tiled, tile=None, row=None):
@@ -602,6 +663,36 @@ def kernel_cases(torch, mgt, dev):
         # MR and CGNR and an ensemble's min-res, 4 copies a configuration)
         cases += restrict_cases(256, "L=256", dtype)
         cases += restrict_cases(256, "L=256 batch 8", dtype, batch=8)
+        # the cycle's transfers: the large flagship's level 0 (its main
+        # shape), levels 1 and 3, the flagship's level 1, the NTL copies at
+        # 64^2 (the large flagship's and the flagship's), a batch of 8 right-
+        # hand sides, an ensemble of 8 hierarchies (its level 0 and copies)
+        cases += transfer_cases(2048, 2, "L=2048 nf=2 (large level 0)",
+                                dtype)
+        cases += transfer_cases(1024, 4, "L=1024 nf=4 (large level 1)",
+                                dtype)
+        cases += transfer_cases(256, 4, "L=256 nf=4 (large level 3)", dtype)
+        cases += transfer_cases(128, 4, "L=128 nf=4 (flagship level 1)",
+                                dtype)
+        cases += transfer_cases(64, 4, "L=64 nf=4 (NTL)", dtype, copies=True,
+                                base=False)
+        cases += transfer_cases(128, 4, "L=128 nf=4 batch 8", dtype,
+                                batch=8)
+        cases += transfer_cases(64, 4, "L=64 nf=4 batch 8 (NTL)", dtype,
+                                copies=True, base=False, batch=8)
+        cases += transfer_cases(128, 2, "L=128 nf=2 ensemble of 8", dtype,
+                                batch=8, shared=False)
+        cases += transfer_cases(64, 4, "L=64 nf=4 ensemble of 8 (NTL)",
+                                dtype, copies=True, base=False, batch=8,
+                                shared=False)
+        # their edges: every quadrant, 4 x 2 blocks with nc 6 and nf 1,
+        # ragged coarse rows (L=36: 18 coarse columns), no base
+        cases += transfer_cases(128, 4, "L=128 nf=4", dtype,
+                                quads=(2, 3, 4))
+        cases += transfer_cases(24, 1, "L=24 nf=1 nc=6 4x2", dtype, nc=6,
+                                bx=4, quads=(1, 2, 3, 4))
+        cases += transfer_cases(36, 2, "L=36 nf=2", dtype, quads=(1, 3),
+                                base=False)
         cases += apply_cases(None, None, 4, 128, "n=4 L=128 (level 1)", dtype,
                              tiled=False, resid=True)
         cases += apply_cases(None, None, 4, 64, "n=4 L=64 (level 2)", dtype,
@@ -789,8 +880,11 @@ def library_time(torch, case, want):
         return None, f"not supported: {type(e).__name__}: {str(e)[:160]}"
     rel = float((got.reshape(want.shape) - want).abs().max()
                 / want.abs().max())
-    what = ("torch.sparse.addmm" if "residual" in case.kernel
-            else "torch.sparse.mm") + f" (CSR, int32; rel diff {rel:.1e})"
+    if case.library_what:
+        what = f"{case.library_what} (rel diff {rel:.1e})"
+    else:
+        what = ("torch.sparse.addmm" if "residual" in case.kernel
+                else "torch.sparse.mm") + f" (CSR, int32; rel diff {rel:.1e})"
     ms = cuda_ms(torch, call)
     del call
     return ms, what
@@ -1003,12 +1097,15 @@ def run_kernel_cases(torch, mgt, dev):
 
 
 def cycle_launches(torch, mgt, dev, cfg, hier, ms_per_cycle, want, tag,
-                   first_design_ops=None, b=None):
+                   first_design_ops=None, b=None, no_gemv=False):
     """One cycle with the launch counters set to 0 just before it and read
     just after: exactly want[k] launches of each kernel k of `want`. The
     profiler gives the cycle's device ops and device time; the idle share
     is taken against the unprofiled ms_per_cycle. b: the right-hand side
-    (default the point source), [B, n, L, L] for a batched cycle."""
+    (default the point source), [B, n, L, L] for a batched cycle. no_gemv:
+    no device op of the cycle is cuBLAS's batched gemv (gemvx), which the
+    einsum transfers ran before the transfer kernels (the ops whose names
+    hold "gemv" are listed under gemv_ops: the min-res 4 x 4 solve's)."""
     from torch.profiler import ProfilerActivity, profile
     cs = mgt.ops.cuda_stencil
     if b is None:
@@ -1045,6 +1142,11 @@ def cycle_launches(torch, mgt, dev, cfg, hier, ms_per_cycle, want, tag,
         print(f"    {us:9.1f} us  {name[:80]}")
     check(all(counts.get(k, 0) == n for k, n in want.items()),
           f"a {tag} cycle launched {counts}: want {want}")
+    out["gemv_ops"] = sorted({e.name[:80] for e in events
+                              if "gemv" in e.name.lower()})
+    if no_gemv:
+        gemvx = [n for n in out["gemv_ops"] if "gemvx" in n]
+        check(not gemvx, f"a {tag} cycle ran cuBLAS's batched gemv: {gemvx}")
     return out
 
 
@@ -1671,7 +1773,8 @@ def replayed_cycle(torch, mgt, dev, cfg, hier, b, n_cyc, reps, tag,
     turns eager, graph, graph, eager); one replay profiled (device ops,
     device ms, idle share against the replayed ms) with the launch
     counters set to 0 just before it: exactly `want` where given. b [B, n,
-    L, L] for a batched cycle. Returns the summary."""
+    L, L] for a batched cycle. The first replay, from zero fields, must
+    give the eager cycle's fields bit for bit. Returns the summary."""
     from torch.profiler import ProfilerActivity, profile
     cs = mgt.ops.cuda_stencil
     cc = mgt.utils.compile.CapturedChunk
@@ -1683,6 +1786,15 @@ def replayed_cycle(torch, mgt, dev, cfg, hier, b, n_cyc, reps, tag,
 
     with Stopwatch(torch, cc, "_capture") as cap:
         chunk("cycle", body)
+    eager_once = mgt.cycle(hier, mgt.zero_fields(cfg, dev, batch), b, cfg)[0]
+    same_bits = all(torch.equal(g, e)
+                    for g, e in zip(chunk.state, eager_once))
+    if not same_bits:
+        worst = max(rel_diff(g, e) for g, e in zip(chunk.state, eager_once)
+                    if not torch.equal(g, e))
+        check(False, f"a replayed {tag} cycle differs from the eager one by "
+              f"{worst:.3e} (rel.)")
+    del eager_once
 
     def graph():
         for _ in range(n_cyc):
@@ -1708,8 +1820,8 @@ def replayed_cycle(torch, mgt, dev, cfg, hier, b, n_cyc, reps, tag,
     events = device_ops_of(p)
     busy_ms = sum(getattr(e, "device_time_total", None)
                   or getattr(e, "cuda_time_total", 0.0) for e in events) / 1e3
-    out = {"capture_s": cap.seconds, "ms_graph": ms_graph,
-           "ms_eager": ms_eager, "ms_turns": ms,
+    out = {"capture_s": cap.seconds, "same_bits_as_eager": same_bits,
+           "ms_graph": ms_graph, "ms_eager": ms_eager, "ms_turns": ms,
            "speedup": ms_eager / ms_graph, "device_ops": len(events),
            "device_ms": busy_ms,
            "idle_share": (1 - busy_ms / ms_graph) if events else None,
@@ -2573,7 +2685,7 @@ def main():
           f"{solve_l['links_residual']} links_residual")
     flag["cycle"] = cycle_launches(
         torch, mgt, dev, cfg, hier, flag["ms_per_cycle"], FLAGSHIP_CYCLE,
-        "flagship", FIRST_DESIGN_CYCLE_OPS)
+        "flagship", FIRST_DESIGN_CYCLE_OPS, no_gemv=True)
     flag["replayed"] = replayed_cycle(
         torch, mgt, dev, cfg, hier, mgt.point_source(cfg, device=dev), 10, 5,
         "flagship", FLAGSHIP_CYCLE)
@@ -2603,7 +2715,7 @@ def main():
           "in the warm-up")
     large["cycle"] = cycle_launches(
         torch, mgt, dev, cfg, hier, large["ms_per_cycle"], LARGE_CYCLE,
-        "large flagship")
+        "large flagship", no_gemv=True)
     large["replayed"] = replayed_cycle(
         torch, mgt, dev, cfg, hier, mgt.point_source(cfg, device=dev), 4, 3,
         "large flagship", LARGE_CYCLE)

@@ -835,8 +835,8 @@ def test_links_residual_restrict(dev, dtype, quad, L, nc, bx, by, B,
         n0["links_residual_restrict"] + 1)
     assert {k: v for k, v in cs.launches.items() if v != n0[k]} == {
         "links_residual_restrict": n0["links_residual_restrict"] + 1}
-    want = tr.restrict(pn, gs.residual_u("wilson", U, -0.005, phi, r), quad,
-                       bx, by)
+    want = tr.restrict_plain(pn, gs.residual_u("wilson", U, -0.005, phi, r),
+                             quad, bx, by)
     assert got.shape == want.shape == lead + (nc, L // bx, L // by)
     assert _rel(got, want) < BARS[dtype]
 
@@ -871,6 +871,129 @@ def test_links_residual_restrict_refuses(dev):
                                       4, 2)
     with pytest.raises(TypeError):
         call(pn=pn.to(torch.complex128))
+    assert cs.launches == n0
+
+
+# ---- the cycle's transfers (csrc/transfer.cu) ----
+#
+# Bars: BARS. In complex64 a restricted word sums nf bx by (<= 16 here)
+# products and a prolonged one nc (<= 6), in another order than the plain
+# version's batched gemv; complex128 to the self-test's 1e-12.
+
+
+def _launched(n0):
+    return {k: v - n0[k] for k, v in cs.launches.items() if v != n0[k]}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("quad", [1, 2, 3, 4])
+@pytest.mark.parametrize("L,nc,nf,bx,by", [
+    (2048, 4, 2, 2, 2),                     # the large flagship's level 0
+    (1024, 4, 4, 2, 2),                     # its level 1
+    (128, 4, 4, 2, 2),                      # the flagship's level 1
+    (36, 4, 2, 2, 2),                       # ragged: 18 coarse columns
+    (24, 6, 1, 4, 2),                       # nc > 4 rows, bx != by
+    (12, 3, 4, 2, 4),
+    (9, 2, 2, 3, 1),                        # odd blocks and lattice
+])
+def test_transfer_kernels(dev, dtype, quad, L, nc, nf, bx, by):
+    """restrict, prolong and prolong onto a base: one launch each, the plain
+    (einsum) result, every quadrant."""
+    rng = np.random.default_rng(70 + L + nc + quad)
+    pn = _c(rng, (nc, nf, L, L), dtype, dev)
+    vf, base = _c(rng, (nf, L, L), dtype, dev), _c(rng, (nf, L, L), dtype,
+                                                    dev)
+    vc = _c(rng, (nc, L // bx, L // by), dtype, dev)
+    n0 = dict(cs.launches)
+    got_r = tr.restrict(pn, vf, quad, bx, by)
+    got_p = tr.prolong(pn, vc, quad, bx, by)
+    got_b = tr.prolong(pn, vc, quad, bx, by, base=base)
+    assert _launched(n0) == {"restrict": 1, "prolong": 2}
+    assert _rel(got_r, tr.restrict_plain(pn, vf, quad, bx, by)) < BARS[dtype]
+    assert _rel(got_p, tr.prolong_plain(pn, vc, quad, bx, by)) < BARS[dtype]
+    assert _rel(got_b, tr.prolong_plain(pn, vc, quad, bx, by,
+                                        base)) < BARS[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("form", [
+    "a batch of fields", "a batch of hierarchies", "batched phi_null",
+    "copies", "copies, a batch of fields", "copies, a batch of hierarchies",
+    "unaligned"])
+@pytest.mark.parametrize("L,nf", [(64, 4), (128, 2)])
+def test_transfer_kernel_batch_forms(dev, dtype, form, L, nf):
+    """The batch forms of the cycles, one launch each way: phi_null shared
+    by a batch of 3 fields (solve_batched), a batch of hierarchies
+    (solve_ensemble), one field on batched near-null rows, the NTL copies
+    (copy q at quadrant q + 1; unbatched, a batch of fields, and the
+    ensemble's strided view of its copies), and views 8 bytes off a 16-byte
+    line; against the plain version."""
+    rng = np.random.default_rng(80 + L)
+    nc, S = 4, L // 2
+
+    def c(*shape):
+        return _c(rng, shape, dtype, dev)
+
+    quad, pn, vf, vc = 1, c(nc, nf, L, L), c(3, nf, L, L), c(3, nc, S, S)
+    if form == "a batch of hierarchies":
+        pn = c(3, nc, nf, L, L)
+    elif form == "batched phi_null":
+        pn, vf, vc, quad = c(3, nc, nf, L, L), vf[0], vc[0], 3
+    elif form.startswith("copies"):
+        quad, vc = None, c(3, 4, nc, S, S)
+        pn = c(4, nc, nf, L, L)
+        if form == "copies":
+            vf, vc = vf[0], vc[0]
+        elif form == "copies, a batch of hierarchies":
+            pn = c(3, 5, nc, nf, L, L)[:, 1:]
+    elif form == "unaligned":
+        def off(*shape):
+            n = int(np.prod(shape))
+            return c(n + 1)[1:].view(*shape)
+        pn, vf, vc = off(nc, nf, L, L), off(3, nf, L, L), off(3, nc, S, S)
+    n0 = dict(cs.launches)
+    got_r = tr.restrict(pn, vf, quad, 2, 2) if quad else (
+        tr.restrict_copies(pn, vf, 2, 2))
+    got_p = tr.prolong(pn, vc, quad, 2, 2) if quad else (
+        tr.prolong_copies(pn, vc, 2, 2))
+    assert _launched(n0) == {"restrict": 1, "prolong": 1}
+    want_r = tr.restrict_plain(pn, vf, quad, 2, 2)
+    want_p = tr.prolong_plain(pn, vc, quad, 2, 2)
+    assert got_r.shape == want_r.shape and got_p.shape == want_p.shape
+    assert _rel(got_r, want_r) < BARS[dtype]
+    assert _rel(got_p, want_p) < BARS[dtype]
+
+
+def test_transfer_wrappers_refuse(dev):
+    """A non-contiguous entry, a field of another shape, device or dtype,
+    blocks that do not divide L, two batch axes, batches that differ, a
+    base of another shape: a ValueError (a dtype: a TypeError), and no
+    launch."""
+    rng = np.random.default_rng(90)
+    c64 = torch.complex64
+    pn, vf = _c(rng, (4, 2, 16, 16), c64, dev), _c(rng, (2, 16, 16), c64, dev)
+    vc = _c(rng, (4, 8, 8), c64, dev)
+    n0 = dict(cs.launches)
+    for args in ((pn.transpose(-1, -2), vf), (pn, vf.transpose(-1, -2)),
+                 (pn, vf[:1]), (pn, vf[:, :8, :8].contiguous()),
+                 (pn.expand(2, 2, *pn.shape), vf),
+                 (pn.expand(2, *pn.shape), vf.expand(3, *vf.shape))):
+        with pytest.raises(ValueError):
+            tr.restrict(*args, 1, 2, 2)
+    with pytest.raises(ValueError):
+        tr.restrict(pn, vf, 1, 3, 2)
+    with pytest.raises(ValueError):
+        cs.transfer_restrict(pn.cpu(), vf, 1, 2, 2)
+    with pytest.raises(TypeError):
+        tr.restrict(pn, vf.to(torch.complex128), 1, 2, 2)
+    with pytest.raises(ValueError):
+        tr.prolong(pn, vc[:, :4], 1, 2, 2)
+    with pytest.raises(ValueError):
+        tr.prolong(pn, vc, 1, 2, 2, base=vf[:1])
+    with pytest.raises(ValueError):
+        tr.prolong(pn, vc, 1, 2, 2, base=vf.transpose(-1, -2))
+    with pytest.raises(ValueError):
+        tr.prolong_copies(pn, vc, 2, 2)
     assert cs.launches == n0
 
 

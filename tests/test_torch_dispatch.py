@@ -164,6 +164,11 @@ def test_band_bytes():
     # B8 and B2 at the largest shapes they take on the global path
     ("links_apply", 2, 1024, 1, 1, 15.02),
     ("links_residual", 2, 512, 1, 1, 5.01),
+    # the cycle's transfers at L=2048 level 0 (nf=2) and level 1 (nf=4):
+    # restrict 11 and 21 words a fine site, prolong onto its base 13
+    ("restrict", 2, 2048, 1, 1, 110.18),
+    ("restrict", 4, 1024, 1, 1, 52.59),
+    ("prolong", 2, 2048, 1, 1, 130.21),
 ])
 def test_kernel_work_gives_the_bounds_of_the_kernel_table(kernel, n, L,
                                                           batch, op_batch,

@@ -41,6 +41,14 @@ stages a tile of phi and its halo in shared memory:
 - dense_residual_tiled <- the same kernel with the residual epilogue, via
   `dense_residual_tiled`. Plain version: stencil.residual.
 
+The cycle's transfers (csrc/transfer.cu), which replace no TPU kernel
+(the JAX package leaves them to XLA):
+
+- restrict <- transfer.restrict (an einsum there), via `transfer_restrict`.
+  Plain version: transfer.restrict_plain.
+- prolong  <- transfer.prolong, with the correction's sum in the same
+  launch, via `transfer_prolong`. Plain version: transfer.prolong_plain.
+
 `u_mode` / `smoother_mode` / `apply_mode` choose between the two from the
 bytes a level streams per sweep or apply against the H100's L2;
 `apply_D`, `residual` and `wilson_u_apply_auto` (counterpart of
@@ -122,7 +130,8 @@ launches = {"links_update": 0, "links_residual": 0,
             "links_update_tiled": 0, "links_residual_tiled": 0,
             "dense_update_tiled": 0, "links_apply": 0, "dense_apply": 0,
             "dense_residual": 0, "links_apply_tiled": 0,
-            "dense_apply_tiled": 0, "dense_residual_tiled": 0}
+            "dense_apply_tiled": 0, "dense_residual_tiled": 0,
+            "restrict": 0, "prolong": 0}
 # Launches of the persistent smoothers by where their read-only operands
 # sat: staged in shared memory or streamed from global memory (plan_band).
 band_launches = {k: {"staged": 0, "streamed": 0}
@@ -230,6 +239,8 @@ _SIGNATURES = {
     "dense_apply_tiled": (_P, _P, _P, _I, _I, _I, _I, _LL, _LL, _I, _I, _P),
     "dense_residual_tiled": (_P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL,
                              _I, _I, _P),
+    "restrict": (_P, _P, _P) + (_I,) * 10 + (_LL,) * 4 + (_I, _P),
+    "prolong": (_P, _P, _P, _P) + (_I,) * 10 + (_LL,) * 4 + (_P,),
 }
 
 
@@ -1071,3 +1082,140 @@ def residual(D, phi, r):
     if _dense_route(phi, D, r) == "tiled":
         return dense_residual_tiled(D, phi, r)
     return dense_residual(D, phi, r)
+
+
+# --------------------------------------------------------------------------
+# the cycle's transfers: restriction and prolongation (csrc/transfer.cu)
+# --------------------------------------------------------------------------
+
+def _transfer_operand(name: str, t, ndim: int, nq):
+    """Checks of one operand of a transfer call: t [E?, nq?, *entry] with
+    `ndim` entry axes, each entry contiguous; nq None: no copy axis.
+    Returns (E or None, the element stride between entries of the outer
+    axis, between copies), a stride 0 where the axis is absent or of size
+    1 (shared)."""
+    head = t.dim() - ndim - (nq is not None)
+    if head not in (0, 1) or (nq is not None and t.shape[head] != nq):
+        raise ValueError(f"{name} of shape {tuple(t.shape)}: the transfer "
+                         f"kernels take [E?, {'nq, ' if nq else ''}"
+                         f"{ndim} axes]")
+    stride, want = t.stride(), 1
+    for k in range(t.dim() - 1, t.dim() - ndim - 1, -1):
+        if stride[k] != want and t.shape[k] > 1:
+            raise ValueError(f"{name} must be contiguous in its last {ndim} "
+                             "axes")
+        want *= t.shape[k]
+    E = t.shape[0] if head else None
+    outer = stride[0] if head and t.shape[0] > 1 else 0
+    copy = stride[head] if nq is not None and nq > 1 else 0
+    return E, outer, copy
+
+
+def _transfer_call(phi_null, field, quad, bx: int, by: int,
+                   copies_on_field: bool):
+    """The checks and launch shapes shared by transfer_restrict and
+    transfer_prolong: phi_null [E?, nq?, nc, nf, Lx, Ly] (nq: quad None,
+    copy q at quadrant q + 1), `field` the other input, [E?, nq?, 3 axes]
+    (its copy axis only where copies_on_field). Returns (lead, nq or None, args) with args the
+    kernel's (E, NQ, nc, nf, Lx, Ly, bx, by, ox_mask, oy_mask, phi strides,
+    field strides)."""
+    if field.device != phi_null.device:
+        raise ValueError(f"phi_null on {phi_null.device}, the field on "
+                         f"{field.device}")
+    if field.dtype != phi_null.dtype:
+        raise TypeError(f"phi_null has dtype {phi_null.dtype}, the field "
+                        f"{field.dtype}")
+    if phi_null.dim() < 4:
+        raise ValueError(f"phi_null of shape {tuple(phi_null.shape)} is not "
+                         "[..., nc, nf, Lx, Ly]")
+    nc, nf, Lx, Ly = phi_null.shape[-4:]
+    if Lx % bx or Ly % by or bx < 1 or by < 1:
+        raise ValueError(f"blocks {bx} x {by} do not divide {Lx} x {Ly}")
+    nq = None
+    if quad is None:
+        if phi_null.dim() < 5:
+            raise ValueError("the copies form takes phi_null [E?, nq, nc, nf, "
+                             f"Lx, Ly], got {tuple(phi_null.shape)}")
+        nq = phi_null.shape[-5]
+        quads = range(1, nq + 1)
+    else:
+        quads = (quad,)
+    ox_mask = oy_mask = 0
+    for q, qd in enumerate(quads):
+        ox, oy = transfer.QUAD_OFFSETS[qd]
+        ox_mask |= (ox == -1) << q
+        oy_mask |= (oy == -1) << q
+    Ep, p_so, p_sq = _transfer_operand("phi_null", phi_null, 4, nq)
+    Ef, f_so, f_sq = _transfer_operand(
+        "the field", field, 3, nq if copies_on_field else None)
+    if Ep and Ef and Ep != Ef and 1 not in (Ep, Ef):
+        raise ValueError(f"phi_null's batch {Ep} and the field's {Ef} differ")
+    E = max(Ep or 1, Ef or 1)
+    lead = (E,) if (Ep or Ef) else ()
+    args = (E, nq or 1, nc, nf, Lx, Ly, bx, by, ox_mask, oy_mask, p_so, p_sq,
+            f_so, f_sq)
+    return lead, nq, args
+
+
+def transfer_restrict(phi_null, vf, quad, bx: int, by: int):
+    """transfer.restrict_plain in one launch of transfer_restrict_kernel:
+    vc[..., c, X, Y] = sum_{f, a, b} phi_null[..., c, f, s] vf[..., f, s],
+    s = (bx X + a + ox, by Y + b + oy) mod L with (ox, oy) the quadrant's
+    QUAD_OFFSETS. phi_null [E?, nc, nf, Lx, Ly] and vf [E?, nf, Lx, Ly],
+    each with or without the batch axis (without: shared), each entry
+    contiguous; quad None: the NTL copies, phi_null [E?, nq, nc, nf, Lx,
+    Ly], copy q at quadrant q + 1, vf shared by the copies, the result [E?,
+    nq, nc, Lx / bx, Ly / by]. Other shapes, devices or strides raise.
+
+    Replaces no TPU kernel (the JAX package's transfer.restrict is an
+    einsum). Bound by bytes: phi_null nc nf words a fine site a copy, vf nf
+    a field and the result nc / (bx by) an entry, each once; the einsum it
+    replaces copied phi_null into the block frame each call and ran a
+    batched gemv. Plain version: transfer.restrict_plain."""
+    if not vf.is_cuda:
+        return transfer.restrict_plain(phi_null, vf, quad, bx, by)
+    lead, nq, args = _transfer_call(phi_null, vf, quad, bx, by, False)
+    E, NQ, nc, nf, Lx, Ly = args[:6]
+    if tuple(vf.shape[-3:]) != (nf, Lx, Ly):
+        raise ValueError(f"vf of shape {tuple(vf.shape)} does not match "
+                         f"phi_null {tuple(phi_null.shape)}")
+    out = torch.empty(lead + ((nq,) if nq else ()) + (nc, Lx // bx, Ly // by),
+                      dtype=vf.dtype, device=vf.device)
+    paired = (vf.dtype == torch.complex64 and args[9] == 0 and by % 2 == 0
+              and Ly % 2 == 0 and phi_null.data_ptr() % 16 == 0
+              and vf.data_ptr() % 16 == 0
+              and all(st % 2 == 0 for st in args[10:]))
+    _launch("restrict", vf.dtype, vf.device, phi_null.data_ptr(),
+            vf.data_ptr(), out.data_ptr(), *args, int(paired))
+    return out
+
+
+def transfer_prolong(phi_null, vc, quad, bx: int, by: int, base=None):
+    """transfer.prolong_plain in one launch of transfer_prolong_kernel:
+    out[..., f, s] = base[..., f, s] + sum_c conj(phi_null[..., c, f, s])
+    vc[..., c, X, Y], s as in transfer_restrict; base (None: 0) shaped like
+    the result and contiguous, never written. phi_null [E?, nc, nf, Lx, Ly]
+    and vc [E?, nc, Lx / bx, Ly / by], each with or without the batch axis;
+    quad None: the NTL copies, phi_null [E?, nq, nc, nf, Lx, Ly], vc [E?,
+    nq, nc, Lx / bx, Ly / by], the result [E?, nq, nf, Lx, Ly].
+
+    Replaces no TPU kernel. Bound by bytes: phi_null nc nf words a fine
+    site a copy, vc nc / (bx by), base nf and the result nf an entry, each
+    once; conj(phi_null) is formed in registers. Plain version:
+    transfer.prolong_plain."""
+    if not vc.is_cuda:
+        return transfer.prolong_plain(phi_null, vc, quad, bx, by, base)
+    lead, nq, args = _transfer_call(phi_null, vc, quad, bx, by, True)
+    E, NQ, nc, nf, Lx, Ly = args[:6]
+    if tuple(vc.shape[-3:]) != (nc, Lx // bx, Ly // by):
+        raise ValueError(f"vc of shape {tuple(vc.shape)} does not match "
+                         f"phi_null {tuple(phi_null.shape)} in {bx} x {by} "
+                         "blocks")
+    shape = lead + ((nq,) if nq else ()) + (nf, Lx, Ly)
+    if base is not None:
+        _check("base", base, vc, shape)
+    out = torch.empty(shape, dtype=vc.dtype, device=vc.device)
+    _launch("prolong", vc.dtype, vc.device, phi_null.data_ptr(),
+            vc.data_ptr(), 0 if base is None else base.data_ptr(),
+            out.data_ptr(), *args)
+    return out

@@ -76,7 +76,8 @@ _CMAC_FLOPS = 8
 
 def kernel_work(kernel: str, n: int, L: int, itemsize: int, batch: int = 1,
                 op_batch: int = 1, n_sweeps: int = 1, nc: int = 4,
-                block: int = 4, r_batch: int = None):
+                block: int = 4, r_batch: int = None,
+                with_base: bool = True):
     """(bytes, flops) the least that one call of a hand kernel must do:
     each input word read once and each output word written once, whatever
     the kernel reads again. `kernel` is a cuda_stencil.launches key (the
@@ -97,8 +98,22 @@ def kernel_work(kernel: str, n: int, L: int, itemsize: int, batch: int = 1,
     - dense smoother: per operator copy D's 4n^2 hop blocks and D0inv's
       n^2, per copy of r n; per field phi in and out (2n): 92 at n=4;
     - dense apply: 5n^2 per operator copy, v in and out per field;
-    - dense residual: the apply's, and r per field (92 at n=4)."""
+    - dense residual: the apply's, and r per field (92 at n=4);
+    - restrict (n = nf fine components): phi_null nc n per copy of it
+      (op_batch), the fine field n per copy (r_batch, default batch), the
+      result nc / block per entry (batch): 11 at nc=4, n=2, 2 x 2 blocks;
+    - prolong: phi_null nc n per copy, the coarse field nc / block, the
+      base it adds to (with_base) n and the result n per entry."""
     LL = L * L
+    if kernel in ("restrict", "prolong"):
+        phi_words = nc * n * op_batch
+        if kernel == "restrict":
+            words = (phi_words + n * (batch if r_batch is None else r_batch)
+                     + nc / block * batch)
+        else:
+            words = phi_words + (nc / block + n * (1 + with_base)) * batch
+        return (round(words * LL * itemsize),
+                _CMAC_FLOPS * nc * n * batch * LL)
     base = kernel.removesuffix("_tiled")
     if base == "links_residual_restrict":
         words = 2 + 2 * nc + 2 * op_batch + (2 + nc / block) * batch

@@ -26,7 +26,8 @@ from ..config import MGConfig
 from ..ops import cuda_stencil, gauge_stencil
 from ..ops.stencil import apply_D, norm_ratio, residual
 from ..ops.smoothers import KERNEL_KINDS, smooth
-from ..ops.transfer import restrict, prolong
+from ..ops.transfer import (prolong, prolong_copies, restrict,
+                             restrict_copies)
 from .hierarchy import Hierarchy
 
 
@@ -100,7 +101,7 @@ def _restricted_residual(lev, phi, r, cfg: MGConfig, lvl: int = 0,
         return cuda_stencil.wilson_u_residual_restrict(
             gauge, cfg.m, phi, r, pn, cfg.quad, bx, by)
     return restrict(pn, _residual0(lev, phi, r, cfg, lvl, gauge), cfg.quad,
-                    bx, by)
+                    bx, by, pallas=cfg.pallas)
 
 
 def residual_norm_ratio0(hier: Hierarchy, phi, b, cfg: MGConfig):
@@ -137,8 +138,8 @@ def v_cycle(hier: Hierarchy, phis, b: torch.Tensor, cfg: MGConfig):
     for l in range(n, -1, -1):
         phis[l] = _relax(L[l], phis[l], rs[l], cfg, l, g)
         if l > 0:
-            corr = prolong(L[l - 1].phi_null, phis[l], cfg.quad, bx, by)
-            phis[l - 1] = phis[l - 1] + corr
+            phis[l - 1] = prolong(L[l - 1].phi_null, phis[l], cfg.quad, bx,
+                                  by, base=phis[l - 1], pallas=cfg.pallas)
             phis[l] = torch.zeros_like(phis[l])
     return tuple(phis)
 
@@ -162,8 +163,8 @@ def gamma_cycle(hier: Hierarchy, phis, b: torch.Tensor, cfg: MGConfig):
         phis[l + 1] = torch.zeros_like(phis[l + 1])
         for _ in range(gamma if l + 1 < n else 1):
             at(l + 1, rc)
-        corr = prolong(L[l].phi_null, phis[l + 1], cfg.quad, bx, by)
-        phis[l] = phis[l] + corr
+        phis[l] = prolong(L[l].phi_null, phis[l + 1], cfg.quad, bx, by,
+                          base=phis[l], pallas=cfg.pallas)
         phis[l + 1] = torch.zeros_like(phis[l + 1])
         phis[l] = _relax(L[l], phis[l], rhs, cfg, l, g)
 
@@ -254,12 +255,11 @@ def ntl_cycle(hier: Hierarchy, phis, b: torch.Tensor, cfg: MGConfig):
     res = _residual0(L[l], phis[l], rs[l], cfg, l, g)
     lead = tuple(b.shape[:-3])
 
-    def null(q):                # copy q's near-null rows [B?, nc, nf, S, S]
-        return ntl.phi_null[..., q, :, :, :, :]
-
-    # the copies [B?, nq, nc, Sc, Sc], smoothed as one batch
-    r_q = torch.stack([restrict(null(q), res, q + 1, bx, by)
-                       for q in range(nq)], dim=-4)
+    # the copies' near-null rows [B?, nq, nc, nf, S, S], copy q at quadrant
+    # q + 1; their restrictions [B?, nq, nc, Sc, Sc] (one launch on the
+    # card), smoothed as one batch
+    null_q = ntl.phi_null[..., :nq, :, :, :, :]
+    r_q = restrict_copies(null_q, res, bx, by, pallas=cfg.pallas)
     D_q, Dinv_q = _copy_operators(ntl, nq, lead)
     cheby_n = (cfg.cheby_intervals[n] if cfg.smoother == "chebyshev"
                else None)
@@ -275,12 +275,11 @@ def ntl_cycle(hier: Hierarchy, phis, b: torch.Tensor, cfg: MGConfig):
     if combine == "avg_coarse":
         a = torch.full(lead + (nq,), 1.0 / nq, dtype=phi_q.dtype,
                        device=phi_q.device)
-        corr = prolong(null(cfg.quad - 1), phi_q.mean(dim=-4), cfg.quad, bx,
-                       by)
-        phis[l] = phis[l] + corr
+        phis[l] = prolong(ntl.phi_null[..., cfg.quad - 1, :, :, :, :],
+                          phi_q.mean(dim=-4), cfg.quad, bx, by,
+                          base=phis[l], pallas=cfg.pallas)
     else:
-        xs = torch.stack([prolong(null(q), phi_q[..., q, :, :, :], q + 1,
-                                  bx, by) for q in range(nq)], dim=-4)
+        xs = prolong_copies(null_q, phi_q, bx, by, pallas=cfg.pallas)
         if combine == "minres":
             a = min_res_weights(L[l].D, rs[l], xs, cfg)
         else:
@@ -292,8 +291,8 @@ def ntl_cycle(hier: Hierarchy, phis, b: torch.Tensor, cfg: MGConfig):
     for l in range(n - 1, -1, -1):
         phis[l] = _relax(L[l], phis[l], rs[l], cfg, l, g)
         if l > 0:
-            corr = prolong(L[l - 1].phi_null, phis[l], cfg.quad, bx, by)
-            phis[l - 1] = phis[l - 1] + corr
+            phis[l - 1] = prolong(L[l - 1].phi_null, phis[l], cfg.quad, bx,
+                                  by, base=phis[l - 1], pallas=cfg.pallas)
             phis[l] = torch.zeros_like(phis[l])
     return tuple(phis), a
 
@@ -319,14 +318,16 @@ def fmg_init(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
 
     bs = [b]
     for l in range(n):
-        bs.append(restrict(L[l].phi_null, bs[l], cfg.quad, bx, by))
+        bs.append(restrict(L[l].phi_null, bs[l], cfg.quad, bx, by,
+                           pallas=cfg.pallas))
     cheby_n = (cfg.cheby_intervals[n] if cfg.smoother == "chebyshev"
                else None)
     phi = smooth(L[n].D, L[n].D0inv, torch.zeros_like(bs[n]), bs[n],
                  coarsest_iters or 4 * cfg.num_iters, cfg.smoother,
                  cfg.omega, pallas=cfg.pallas, cheby_interval=cheby_n)
     for l in range(n - 1, -1, -1):
-        phi = prolong(L[l].phi_null, phi, cfg.quad, bx, by)
+        phi = prolong(L[l].phi_null, phi, cfg.quad, bx, by,
+                      pallas=cfg.pallas)
         sub_h = Hierarchy(levels=L[l:], ntl=None,
                           gauge=hier.gauge if l == 0 else None)
         sub_c = cfg.replace(
