@@ -449,8 +449,9 @@ def kernel_cases(torch, mgt, dev):
             glob = functools.partial(cs.dense_apply, D, v)
 
         def plain():
-            out = cs.grouped_apply(D, v)
-            return out if r is None else r - out
+            if r is None:
+                return mgt.ops.dispatch.apply_D(D, v, pallas="off")
+            return mgt.ops.dispatch.residual(D, v, r, pallas="off")
 
         def sparse():
             """One CSR SpMM for the shared D: the entries of v as columns,
@@ -1248,10 +1249,12 @@ def ir_phase(torch, mgt, dev, cfg, phases, hier, counts):
     del U128
     b = mgt.point_source(cfg128, device=dev)
     cs = mgt.ops.cuda_stencil
-    plain_outer = types.SimpleNamespace(residual=mgt.ops.stencil.residual)
+    plain_outer = types.SimpleNamespace(
+        residual=lambda D, phi, r, pallas: mgt.ops.stencil.residual(D, phi, r))
     key = "dense_residual" + (
-        "_tiled" if cs.apply_mode(2, cfg.L, torch.complex128) == "tiled"
-        else "")
+        "_tiled" if mgt.ops.dispatch.spmv_route(
+            2, cfg.L, torch.complex128, True, device="cuda",
+            pallas="auto") == "tiled" else "")
     summary = {}
     for thr, count in zip((1e-8, 1e-13), counts):
         def run():
@@ -1262,8 +1265,9 @@ def ir_phase(torch, mgt, dev, cfg, phases, hier, counts):
         for design in ("kernel", "plain", "plain", "kernel"):
             n0 = cs.launches[key]
             mgt.solver.driver.release_kept(hier)
-            with patched(mgt.solver.driver, "cuda_stencil",
-                         cs if design == "kernel" else plain_outer):
+            with patched(mgt.solver.driver, "dispatch",
+                         mgt.ops.dispatch if design == "kernel"
+                         else plain_outer):
                 res, sec = timed(torch, run)
             secs[design].append(sec)
             if design == "kernel":
@@ -1448,7 +1452,7 @@ def small_check(torch, mgt, dev):
 def spmv_phase(torch, mgt, dev, card):
     """profiling.roofline_table on Wilson L=2048 complex64 (bench.py's
     stencil-stream inputs) plus links-apply rows through
-    wilson_u_apply_auto at L=256, 2048 and 4096, each beside the plain
+    dispatch.links_apply at L=256, 2048 and 4096, each beside the plain
     links apply. Returns (summary, launches)."""
     cs, prof = mgt.ops.cuda_stencil, mgt.profiling
     L, m = 2048, -0.07
@@ -1470,11 +1474,12 @@ def spmv_phase(torch, mgt, dev, card):
             0.2 * rng.normal(size=(2, Lu, Lu)), cfg.cdtype, dev)
         vu = torch.randn((2, Lu, Lu), dtype=cfg.cdtype, device=dev)
         nbytes = 6 * Lu * Lu * vu.element_size()
-        tiled = cs.apply_mode(2, Lu, vu.dtype, links=True) == "tiled"
+        tiled = mgt.ops.dispatch.links_apply_route(
+            Lu, vu.dtype, device="cuda", pallas="auto") == "tiled"
         for name, fn in (
                 ("apply_wilson_u", mgt.ops.gauge_stencil.apply_wilson_u),
                 ("links_apply_cuda_tiled" if tiled else "links_apply_cuda",
-                 cs.wilson_u_apply_auto)):
+                 mgt.ops.dispatch.links_apply)):
             sec = prof.time_op(lambda U_, x, f=fn: f(U_, m, x), Uu, vu,
                                reps=20)
             rows.append(dict(vars(prof.RooflineRow(name, sec, nbytes)
@@ -2492,14 +2497,15 @@ def ensemble_phase(torch, mgt, dev, B=8, L=128, n_cyc=COUNTS["ensemble8"],
 def ensemble_tiled_phase(torch, mgt, dev, B=2, L=512):
     """The ensemble setup past the L2: ensemble_cfg(L) on B gauges, whose
     levels 0 (n=2 L=512) and 1 (n=4 L=256) relax on the x-tiled B6 with G =
-    2 candidates a configuration (smoother_mode), through setup_check: one
-    dense_update_tiled launch a sweep for the batch, every G > 1 call
-    against its plain version and the copied-D launch, the hierarchy
-    against the configurations' own. Returns the summary."""
+    2 candidates a configuration (dispatch.smooth_route), through
+    setup_check: one dense_update_tiled launch a sweep for the batch, every
+    G > 1 call against its plain version and the copied-D launch, the
+    hierarchy against the configurations' own. Returns the summary."""
     cfg = ensemble_cfg(mgt, L)
-    cs = mgt.ops.cuda_stencil
     for lvl in range(cfg.nlevels):
-        check(cs.smoother_mode(cfg.n_dof[lvl], cfg.sizes[lvl]) == "tiled",
+        check(mgt.ops.dispatch.smooth_route(
+            "rbgs", cfg.n_dof[lvl], cfg.sizes[lvl], cfg.cdtype, 2,
+            device="cuda", pallas="auto") == "tiled",
               f"ensemble L={L}: level {lvl} would not take the x-tiled "
               "smoother")
     rng = np.random.default_rng(cfg.seed + 1)

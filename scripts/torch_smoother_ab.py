@@ -383,14 +383,23 @@ def main():
     print(json.dumps(out))
 
 
+def spmv_of(p):
+    """The module of package p that dispatches the dense SpMV and residual
+    (apply_D, residual): ops.dispatch where p has it, else
+    ops.cuda_stencil (None where p has neither)."""
+    return getattr(p.ops, "dispatch", None) or (
+        p.ops.cuda_stencil if hasattr(p.ops.cuda_stencil, "residual")
+        else None)
+
+
 def residual_cases(this, other, c, dense, rng, dev):
     """The cycle's residual calls at the flagship's shapes, as each design
     makes them (a `cases` row: tag, kernel, fn(package)): level 0's
     residual and its restriction (the fused kernel where the package has
     it, else B2 then the plain restriction), the dense residual at n=4
-    L=128 and L=64 (cuda_stencil.residual where the package has it, else
-    the plain stencil.residual), and the min-res apply on the 4 copies at
-    n=4 L=64 on a shared D (dense_apply)."""
+    L=128 and L=64 (the dispatched residual where the package has one,
+    spmv_of, else the plain stencil.residual), and the min-res apply on
+    the 4 copies at n=4 L=64 on a shared D (dense_apply)."""
     m, L = -0.005, 256
     U = links(rng, L, dev)
     phi, r, pn = c((2, L, L)), c((2, L, L)), c((4, 2, L, L))
@@ -406,9 +415,7 @@ def residual_cases(this, other, c, dense, rng, dev):
         D, _, v, rr = ops
 
         def run(p):
-            if hasattr(p.ops.cuda_stencil, "residual"):
-                return p.ops.cuda_stencil.residual(D, v, rr)
-            return p.ops.stencil.residual(D, v, rr)
+            return (spmv_of(p) or p.ops.stencil).residual(D, v, rr)
         return run
 
     D64, _, _, _ = dense(None, 4, 64, False)
@@ -484,7 +491,7 @@ def batched_residual_cases(c, dense, rng, dev):
              lambda p: p.ops.cuda_stencil.wilson_u_residual_restrict(
                  U, m, phi, r, pn, 1, 2, 2)),
             ("B7a residual n=4 L=128 batch 8 shared D", "dense_residual",
-             lambda p: p.ops.cuda_stencil.residual(D128, v128, r128)),
+             lambda p: spmv_of(p).residual(D128, v128, r128)),
             ("B7a min-res apply x32 n=4 L=64 shared D", "dense_apply",
              lambda p: p.ops.cuda_stencil.dense_apply(D64, xs)),
             ("B7a min-res apply x32 n=4 L=64 on 8 D", "dense_apply",

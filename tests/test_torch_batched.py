@@ -26,7 +26,7 @@ import tpu_multigrid as mg  # noqa: E402
 from tpu_multigrid.ops import transfer as jtr  # noqa: E402
 from tpu_multigrid.solver.driver import solve_batched as jax_solve_batched  # noqa: E402
 import tpu_multigrid_torch as mgt  # noqa: E402
-from tpu_multigrid_torch.ops import cuda_stencil as cs  # noqa: E402
+from tpu_multigrid_torch.ops import dispatch  # noqa: E402
 from tpu_multigrid_torch.ops import gauge_stencil as tgs  # noqa: E402
 from tpu_multigrid_torch.ops import transfer as ttr  # noqa: E402
 from tpu_multigrid_torch.utils.convert import (config_from_dict,  # noqa: E402
@@ -88,7 +88,8 @@ def test_solve_batched_wilson_ntl_links_matches_jax():
 def test_batched_plain_links_equal_a_loop(kind, shared_r):
     """gauge_stencil.smooth_u / residual_u on [3, 2, L, L] with the links
     shared: the unbatched calls' results bit for bit (the plain versions
-    of the batched links kernels), also through the wrappers on the CPU."""
+    of the batched links kernels), also through the dispatchers on the
+    CPU."""
     rng = np.random.default_rng(11)
     L, m = 8, -0.005
     U = t_of(np.exp(1j * phases(rng, L)))
@@ -105,11 +106,9 @@ def test_batched_plain_links_equal_a_loop(kind, shared_r):
                                                 r_of(i), 3, kind, 0.8))
         assert torch.equal(res[i], tgs.residual_u("wilson", U, m, phi[i],
                                                   r_of(i)))
-    assert torch.equal(cs.wilson_u_smooth(U, m, phi, r, 3, kind, 0.8), got)
-    assert torch.equal(cs.wilson_u_smooth_tiled(U, m, phi, r, 3, kind, 0.8),
+    assert torch.equal(dispatch.links_smooth(U, m, phi, r, 3, kind, 0.8),
                        got)
-    assert torch.equal(cs.wilson_u_residual(U, m, phi, r), res)
-    assert torch.equal(cs.wilson_u_residual_tiled(U, m, phi, r), res)
+    assert torch.equal(dispatch.links_residual(U, m, phi, r), res)
 
 
 @pytest.mark.parametrize("quad", [1, 2, 3, 4])
@@ -128,7 +127,9 @@ def test_batched_transfers_match_jax_vmap(quad, shared):
     jp = jax.vmap(lambda p, v: jtr.prolong(p, v, quad, 2, 2),
                   in_axes=(axis, 0))(pn, vc)
     jd = jax.vmap(lambda u, v: jtr.block_dot(u, v, quad, 2, 2))(vf, 2 * vf)
-    assert rel_err(ttr.restrict(t_of(pn), t_of(vf), quad, 2, 2), jr) < C128_BAR
-    assert rel_err(ttr.prolong(t_of(pn), t_of(vc), quad, 2, 2), jp) < C128_BAR
+    assert rel_err(dispatch.restrict(t_of(pn), t_of(vf), quad, 2, 2),
+                   jr) < C128_BAR
+    assert rel_err(dispatch.prolong(t_of(pn), t_of(vc), quad, 2, 2),
+                   jp) < C128_BAR
     assert rel_err(ttr.block_dot(t_of(vf), t_of(2 * vf), quad, 2, 2),
                    jd) < C128_BAR

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from tpu_multigrid_torch.ops import cuda_stencil as cs
+from tpu_multigrid_torch.ops import dispatch
 from tpu_multigrid_torch.ops import gauge_stencil as gs
 from tpu_multigrid_torch.ops import smoothers as sm
 from tpu_multigrid_torch.ops.stencil import site_inverse
@@ -134,8 +135,7 @@ def test_dense_smooth(dev, dtype, kind, n, B, L, shared):
         got = smooth(phi, n_sweeps)
         assert cs.launches["dense_update"] == n0 + 1
         assert torch.equal(phi, keep)
-        want = sm.smooth(D, Dinv, phi, r, n_sweeps, kind, omega,
-                         pallas="off")
+        want = sm.smooth_plain(D, Dinv, phi, r, n_sweeps, kind, omega)
         assert _rel(got, want) < BARS[dtype]
         assert _rel(got, _sweep_by_sweep(smooth, phi, n_sweeps)) < BARS[dtype]
 
@@ -545,7 +545,7 @@ def test_dense_smooth_groups_refused(dev):
 
 
 def test_smooth_dispatches_tiled_past_the_l2(dev):
-    """smooth() on a level past the L2 (n=4, L=256) launches the tiled
+    """dispatch.smooth on a level past the L2 (n=4, L=256) launches the tiled
     kernel only (once per sweep); on one within it (n=4, L=128) the global
     kernel only (once per call)."""
     rng = np.random.default_rng(8)
@@ -554,7 +554,7 @@ def test_smooth_dispatches_tiled_past_the_l2(dev):
         D, Dinv = _dense(rng, 1, 4, L, torch.complex64, dev)
         phi = _c(rng, (4, L, L), torch.complex64, dev)
         before = dict(cs.launches)
-        sm.smooth(D[0], Dinv[0], phi, phi, 3, "rbgs")
+        dispatch.smooth(D[0], Dinv[0], phi, phi, 3, "rbgs")
         moved = {k: v - before[k] for k, v in cs.launches.items()
                  if v != before[k]}
         assert moved == {kernel: n}
@@ -735,12 +735,12 @@ def test_links_apply(dev, dtype, L, tile):
 
 
 def test_apply_dispatches_by_apply_mode(dev):
-    """apply_D launches the tiled kernel past the L2 (n=2, L=2048) and the
-    global one within it (n=2, L=256); so does the links apply (L=2048 and
-    L=1024)."""
+    """dispatch.apply_D launches the tiled kernel past the L2 (n=2,
+    L=2048) and the global one within it (n=2, L=256); so does the links
+    apply (L=2048 and L=1024)."""
     rng = np.random.default_rng(12)
-    cases = [(lambda D, v: cs.apply_D(D, v), 2048, "dense_apply_tiled"),
-             (lambda D, v: cs.apply_D(D, v), 256, "dense_apply")]
+    cases = [(dispatch.apply_D, 2048, "dense_apply_tiled"),
+             (dispatch.apply_D, 256, "dense_apply")]
     for fn, L, kernel in cases:
         D, _ = _dense(rng, 1, 2, L, torch.complex64, dev)
         v = _c(rng, (2, L, L), torch.complex64, dev)
@@ -752,8 +752,8 @@ def test_apply_dispatches_by_apply_mode(dev):
     for L, kernel in ((2048, "links_apply_tiled"), (1024, "links_apply")):
         U = _links(rng, L, torch.complex64, dev)
         before = dict(cs.launches)
-        cs.wilson_u_apply_auto(U, 0.1, _c(rng, (2, L, L), torch.complex64,
-                                          dev))
+        dispatch.links_apply(U, 0.1, _c(rng, (2, L, L), torch.complex64,
+                                        dev))
         moved = {k: c - before[k] for k, c in cs.launches.items()
                  if c != before[k]}
         assert moved == {kernel: 1}
@@ -905,9 +905,9 @@ def test_transfer_kernels(dev, dtype, quad, L, nc, nf, bx, by):
                                                     dev)
     vc = _c(rng, (nc, L // bx, L // by), dtype, dev)
     n0 = dict(cs.launches)
-    got_r = tr.restrict(pn, vf, quad, bx, by)
-    got_p = tr.prolong(pn, vc, quad, bx, by)
-    got_b = tr.prolong(pn, vc, quad, bx, by, base=base)
+    got_r = dispatch.restrict(pn, vf, quad, bx, by)
+    got_p = dispatch.prolong(pn, vc, quad, bx, by)
+    got_b = dispatch.prolong(pn, vc, quad, bx, by, base=base)
     assert _launched(n0) == {"restrict": 1, "prolong": 2}
     assert _rel(got_r, tr.restrict_plain(pn, vf, quad, bx, by)) < BARS[dtype]
     assert _rel(got_p, tr.prolong_plain(pn, vc, quad, bx, by)) < BARS[dtype]
@@ -952,10 +952,10 @@ def test_transfer_kernel_batch_forms(dev, dtype, form, L, nf):
             return c(n + 1)[1:].view(*shape)
         pn, vf, vc = off(nc, nf, L, L), off(3, nf, L, L), off(3, nc, S, S)
     n0 = dict(cs.launches)
-    got_r = tr.restrict(pn, vf, quad, 2, 2) if quad else (
-        tr.restrict_copies(pn, vf, 2, 2))
-    got_p = tr.prolong(pn, vc, quad, 2, 2) if quad else (
-        tr.prolong_copies(pn, vc, 2, 2))
+    got_r = dispatch.restrict(pn, vf, quad, 2, 2) if quad else (
+        dispatch.restrict(pn, vf, None, 2, 2))
+    got_p = dispatch.prolong(pn, vc, quad, 2, 2) if quad else (
+        dispatch.prolong(pn, vc, None, 2, 2))
     assert _launched(n0) == {"restrict": 1, "prolong": 1}
     want_r = tr.restrict_plain(pn, vf, quad, 2, 2)
     want_p = tr.prolong_plain(pn, vc, quad, 2, 2)
@@ -979,21 +979,21 @@ def test_transfer_wrappers_refuse(dev):
                  (pn.expand(2, 2, *pn.shape), vf),
                  (pn.expand(2, *pn.shape), vf.expand(3, *vf.shape))):
         with pytest.raises(ValueError):
-            tr.restrict(*args, 1, 2, 2)
+            cs.transfer_restrict(*args, 1, 2, 2)
     with pytest.raises(ValueError):
-        tr.restrict(pn, vf, 1, 3, 2)
+        cs.transfer_restrict(pn, vf, 1, 3, 2)
     with pytest.raises(ValueError):
         cs.transfer_restrict(pn.cpu(), vf, 1, 2, 2)
     with pytest.raises(TypeError):
-        tr.restrict(pn, vf.to(torch.complex128), 1, 2, 2)
+        cs.transfer_restrict(pn, vf.to(torch.complex128), 1, 2, 2)
     with pytest.raises(ValueError):
-        tr.prolong(pn, vc[:, :4], 1, 2, 2)
+        cs.transfer_prolong(pn, vc[:, :4], 1, 2, 2)
     with pytest.raises(ValueError):
-        tr.prolong(pn, vc, 1, 2, 2, base=vf[:1])
+        cs.transfer_prolong(pn, vc, 1, 2, 2, base=vf[:1])
     with pytest.raises(ValueError):
-        tr.prolong(pn, vc, 1, 2, 2, base=vf.transpose(-1, -2))
+        cs.transfer_prolong(pn, vc, 1, 2, 2, base=vf.transpose(-1, -2))
     with pytest.raises(ValueError):
-        tr.prolong_copies(pn, vc, 2, 2)
+        cs.transfer_prolong(pn, vc, None, 2, 2)
     assert cs.launches == n0
 
 
@@ -1042,14 +1042,14 @@ def test_dense_apply_and_residual_in_groups(dev, dtype, resid, n, L, E, B,
 
 
 def test_residual_dispatches_by_apply_mode(dev):
-    """cuda_stencil.residual launches the tiled kernel past the L2 (n=4,
+    """dispatch.residual launches the tiled kernel past the L2 (n=4,
     L=1024) and the global one within it (n=4, L=128)."""
     rng = np.random.default_rng(71)
     for L, kernel in ((1024, "dense_residual_tiled"), (128, "dense_residual")):
         D, _ = _dense(rng, 1, 4, L, torch.complex64, dev)
         v = _c(rng, (4, L, L), torch.complex64, dev)
         before = dict(cs.launches)
-        cs.residual(D[0], v, v)
+        dispatch.residual(D[0], v, v)
         moved = {k: c - before[k] for k, c in cs.launches.items()
                  if c != before[k]}
         assert moved == {kernel: 1}
@@ -1093,15 +1093,17 @@ def test_apply_D_and_residual_route_what_the_global_kernel_refuses(dev,
             call()
     assert cs.launches == n0
     want7 = st.apply_D(D7[0], v7)
-    cases = [(lambda: cs.apply_D(D7[0], v7), want7, "dense_apply_tiled"),
-             (lambda: cs.residual(D7[0], v7, v7), v7 - want7,
+    cases = [(lambda: dispatch.apply_D(D7[0], v7), want7,
+              "dense_apply_tiled"),
+             (lambda: dispatch.residual(D7[0], v7, v7), v7 - want7,
               "dense_residual_tiled")]
     if dtype == torch.complex64:          # a complex128 word is 16 bytes
         D8, _ = _dense(rng, 1, 2, 8, dtype, dev)
         off = _c(rng, (2 * 64 + 1,), dtype, dev)[1:].view(2, 8, 8)
         want8 = st.apply_D(D8[0], off)
-        cases += [(lambda: cs.apply_D(D8[0], off), want8, "dense_apply_tiled"),
-                  (lambda: cs.residual(D8[0], off, off), off - want8,
+        cases += [(lambda: dispatch.apply_D(D8[0], off), want8,
+                   "dense_apply_tiled"),
+                  (lambda: dispatch.residual(D8[0], off, off), off - want8,
                    "dense_residual_tiled")]
     for call, want, kernel in cases:
         before = dict(cs.launches)
@@ -1135,7 +1137,7 @@ def test_chebyshev_config_on_an_odd_coarsest_level(dev):
 
 def test_gs_lex_runs_the_plain_sweeps_on_cuda(dev):
     """gs_lex has no kernel (the JAX package runs it on plain XLA): on CUDA
-    tensors `smooth` runs the plain wavefront, launches nothing, and
+    tensors dispatch.smooth runs the plain wavefront, launches nothing, and
     matches the CPU run."""
     rng = np.random.default_rng(20)
     for B in (None, 3):
@@ -1144,11 +1146,47 @@ def test_gs_lex_runs_the_plain_sweeps_on_cuda(dev):
         phi = _c(rng, lead + (4, 16, 16), torch.complex128, dev)
         r = _c(rng, lead + (4, 16, 16), torch.complex128, dev)
         n0 = dict(cs.launches)
-        got = sm.smooth(D[0], Dinv[0], phi, r, 2, "gs_lex", 0.9)
+        got = dispatch.smooth(D[0], Dinv[0], phi, r, 2, "gs_lex", 0.9)
         assert cs.launches == n0 and got.device == phi.device
-        want = sm.smooth(D[0].cpu(), Dinv[0].cpu(), phi.cpu(), r.cpu(), 2,
-                         "gs_lex", 0.9)
+        want = dispatch.smooth(D[0].cpu(), Dinv[0].cpu(), phi.cpu(),
+                               r.cpu(), 2, "gs_lex", 0.9)
         assert _rel(got.cpu(), want) < BARS[torch.complex128]
+
+
+def _fallback_solve(dev, case):
+    """The port's solve of torch_port_helpers.FALLBACK_SOLVES[case] on the
+    card, from its numpy inputs: JAX's cycle count."""
+    from tpu_multigrid_torch import MGConfig, build_hierarchy, point_source
+    from tpu_multigrid_torch import solve
+    from tpu_multigrid_torch.models import gauge, operators
+    from torch_port_helpers import FALLBACK_SOLVES, numpy_inputs
+    kw, width, count = FALLBACK_SOLVES[case]
+    cfg = MGConfig(**kw)
+    phases, starts = numpy_inputs(cfg, width)
+    U = gauge.gauge_from_phases(phases, cfg.cdtype, dev)
+    hier = build_hierarchy(operators.assemble(cfg.stencil, U, cfg.m), cfg,
+                           U=U, starts=[torch.from_numpy(s).to(dev)
+                                        for s in starts])
+    out = solve(hier, point_source(cfg, device=dev), cfg, max_iters=300)
+    assert out.converged and out.iters == count, (out.iters, count)
+
+
+def test_ndof_coarse3_solve_holds_jax_count(dev):
+    """A Laplace level 1 of n = 3 (--ndof-coarse 3), whose smooth, SpMV and
+    residual no kernel takes, runs their plain versions (the kernel
+    wrappers refuse n = 3); level 0 (n = 1) still runs its kernels."""
+    n0 = dict(cs.launches)
+    _fallback_solve(dev, "ndof_coarse3")
+    assert cs.launches["dense_update"] > n0["dense_update"]
+
+
+def test_odd_coarsest_level_solve_holds_jax_count(dev):
+    """L=48 in 2 x 2 blocks on 4 levels: a 3 x 3 coarsest level, which the
+    red-black kernels refuse, smoothed by the plain sweeps; levels 0-3 (48
+    to 6) still on dense_update."""
+    n0 = dict(cs.launches)
+    _fallback_solve(dev, "coarsest_3x3")
+    assert cs.launches["dense_update"] > n0["dense_update"]
 
 
 def _wilson_setup(L, dtype, dev, **kw):

@@ -2,8 +2,10 @@
 staged versus streamed operands and the co-resident grid (plan_band, from
 a given SM count and occupancy), and the least bytes and flops of each
 hand kernel's call (profiling.kernel_work), which the kernel table's
-bounds come from. No card is needed: the wrappers take the plain versions
-for CPU tensors, and the planning is plain Python."""
+bounds come from; the route functions of ops/dispatch.py, which choose
+the implementation of each call from what it can observe; and the kernel
+wrappers' refusal of CPU tensors. No card is needed: the planning and the
+routes are plain Python."""
 import math
 
 import numpy as np
@@ -12,8 +14,7 @@ import torch
 
 from tpu_multigrid_torch import profiling
 from tpu_multigrid_torch.ops import cuda_stencil as cs
-from tpu_multigrid_torch.ops import gauge_stencil as gs
-from tpu_multigrid_torch.ops import smoothers as sm
+from tpu_multigrid_torch.ops import dispatch
 
 H100_SMS = 132
 SMEM_PER_SM = 233472          # 228 KB, of which a block may take 227 KB
@@ -193,27 +194,6 @@ def test_kernel_work_counts_sweeps_and_batches():
         profiling.kernel_work("gs_lex", 4, 32, 8)
 
 
-def test_cpu_tensors_take_the_plain_versions():
-    """On CPU tensors the persistent smoothers' wrappers run the plain
-    sweeps and count no launch, staged or streamed."""
-    rng = np.random.default_rng(0)
-    L = 8
-    U = torch.from_numpy(np.exp(0.2j * rng.normal(size=(2, L, L))))
-    phi = torch.from_numpy(rng.normal(size=(2, L, L)) + 0j)
-    D = torch.from_numpy(0.25 * rng.normal(size=(5, 2, 2, L, L)) + 0j)
-    D[0] += 4.0 * torch.eye(2, dtype=D.dtype)[:, :, None, None]
-    Dinv = torch.linalg.inv(D[0].permute(2, 3, 0, 1)).permute(2, 3, 0, 1)
-    before = (dict(cs.launches),
-              {k: dict(v) for k, v in cs.band_launches.items()})
-    for kind in ("rbgs", "jacobi"):
-        assert torch.equal(cs.wilson_u_smooth(U, 0.1, phi, phi, 3, kind, 0.8),
-                           gs.smooth_u("wilson", U, 0.1, phi, phi, 3, kind,
-                                       0.8))
-        assert torch.equal(cs.dense_smooth(D, Dinv, phi, phi, 3, kind, 0.8),
-                           sm.smooth_plain(D, Dinv, phi, phi, 3, kind, 0.8))
-    assert (cs.launches, cs.band_launches) == before
-
-
 def test_reset_launches_clears_the_band_counts():
     cs.band_launches["dense_update"]["staged"] += 3
     cs.reset_launches()
@@ -222,23 +202,195 @@ def test_reset_launches_clears_the_band_counts():
     assert all(v == 0 for v in cs.launches.values())
 
 
-@pytest.mark.parametrize("n,L,dtype,offset,want", [
-    (4, 128, torch.complex64, 0, "global"),      # the flagship's level 1
-    (4, 3, torch.complex64, 0, "tiled"),         # an odd coarsest level
-    (2, 7, torch.complex128, 0, "tiled"),
-    (2, 8, torch.complex64, 1, "tiled"),         # 8 bytes off a 16-byte line
-    (2, 8, torch.complex128, 1, "global"),       # a word is 16 bytes
-    (4, 1024, torch.complex64, 0, "tiled"),      # past the L2
-])
-def test_dense_route_sends_what_the_global_kernel_refuses_to_the_tiled(
-        n, L, dtype, offset, want):
-    """apply_D and residual take the global SpMV kernel only for an even
-    lattice within the L2 and operands on 16-byte lines (the kernel reads
-    pairs of sites in 16-byte loads); else the x-tiled one, which takes
-    any L."""
+# ---- the route functions of ops/dispatch.py: which implementation runs
+
+C64, C128 = torch.complex64, torch.complex128
+CARD = {"device": "cuda", "pallas": "auto"}
+
+
+def _on_lines(offset, dtype, n=2, L=8):
+    """cuda_stencil.aligned of a view [n, L, L] that starts `offset`
+    elements into its storage."""
     flat = torch.zeros(offset + 1, dtype=dtype)
-    v = flat[offset:].expand(n, L, L)
-    assert cs._dense_route(v) == want
-    if offset:                         # a misaligned r alone does the same
-        aligned = torch.zeros(1, dtype=dtype).expand(n, L, L)
-        assert cs._dense_route(aligned, None, v) == want
+    return cs.aligned(flat[offset:].expand(n, L, L))
+
+
+ROUTES = [
+    # CPU tensors, pallas 'auto': the plain versions of the persistent
+    # smoothers, of the links smoother and residual, of the x-tiled links
+    # residual and of the SpMV
+    ("cpu: dense smoother", lambda: dispatch.smooth_route(
+        "rbgs", 2, 8, C128, 0, device="cpu", pallas="auto"), "plain"),
+    ("cpu: links smoother", lambda: dispatch.links_route(
+        8, C128, 0, "rbgs", device="cpu", pallas="auto"), "plain"),
+    ("cpu: x-tiled links residual", lambda: dispatch.links_route(
+        2048, C64, 0, device="cpu", pallas="auto"), "plain"),
+    ("cpu: SpMV", lambda: dispatch.spmv_route(
+        2, 8, C128, True, device="cpu", pallas="auto"), "plain"),
+    # the dense SpMV and residual: the global kernel only for an even
+    # lattice within the L2 and operands on 16-byte lines (it reads pairs
+    # of sites in 16-byte loads); else the x-tiled one, which takes any L
+    ("spmv: the flagship's level 1", lambda: dispatch.spmv_route(
+        4, 128, C64, _on_lines(0, C64), **CARD), "global"),
+    ("spmv: an odd coarsest level", lambda: dispatch.spmv_route(
+        4, 3, C64, _on_lines(0, C64), **CARD), "tiled"),
+    ("spmv: odd, complex128", lambda: dispatch.spmv_route(
+        2, 7, C128, _on_lines(0, C128), **CARD), "tiled"),
+    ("spmv: 8 bytes off a 16-byte line", lambda: dispatch.spmv_route(
+        2, 8, C64, _on_lines(1, C64), **CARD), "tiled"),
+    ("spmv: complex128 one word in (16 bytes)", lambda: dispatch.spmv_route(
+        2, 8, C128, _on_lines(1, C128), **CARD), "global"),
+    ("spmv: past the L2", lambda: dispatch.spmv_route(
+        4, 1024, C64, True, **CARD), "tiled"),
+    # the dense smoother by smoother_mode
+    ("smooth: within the L2", lambda: dispatch.smooth_route(
+        "rbgs", 4, 128, C64, 0, **CARD), "global"),
+    ("smooth: past the L2", lambda: dispatch.smooth_route(
+        "rbgs", 4, 1024, C64, 0, **CARD), "tiled"),
+    # level 0's links kernels by u_mode
+    ("links smooth: L=256", lambda: dispatch.links_route(
+        256, C64, 0, "rbgs", **CARD), "global"),
+    ("links smooth: L=2048", lambda: dispatch.links_route(
+        2048, C64, 0, "rbgs", **CARD), "tiled"),
+    ("links residual: L=256", lambda: dispatch.links_route(
+        256, C64, 0, **CARD), "global"),
+    ("links residual: L=2048, batch of 2", lambda:
+        dispatch.links_route(2048, C64, 1, **CARD), "tiled"),
+    # level 0's residual with its restriction: fused where the global links
+    # kernels run and the fused kernel takes nc rows in bx x by blocks
+    ("fused: nc=4 in 2 x 2 blocks", lambda: dispatch.residual_restrict_route(
+        4, 2, 2, 256, C64, 0, True, True, **CARD), "fused"),
+    ("fused: nc=1 in 4 x 2, a batch of 8", lambda:
+        dispatch.residual_restrict_route(1, 4, 2, 256, C64, 1, True, True,
+                                         **CARD), "fused"),
+    ("fused: nc=3 does not fit", lambda: dispatch.residual_restrict_route(
+        3, 2, 2, 256, C64, 0, True, True, **CARD), "global"),
+    ("fused: 8 x 2 blocks do not fit", lambda:
+        dispatch.residual_restrict_route(4, 8, 2, 256, C64, 0, True, True,
+                                         **CARD), "global"),
+    ("fused: phi_null batched (an ensemble)", lambda:
+        dispatch.residual_restrict_route(4, 2, 2, 256, C64, 1, False, True,
+                                         **CARD), "global"),
+    ("fused: an operand off a line", lambda:
+        dispatch.residual_restrict_route(4, 2, 2, 256, C64, 0, True, False,
+                                         **CARD), "global"),
+    ("fused: the x-tiled level 0", lambda: dispatch.residual_restrict_route(
+        4, 2, 2, 2048, C64, 0, True, True, **CARD), "tiled"),
+    ("fused: pallas off", lambda: dispatch.residual_restrict_route(
+        4, 2, 2, 256, C64, 0, True, True, device="cuda", pallas="off"),
+     "plain"),
+    # the level-0 check: one launch at a links-active level 0, at any L; a
+    # dense level 0 (complex128 with links 'auto', or no links on the
+    # hierarchy) checks through the dense residual; pallas 'off': plain
+    ("check: links level 0", lambda: dispatch.check_route(
+        C64, 1, **CARD), "global"),
+    ("check: x-tiled links level 0", lambda: dispatch.check_route(
+        C64, 0, **CARD), "global"),
+    ("check: dense level 0, complex128", lambda: dispatch.spmv_route(
+        2, 8, C128, True, **CARD), "global"),
+    ("check: dense level 0, no links", lambda: dispatch.spmv_route(
+        2, 8, C64, True, **CARD), "global"),
+    ("check: pallas off", lambda: dispatch.check_route(
+        C64, 1, device="cuda", pallas="off"), "plain"),
+    # the transfers of CPU tensors, either pallas
+    ("transfers: cpu, pallas auto", lambda: dispatch.transfer_route(
+        C128, device="cpu", pallas="auto"), "plain"),
+    ("transfers: cpu, pallas off", lambda: dispatch.transfer_route(
+        C128, device="cpu", pallas="off"), "plain"),
+    ("transfers: the card", lambda: dispatch.transfer_route(C64, **CARD),
+     "global"),
+    # the links SpMV by apply_mode(links=True)
+    ("links apply: L=1024", lambda: dispatch.links_apply_route(
+        1024, C64, **CARD), "global"),
+    ("links apply: L=2048", lambda: dispatch.links_apply_route(
+        2048, C64, **CARD), "tiled"),
+    # shapes no kernel takes run the plain version, as JAX's _relax sends
+    # them to plain XLA: a dense level of n = 3 (--ndof-coarse 3) ...
+    ("n=3: red-black smooth", lambda: dispatch.smooth_route(
+        "rbgs", 3, 8, C128, 0, **CARD), "plain"),
+    ("n=3: Jacobi smooth", lambda: dispatch.smooth_route(
+        "jacobi", 3, 8, C128, 0, **CARD), "plain"),
+    ("n=3: SpMV and residual", lambda: dispatch.spmv_route(
+        3, 8, C128, True, **CARD), "plain"),
+    # ... and a red-black sweep of an odd lattice (a 3 x 3 coarsest level),
+    # which Jacobi's kernels take
+    ("odd L: red-black smooth", lambda: dispatch.smooth_route(
+        "rbgs", 4, 3, C128, 0, **CARD), "plain"),
+    ("odd L: NTL copies' red-black smooth", lambda: dispatch.smooth_route(
+        "rbgs", 4, 3, C128, 1, **CARD), "plain"),
+    ("odd L: Jacobi smooth", lambda: dispatch.smooth_route(
+        "jacobi", 4, 3, C128, 0, **CARD), "global"),
+    ("odd L: links red-black smooth", lambda: dispatch.links_route(
+        9, C128, 0, "rbgs", **CARD), "plain"),
+    # kinds without a kernel, and pallas 'off'
+    ("gs_lex", lambda: dispatch.smooth_route(
+        "gs_lex", 4, 128, C64, 0, **CARD), "plain"),
+    ("links gs_lex", lambda: dispatch.links_route(
+        256, C64, 0, "gs_lex", **CARD), "plain"),
+    ("smooth: pallas off", lambda: dispatch.smooth_route(
+        "rbgs", 4, 128, C64, 0, device="cuda", pallas="off"), "plain"),
+    ("smooth: an ensemble's candidates [C, k, n, L, L]", lambda:
+        dispatch.smooth_route("rbgs", 2, 128, C64, 2, **CARD), "global"),
+]
+
+
+@pytest.mark.parametrize("route,want", [r[1:] for r in ROUTES],
+                         ids=[r[0] for r in ROUTES])
+def test_routes(route, want):
+    assert route() == want
+
+
+def _cpu_calls():
+    """One call of each kernel wrapper on CPU tensors of shapes it takes on
+    the card."""
+    rng = np.random.default_rng(1)
+    L = 8
+
+    def c(*shape):
+        return torch.from_numpy(rng.normal(size=shape)
+                                + 1j * rng.normal(size=shape))
+
+    U, phi, v = c(2, L, L), c(2, L, L), c(2, L, L)
+    D, Dinv, pn = c(5, 2, 2, L, L), c(2, 2, L, L), c(4, 2, L, L)
+    vc = c(4, L // 2, L // 2)
+    return {
+        "wilson_u_residual": lambda: cs.wilson_u_residual(U, 0.1, phi, v),
+        "wilson_u_residual_tiled": lambda: cs.wilson_u_residual_tiled(
+            U, 0.1, phi, v),
+        "wilson_u_residual_norm": lambda: cs.wilson_u_residual_norm(
+            U, 0.1, phi, v),
+        "wilson_u_residual_restrict": lambda: cs.wilson_u_residual_restrict(
+            U, 0.1, phi, v, pn, 1, 2, 2),
+        "wilson_u_smooth": lambda: cs.wilson_u_smooth(U, 0.1, phi, v, 2),
+        "wilson_u_smooth_tiled": lambda: cs.wilson_u_smooth_tiled(
+            U, 0.1, phi, v, 2),
+        "wilson_u_apply": lambda: cs.wilson_u_apply(U, 0.1, v),
+        "wilson_u_apply_tiled": lambda: cs.wilson_u_apply_tiled(U, 0.1, v),
+        "dense_smooth": lambda: cs.dense_smooth(D, Dinv, phi, v, 2),
+        "dense_smooth_tiled": lambda: cs.dense_smooth_tiled(D, Dinv, phi, v,
+                                                            2),
+        "dense_apply": lambda: cs.dense_apply(D, v),
+        "dense_apply_tiled": lambda: cs.dense_apply_tiled(D, v),
+        "dense_residual": lambda: cs.dense_residual(D, phi, v),
+        "dense_residual_tiled": lambda: cs.dense_residual_tiled(D, phi, v),
+        "transfer_restrict": lambda: cs.transfer_restrict(pn, v, 1, 2, 2),
+        "transfer_prolong": lambda: cs.transfer_prolong(pn, vc, 1, 2, 2),
+    }
+
+
+WRAPPERS = ["wilson_u_residual", "wilson_u_residual_tiled",
+            "wilson_u_residual_norm", "wilson_u_residual_restrict",
+            "wilson_u_smooth", "wilson_u_smooth_tiled", "wilson_u_apply",
+            "wilson_u_apply_tiled", "dense_smooth", "dense_smooth_tiled",
+            "dense_apply", "dense_apply_tiled", "dense_residual",
+            "dense_residual_tiled", "transfer_restrict", "transfer_prolong"]
+
+
+@pytest.mark.parametrize("wrapper", WRAPPERS)
+def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
+    """The wrappers are kernel-only: a CPU tensor is refused before any
+    launch (ops/dispatch.py sends CPU tensors to the plain versions)."""
+    before = dict(cs.launches)
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        _cpu_calls()[wrapper]()
+    assert cs.launches == before

@@ -27,6 +27,7 @@ from tpu_multigrid.ops import smoothers as jsm  # noqa: E402
 from tpu_multigrid.ops.stencil import apply_D as japply_D  # noqa: E402
 from tpu_multigrid.solver import eigs as jeigs  # noqa: E402
 import tpu_multigrid_torch as mgt  # noqa: E402
+from tpu_multigrid_torch.ops import dispatch  # noqa: E402
 from tpu_multigrid_torch.ops import smoothers as tsm  # noqa: E402
 from tpu_multigrid_torch.ops.stencil import apply_D as tapply_D  # noqa: E402
 from tpu_multigrid_torch.solver import eigs as teigs  # noqa: E402
@@ -93,8 +94,9 @@ def test_jacobi_operator_lmax_matches_jax(stencil):
 @pytest.mark.parametrize("batched", [False, True])
 def test_chebyshev_smooth_matches_jax(batched):
     """One degree-5 polynomial on [0.4, 2.1], a batch of three fields
-    through one call against jax.vmap; smooth(kind='chebyshev') on CPU
-    tensors is the same call."""
+    through one call against jax.vmap; dispatch.smooth(kind='chebyshev')
+    on CPU tensors is the same call, pallas 'auto' and 'off' alike, and
+    needs its interval."""
     jD, tD = _op("wilson", 8, 0.1)
     from tpu_multigrid.ops.stencil import site_inverse as jinv
     jDinv = jinv(jD[0])
@@ -110,9 +112,12 @@ def test_chebyshev_smooth_matches_jax(batched):
     want = (jax.vmap(one) if batched else one)(jnp.asarray(phi),
                                                jnp.asarray(r))
     assert rel_err(got, want) < C128_BAR
-    assert torch.equal(
-        tsm.smooth(tD, t_of(jDinv), t_of(phi), t_of(r), 5, "chebyshev",
-                   cheby_interval=(0.4, 2.1)), got)
+    for pallas in ("auto", "off"):
+        assert torch.equal(dispatch.smooth(
+            tD, t_of(jDinv), t_of(phi), t_of(r), 5, "chebyshev",
+            pallas=pallas, cheby_interval=(0.4, 2.1)), got)
+    with pytest.raises(ValueError, match="cheby_interval"):
+        dispatch.smooth(tD, t_of(jDinv), t_of(phi), t_of(r), 5, "chebyshev")
 
 
 def _shared(jcfg, U=None):

@@ -2,16 +2,17 @@
 output) and the dense residual (B7a / B7b with a residual epilogue, the
 batch in groups that share one D) against the JAX package.
 
-On CPU tensors the port's wrappers run their plain versions; the kernels
-themselves are held against those on the card (tests/test_torch_cuda.py).
+The port's side is ops/dispatch, which runs the plain versions on CPU
+tensors; the kernels themselves are held against those on the card
+(tests/test_torch_cuda.py).
 The Pallas kernels compute in float32 planes, so complex64 is held against
 them (interpret mode) at 2e-5, and complex128 against the JAX package's
 plain functions (transfer.restrict of gauge_stencil.residual_u, and
 stencil.residual) at 1e-12.
 
-Also: the cycles call the new wrappers with pallas='auto' and never with
-pallas='off' (ntl_cycle, v_cycle, gamma_cycle, min_res_weights), and the
-wrappers' shape rules (dense_groups)."""
+Also: the cycles call these dispatchers with their cfg.pallas (ntl_cycle,
+v_cycle, gamma_cycle, min_res_weights), and the shape rules of the dense
+SpMV's groups (dense_groups)."""
 import functools
 
 import numpy as np
@@ -24,7 +25,7 @@ import torch  # noqa: E402
 from jax.experimental import pallas as pl  # noqa: E402
 
 from torch_port_helpers import (C128_BAR, C64_BAR, crandn, phases,  # noqa: E402
-                                rel_err, t_of)
+                                rel_err, spy_dispatch, t_of)
 
 from tpu_multigrid.models import gauge as jgauge  # noqa: E402
 from tpu_multigrid.ops import gauge_stencil as jgs  # noqa: E402
@@ -33,6 +34,7 @@ from tpu_multigrid.ops import stencil as jst  # noqa: E402
 from tpu_multigrid.ops import transfer as jtr  # noqa: E402
 import tpu_multigrid_torch as mgt  # noqa: E402
 from tpu_multigrid_torch.ops import cuda_stencil as cs  # noqa: E402
+from tpu_multigrid_torch.ops import dispatch  # noqa: E402
 from tpu_multigrid_torch.solver import cycles as tcy  # noqa: E402
 
 M = -0.005
@@ -65,8 +67,8 @@ def test_residual_restrict_c128_matches_jax(quad, nc, B):
     lead = (B,) if B else ()
     phi, r = crandn(rng, lead + (2, L, L)), crandn(rng, lead + (2, L, L))
     pn = crandn(rng, (nc, 2, L, L))
-    got = cs.wilson_u_residual_restrict(t_of(jU), M, t_of(phi), t_of(r),
-                                        t_of(pn), quad, bx, by)
+    got = dispatch.links_residual_restrict(t_of(jU), M, t_of(phi), t_of(r),
+                                           t_of(pn), quad, bx, by)
 
     def jax_one(p, q):
         return jtr.restrict(pn, jgs.residual_u("wilson", jU, M, p, q), quad,
@@ -82,7 +84,7 @@ def test_residual_restrict_c128_matches_jax(quad, nc, B):
 @pytest.mark.parametrize("nc", [1, 2, 4])
 def test_residual_restrict_c64_matches_pallas(interpret_pallas, quad, nc):
     """JAX's level-0 path on the Pallas residual kernel (interpret mode),
-    then restrict, against the port's fused wrapper."""
+    then restrict, against the port's dispatched residual-restriction."""
     rng = np.random.default_rng(200 + 10 * quad + nc)
     L = 16
     jU = _links(rng, L, jnp.complex64)
@@ -92,8 +94,8 @@ def test_residual_restrict_c64_matches_pallas(interpret_pallas, quad, nc):
     res = ps.wilson_u_residual_pallas(jU, M, jnp.asarray(phi), jnp.asarray(r),
                                       "vmem")
     want = jtr.restrict(jnp.asarray(pn), res, quad, 2, 2)
-    got = cs.wilson_u_residual_restrict(t_of(jU), M, t_of(phi), t_of(r),
-                                        t_of(pn), quad, 2, 2)
+    got = dispatch.links_residual_restrict(t_of(jU), M, t_of(phi), t_of(r),
+                                           t_of(pn), quad, 2, 2)
     assert got.dtype == torch.complex64
     assert rel_err(got, want) < C64_BAR
 
@@ -105,17 +107,10 @@ def test_residual_restrict_shared_r():
     U = t_of(np.exp(1j * phases(rng, L)))
     phi, r = t_of(crandn(rng, (3, 2, L, L))), t_of(crandn(rng, (2, L, L)))
     pn = t_of(crandn(rng, (4, 2, L, L)))
-    got = cs.wilson_u_residual_restrict(U, M, phi, r, pn, 3, 2, 2)
+    got = dispatch.links_residual_restrict(U, M, phi, r, pn, 3, 2, 2)
     for b in range(3):
-        one = cs.wilson_u_residual_restrict(U, M, phi[b], r, pn, 3, 2, 2)
+        one = dispatch.links_residual_restrict(U, M, phi[b], r, pn, 3, 2, 2)
         assert torch.equal(got[b], one)
-
-
-def test_links_restrict_fits():
-    assert cs.links_restrict_fits(4, 2, 2) and cs.links_restrict_fits(1, 4, 2)
-    assert not cs.links_restrict_fits(3, 2, 2)
-    assert not cs.links_restrict_fits(4, 8, 2)
-    assert not cs.links_restrict_fits(4, 2, 1)
 
 
 # ---- the dense residual in groups (B7a / B7b residual epilogue)
@@ -140,16 +135,19 @@ def test_dense_residual_c128_matches_jax(n, B, G, tiled):
     D = _dense(rng, n, L, lead=() if G == B else (E,))
     lead = (B,) if B > 1 else ()
     phi, r = crandn(rng, lead + (n, L, L)), crandn(rng, lead + (n, L, L))
-    fn = (functools.partial(cs.dense_residual_tiled, tile=(3, 5)) if tiled
-          else cs.dense_residual)
-    got = fn(t_of(D), t_of(phi), t_of(r))
+    # tiled: phi a view one element into its storage, as an operand the
+    # global kernel refuses would be in complex64
+    ph = t_of(phi)
+    if tiled:
+        ph = torch.cat([ph.reshape(-1)[:1], ph.reshape(-1)])[1:].view(
+            ph.shape)
+    got = dispatch.residual(t_of(D), ph, t_of(r))
     if B == 1:
         want = jst.residual(D, phi, r)
     else:
         want = np.stack([np.asarray(jst.residual(
             D if G == B else D[b // G], phi[b], r[b])) for b in range(B)])
     assert rel_err(got, want) < C128_BAR
-    assert rel_err(cs.residual(t_of(D), t_of(phi), t_of(r)), want) < C128_BAR
 
 
 @pytest.mark.parametrize("G", [1, 4, 8])
@@ -168,7 +166,7 @@ def test_dense_residual_c64_matches_pallas(interpret_pallas, G):
         Dv = jax.vmap(ps.apply_D_pallas)(jnp.asarray(np.repeat(D, G, 0)),
                                          jnp.asarray(phi))
     want = r - np.asarray(Dv)
-    got = cs.residual(t_of(D), t_of(phi), t_of(r))
+    got = dispatch.residual(t_of(D), t_of(phi), t_of(r))
     assert rel_err(got, want) < C64_BAR
 
 
@@ -182,7 +180,7 @@ def test_grouped_apply_and_refusals():
     g = cs.dense_groups("t", D2, v8)
     assert (g.B, g.G, g.lead, g.d_bs, g.v_bs) == (8, 4, (8,), 5 * 4 * 64,
                                                   2 * 64)
-    got = cs.dense_apply(D2, v8)
+    got = dispatch.apply_D(D2, v8)
     for b in range(8):
         assert torch.equal(got[b], mgt.ops.stencil.apply_D(D2[b // 4], v8[b]))
     g = cs.dense_groups("t", D2, v8[0])
@@ -190,24 +188,14 @@ def test_grouped_apply_and_refusals():
     g = cs.dense_groups("t", D2[0], v8, v8[0])
     assert (g.B, g.G, g.d_bs, g.r_bs) == (8, 8, 0, 0)
     v3 = t_of(crandn(rng, (3, 2, L, L)))
-    for call in (lambda: cs.dense_apply(D2, v3),
-                 lambda: cs.dense_residual(D2, v8, v3),
-                 lambda: cs.dense_apply(D2[..., :4], v8)):
+    for call in (lambda: dispatch.apply_D(D2, v3),
+                 lambda: dispatch.residual(D2, v8, v3),
+                 lambda: dispatch.apply_D(D2[..., :4], v8)):
         with pytest.raises(ValueError):
             call()
 
 
 # ---- the cycles route through the new wrappers
-
-
-def _spy(monkeypatch, calls, name):
-    orig = getattr(cs, name)
-
-    def spy(*a, **k):
-        calls.append(name)
-        return orig(*a, **k)
-
-    monkeypatch.setattr(cs, name, spy)
 
 
 @pytest.fixture(scope="module")
@@ -223,17 +211,17 @@ def small_hierarchy():
     return cfg, mgt.build_hierarchy(D, cfg, U=U, check=False)
 
 
-WRAPPERS = ("wilson_u_residual_restrict", "wilson_u_residual", "residual",
-            "apply_D")
+DISPATCHERS = ("links_residual_restrict", "residual", "apply_D")
 
 
 @pytest.mark.parametrize("cycle,want", [
-    # level 0 fused, levels 1-2 dense residuals, one min-res apply
-    ("ntl", {"wilson_u_residual_restrict": 1, "residual": 2, "apply_D": 1}),
+    # level 0's residual-restriction, levels 1-2 dense residuals, one
+    # min-res apply
+    ("ntl", {"links_residual_restrict": 1, "residual": 2, "apply_D": 1}),
     # the V- and W-cycle restrict at levels 0-2 (the W-cycle visits
     # level 1 twice and level 2 four times)
-    ("v", {"wilson_u_residual_restrict": 1, "residual": 2}),
-    ("gamma", {"wilson_u_residual_restrict": 1, "residual": 6}),
+    ("v", {"links_residual_restrict": 1, "residual": 2}),
+    ("gamma", {"links_residual_restrict": 1, "residual": 6}),
 ])
 @pytest.mark.parametrize("pallas", ["auto", "off"])
 def test_cycles_call_the_new_wrappers(monkeypatch, small_hierarchy, cycle,
@@ -246,12 +234,11 @@ def test_cycles_call_the_new_wrappers(monkeypatch, small_hierarchy, cycle,
           "gamma": tcy.gamma_cycle}[cycle]
     phis = mgt.zero_fields(cfg)
     plain = fn(hier, phis, b, cfg.replace(pallas="off"))
-    calls = []
-    for name in WRAPPERS:
-        _spy(monkeypatch, calls, name)
+    calls = spy_dispatch(monkeypatch, *DISPATCHERS)
     got = fn(hier, phis, b, cfg)
-    counts = {k: calls.count(k) for k in WRAPPERS if calls.count(k)}
-    assert counts == ({} if pallas == "off" else want)
+    names = [name for name, _ in calls]
+    assert {k: names.count(k) for k in DISPATCHERS if k in names} == want
+    assert {p for _, p in calls} == {pallas}
     phi, phi_plain = (got[0][0], plain[0][0]) if cycle == "ntl" else (
         got[0], plain[0])
     assert rel_err(phi, phi_plain) < C128_BAR
@@ -270,8 +257,7 @@ def test_min_res_weights_on_the_spmv_wrapper(monkeypatch, small_hierarchy,
     xs = t_of(crandn(rng, lead + (4, nf, S, S)))
     r_f = t_of(crandn(rng, lead + (nf, S, S)))
     plain = tcy.min_res_weights(D_f, r_f, xs, cfg.replace(pallas="off"))
-    calls = []
-    _spy(monkeypatch, calls, "apply_D")
+    calls = spy_dispatch(monkeypatch, "apply_D")
     got = tcy.min_res_weights(D_f, r_f, xs, cfg)
-    assert calls == ["apply_D"] and got.shape == lead + (4,)
+    assert calls == [("apply_D", "auto")] and got.shape == lead + (4,)
     assert rel_err(got, plain) < C128_BAR

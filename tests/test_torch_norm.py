@@ -1,18 +1,17 @@
 """The level-0 convergence check of the port (cycles.residual_norm_ratio0)
-against the JAX package's, and its one-launch wrapper
-(cuda_stencil.wilson_u_residual_norm) on CPU tensors.
+against the JAX package's, and its dispatcher (dispatch.links_residual_norm,
+one launch of cuda_stencil.wilson_u_residual_norm on the card) on CPU
+tensors.
 
 The JAX side runs as its own tests run it: complex128 through its plain
 links residual, held at 1e-12; complex64 through the Pallas links residual
 kernel (_u_resid_vmem_kernel) in interpret mode, held at the repo's 2e-5.
-On CPU tensors the wrapper is today's composition (the links residual,
+On CPU tensors the dispatcher is today's composition (the links residual,
 then the two float64 norms) bit for bit; the kernel itself is held against
-it on the card (tests/test_torch_cuda.py).
+it on the card (tests/test_torch_cuda.py). Which implementation the check
+takes is a route of ops/dispatch (tests/test_torch_dispatch.py).
 
-Also: which path residual_norm_ratio0 takes (the wrapper only at a
-links-active level 0 with pallas != 'off', on the global kernels and on
-the x-tiled ones alike), and
-solve_ir's outer residual on the dense residual wrapper."""
+Also: solve_ir's outer residual through dispatch.residual."""
 import functools
 import types
 
@@ -26,13 +25,14 @@ import torch  # noqa: E402
 from jax.experimental import pallas as pl  # noqa: E402
 
 from torch_port_helpers import (C128_BAR, C64_BAR, crandn, phases,  # noqa: E402
-                                rel_err, t_of)
+                                rel_err, spy_dispatch, t_of)
 
 import tpu_multigrid as mg  # noqa: E402
 from tpu_multigrid.ops import pallas_stencil as ps  # noqa: E402
 from tpu_multigrid.solver import cycles as jcy  # noqa: E402
 import tpu_multigrid_torch as mgt  # noqa: E402
 from tpu_multigrid_torch.ops import cuda_stencil as cs  # noqa: E402
+from tpu_multigrid_torch.ops import dispatch  # noqa: E402
 from tpu_multigrid_torch.ops import gauge_stencil as tgs  # noqa: E402
 from tpu_multigrid_torch.solver import cycles as tcy  # noqa: E402
 
@@ -124,62 +124,11 @@ def test_wrapper_on_cpu_is_todays_composition(dtype, batch, shared_b, L):
     rng = np.random.default_rng(41)
     U, phi, b = (t_of(x) for x in _level0(rng, L, dtype, batch, shared_b))
     before = dict(cs.launches)
-    got = cs.wilson_u_residual_norm(U, M, phi, b)
+    got = dispatch.links_residual_norm(U, M, phi, b)
     assert cs.launches == before              # no kernel for CPU tensors
     want = _todays_check(U, phi, b)
     assert got.dtype == want.dtype and got.shape == want.shape
     assert torch.equal(got, want)
-
-
-# ---- which path residual_norm_ratio0 takes
-
-
-def _spy(monkeypatch, calls, name):
-    orig = getattr(cs, name)
-
-    def spy(*a, **k):
-        calls.append(name)
-        return orig(*a, **k)
-
-    monkeypatch.setattr(cs, name, spy)
-
-
-CHECK_WRAPPERS = ("wilson_u_residual_norm", "wilson_u_residual",
-                  "wilson_u_residual_tiled", "residual")
-
-
-@pytest.mark.parametrize("case,want", [
-    # a links-active level 0, on the global kernels or the x-tiled ones:
-    # the one launch
-    ("global", ["wilson_u_residual_norm"]),
-    ("tiled", ["wilson_u_residual_norm"]),
-    # a dense level 0 (complex128 with links='auto'; no links on the
-    # hierarchy): the dense residual, then the norms
-    ("dense_c128", ["residual"]),
-    ("no_links", ["residual"]),
-    # pallas='off': the plain residual, then the norms
-    ("off", []),
-])
-def test_check_takes_the_wrapper_only_where_it_applies(monkeypatch, case,
-                                                       want):
-    rng = np.random.default_rng(42)
-    L = 8
-    dtype = np.complex128 if case == "dense_c128" else np.complex64
-    U, phi, b = (t_of(x) for x in _level0(rng, L, dtype, 2))
-    cfg = mgt.MGConfig(L=L, stencil="wilson", m=M, nlevels=1,
-                       dtype=np.dtype(dtype).name,
-                       pallas="off" if case == "off" else "auto")
-    D = mgt.models.operators.assemble("wilson", U, M)
-    hier = _hier(None if case == "no_links" else U, D)
-    if case == "tiled":
-        monkeypatch.setattr(cs, "u_mode", lambda L, dtype: "tiled")
-    plain = tcy.residual_norm_ratio0(hier, phi, b, cfg.replace(pallas="off"))
-    calls = []
-    for name in CHECK_WRAPPERS:
-        _spy(monkeypatch, calls, name)
-    got = tcy.residual_norm_ratio0(hier, phi, b, cfg)
-    assert calls == want
-    assert rel_err(got, plain) < BARS[cfg.dtype]
 
 
 # ---- solve_ir's outer residual
@@ -188,9 +137,9 @@ def test_check_takes_the_wrapper_only_where_it_applies(monkeypatch, case,
 @pytest.mark.parametrize("pallas", ["auto", "off"])
 def test_solve_ir_outer_residual_on_the_residual_wrapper(monkeypatch,
                                                          pallas):
-    """One cuda_stencil.residual call an outer step (none with pallas
-    'off'), on the complex128 level-0 operator; on CPU tensors both give the
-    same bits."""
+    """One dispatch.residual call an outer step, with cfg.pallas, on the
+    complex128 level-0 operator; on CPU tensors both give the same
+    bits."""
     L = 8
     cfg = mgt.MGConfig(L=L, stencil="wilson", m=0.1, nlevels=1, ntl=False,
                        num_iters=2, null_iters=8, dtype="complex128",
@@ -201,10 +150,9 @@ def test_solve_ir_outer_residual_on_the_residual_wrapper(monkeypatch,
     hier = mgt.build_hierarchy(D, cfg, U=U, check=False)
     b = mgt.point_source(cfg)
     plain = mgt.solve_ir(hier, b, cfg.replace(pallas="off"), max_iters=40)
-    calls = []
-    _spy(monkeypatch, calls, "residual")
+    calls = spy_dispatch(monkeypatch, "residual")
     out = mgt.solve_ir(hier, b, cfg, max_iters=40)
     outer = len(out.history)
     assert out.converged and outer > 1
-    assert calls == ([] if pallas == "off" else ["residual"] * outer)
+    assert calls == [("residual", pallas)] * outer
     assert out.iters == plain.iters and torch.equal(out.phi, plain.phi)

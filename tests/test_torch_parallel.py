@@ -534,12 +534,12 @@ def test_apply_d_sharded_matches(ranks, refs, world, shape, overlap):
 @pytest.mark.parametrize("kind,omega", SMOOTHERS,
                          ids=[k for k, _ in SMOOTHERS])
 def test_smoother_sharded_matches(ranks, refs, world, shape, kind, omega):
-    from tpu_multigrid_torch.ops import smoothers as tsm
+    from tpu_multigrid_torch.ops import dispatch
     o = refs[2]["ops"]
     r = t_of(o["r"])
-    want = tsm.smooth(t_of(o["Dl"]), t_of(o["Dl_inv"]),
-                      torch.zeros_like(r), r, 5, kind, omega,
-                      cheby_interval=CHEBY)
+    want = dispatch.smooth(t_of(o["Dl"]), t_of(o["Dl_inv"]),
+                           torch.zeros_like(r), r, 5, kind, omega,
+                           cheby_interval=CHEBY)
     got = _got(ranks, world, (_m(shape), "smooth", kind))
     assert rel_err(got, want) < C128_BAR
     assert rel_err(got, refs[3]["ops"][kind]) < C128_BAR

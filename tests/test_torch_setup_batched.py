@@ -208,8 +208,9 @@ def test_batched_setup_is_each_configurations_own(stencil, joint_qr):
 @pytest.mark.parametrize("shared_r", [True, False], ids=["r_shared",
                                                          "r_batched"])
 def test_plain_smoother_groups_equal_a_loop(kind, shared_r):
-    """smooth_plain with D [C, ...] and fields [C, k, ...] (each operator
-    broadcast over its group of k) equals a loop over the C groups."""
+    """The dispatched smooth of CPU tensors (smooth_plain) with D [C, ...]
+    and fields [C, k, ...] (each operator broadcast over its group of k)
+    equals a loop over the C groups."""
     rng = np.random.default_rng(6)
     C, k, n, Ls = 3, 2, 4, 8
     D = 0.25 * crandn(rng, (C, 5, n, n, Ls, Ls))
@@ -218,7 +219,7 @@ def test_plain_smoother_groups_equal_a_loop(kind, shared_r):
     Dinv = mgt.ops.stencil.site_inverse(D[:, 0])
     phi = t_of(crandn(rng, (C, k, n, Ls, Ls)))
     r = t_of(crandn(rng, (n, Ls, Ls) if shared_r else (C, k, n, Ls, Ls)))
-    got = tsm.smooth(D, Dinv, phi, r, 3, kind, 0.9)
+    got = mgt.ops.dispatch.smooth(D, Dinv, phi, r, 3, kind, 0.9)
     for c in range(C):
         want = tsm.smooth_plain(D[c], Dinv[c], phi[c],
                                 r if shared_r else r[c], 3, kind, 0.9)
@@ -232,13 +233,13 @@ def test_batched_setup_makes_one_smooth_call_a_renormalization(monkeypatch):
     jcfg, tcfg = _cfgs("wilson", False)
     Us, _, _ = _operators("wilson", jcfg, seed=7)
     calls = []
-    real = tnn.smooth
+    real = mgt.ops.dispatch.smooth
 
     def counted(D, D0inv, phi, *a, **kw):
         calls.append((tuple(D.shape), tuple(phi.shape)))
         return real(D, D0inv, phi, *a, **kw)
 
-    monkeypatch.setattr(tnn, "smooth", counted)
+    monkeypatch.setattr(mgt.ops.dispatch, "smooth", counted)
     mgt.build_hierarchies_batched(t_of(Us), tcfg)
     per_level = tcfg.null_iters // tcfg.iters_per_norm
     assert len(calls) == tcfg.nlevels * per_level

@@ -1,8 +1,9 @@
 """Smoothers of the port against the JAX package: the plain torch sweeps
-(the kernels' plain versions) in complex128 at 1e-12, with a batch axis
-and shared or batched stencils; and the Pallas TPU kernels they replace
-(B1 links smoother, B2 links residual, B3/B4 dense smoothers), run in
-interpret mode, in complex64 at 2e-5."""
+(the kernels' plain versions, which ops/dispatch runs on CPU tensors) in
+complex128 at 1e-12, with a batch axis and shared or batched stencils;
+and the Pallas TPU kernels they replace (B1 links smoother, B2 links
+residual, B3/B4 dense smoothers), run in interpret mode, in complex64 at
+2e-5."""
 import functools
 
 import numpy as np
@@ -21,7 +22,7 @@ from tpu_multigrid.models import gauge as jgauge, operators as jops  # noqa: E40
 from tpu_multigrid.ops import pallas_stencil as ps  # noqa: E402
 from tpu_multigrid.ops import smoothers as jsm, stencil as jst  # noqa: E402
 from tpu_multigrid_torch.ops import cuda_stencil as cs  # noqa: E402
-from tpu_multigrid_torch.ops import gauge_stencil as tgs  # noqa: E402
+from tpu_multigrid_torch.ops import dispatch  # noqa: E402
 from tpu_multigrid_torch.ops import smoothers as tsm, stencil as tst  # noqa: E402
 
 
@@ -53,7 +54,7 @@ def test_smooth_batched(kind, n, shared):
     tD, tDinv = t_of(D), t_of(Dinv)
     if shared:
         tD, tDinv = tD[0], tDinv[0]
-    got = tsm.smooth(tD, tDinv, t_of(phi), t_of(r), 3, kind)
+    got = dispatch.smooth(tD, tDinv, t_of(phi), t_of(r), 3, kind)
     for b in range(B):
         i = 0 if shared else b
         want = jsm.smooth(D[i], Dinv[i], phi[b], r[b], 3, kind)
@@ -69,43 +70,10 @@ def test_smooth_unbatched_wilson(kind):
     tD = t_of(jD)
     phi, r = crandn(rng, (2, L, L)), crandn(rng, (2, L, L))
     jDinv = jst.site_inverse(jD[0])
-    got = tsm.smooth(tD, tst.site_inverse(tD[0]), t_of(phi), t_of(r), 4,
-                     kind, omega=0.9)
+    got = dispatch.smooth(tD, tst.site_inverse(tD[0]), t_of(phi), t_of(r),
+                          4, kind, omega=0.9)
     want = jsm.smooth(jD, jDinv, phi, r, 4, kind, omega=0.9)
     assert rel_err(got, want) < C128_BAR
-
-
-def test_cpu_tensors_take_the_plain_versions():
-    """On CPU tensors the wrappers run their plain versions and count no
-    kernel launch; 'auto' and 'off' agree exactly."""
-    rng = np.random.default_rng(12)
-    L, m = 8, 0.1
-    U = t_of(np.exp(1j * phases(rng, L)))
-    phi, r = t_of(crandn(rng, (2, L, L))), t_of(crandn(rng, (2, L, L)))
-    D = t_of(_dense(rng, 1, 2, L)[0])
-    Dinv = tst.site_inverse(D[0])
-    before = dict(cs.launches)
-    assert torch.equal(cs.wilson_u_smooth(U, m, phi, r, 2, "rbgs"),
-                       tgs.smooth_u("wilson", U, m, phi, r, 2, "rbgs"))
-    assert torch.equal(cs.wilson_u_residual(U, m, phi, r),
-                       tgs.residual_u("wilson", U, m, phi, r))
-    assert torch.equal(tsm.smooth(D, Dinv, phi, r, 2, "jacobi"),
-                       tsm.smooth(D, Dinv, phi, r, 2, "jacobi", pallas="off"))
-    # gs_lex has no kernel (the JAX package runs it on plain XLA): its
-    # plain sweeps on any device
-    assert torch.equal(tsm.smooth(D, Dinv, phi, r, 2, "gs_lex"),
-                       tsm.smooth_plain(D, Dinv, phi, r, 2, "gs_lex"))
-    # chebyshev has no kernel either: on CPU tensors its applies are the
-    # plain stencil's, 'auto' and 'off' alike; it needs its interval
-    assert torch.equal(
-        tsm.smooth(D, Dinv, phi, r, 2, "chebyshev", cheby_interval=(.5, 2.)),
-        tsm.smooth(D, Dinv, phi, r, 2, "chebyshev", pallas="off",
-                   cheby_interval=(.5, 2.)))
-    assert cs.launches == before
-    with pytest.raises(ValueError, match="cheby_interval"):
-        tsm.smooth(D, Dinv, phi, r, 2, "chebyshev")
-    with pytest.raises(NotImplementedError):     # no kernel takes gs_lex
-        cs._check_lattice(8, "gs_lex")
 
 
 @pytest.mark.parametrize("omega", [1.0, 0.8])
@@ -125,7 +93,7 @@ def test_gs_lex_matches_jax(n, B, shared, omega):
     tD, tDinv = t_of(D), t_of(Dinv)
     if shared:
         tD, tDinv = tD[0], tDinv[0]
-    got = tsm.smooth(tD, tDinv, t_of(phi), t_of(r), 2, "gs_lex", omega)
+    got = dispatch.smooth(tD, tDinv, t_of(phi), t_of(r), 2, "gs_lex", omega)
     for b in range(B or 1):
         i = 0 if shared else b
         want = jsm.smooth(D[i], Dinv[i], phi[b] if B else phi,
@@ -141,6 +109,8 @@ def test_gs_lex_matches_jax(n, B, shared, omega):
             ref[:, x, y] = ref[:, x, y] + omega * (upd[:, x, y] - ref[:, x, y])
     one = tsm.gs_lex_sweep(Dq, Dq0, t_of(phi[0] if B else phi), rr, omega)
     assert rel_err(one, ref) < C128_BAR
+    with pytest.raises(NotImplementedError):     # no kernel takes gs_lex
+        cs._check_lattice(8, "gs_lex")
 
 
 # ---- the Pallas TPU kernels (interpret mode) vs the port's plain versions
@@ -162,7 +132,7 @@ def test_links_smoother_vs_pallas_B1(interpret_pallas, kind):
     m, jU, v, r = _c64_case()
     want = ps.wilson_u_smooth_pallas(jU, m, jnp.asarray(v), jnp.asarray(r),
                                      2, kind)
-    got = cs.wilson_u_smooth(t_of(jU), m, t_of(v), t_of(r), 2, kind)
+    got = dispatch.links_smooth(t_of(jU), m, t_of(v), t_of(r), 2, kind)
     assert got.dtype == torch.complex64
     assert rel_err(got, want) < C64_BAR
 
@@ -171,7 +141,7 @@ def test_links_residual_vs_pallas_B2(interpret_pallas):
     m, jU, v, r = _c64_case()
     want = ps.wilson_u_residual_pallas(jU, m, jnp.asarray(v), jnp.asarray(r),
                                        "vmem")
-    got = cs.wilson_u_residual(t_of(jU), m, t_of(v), t_of(r))
+    got = dispatch.links_residual(t_of(jU), m, t_of(v), t_of(r))
     assert rel_err(got, want) < C64_BAR
 
 
@@ -188,5 +158,5 @@ def test_dense_smoother_vs_pallas_B3_B4(interpret_pallas, kind):
     fn = ps.rbgs_smooth_pallas if kind == "rbgs" else ps.jacobi_smooth_pallas
     want = fn(jnp.asarray(D), jnp.asarray(Dinv), jnp.asarray(phi),
               jnp.asarray(r), 1)
-    got = cs.dense_smooth(t_of(D), t_of(Dinv), t_of(phi), t_of(r), 1, kind)
+    got = dispatch.smooth(t_of(D), t_of(Dinv), t_of(phi), t_of(r), 1, kind)
     assert rel_err(got, want) < C64_BAR

@@ -20,10 +20,12 @@ jax = pytest.importorskip("jax")
 
 import torch  # noqa: E402
 
-from torch_port_helpers import (C128_BAR, jax_hierarchy_leaves, np_of,  # noqa: E402
+from torch_port_helpers import (C128_BAR, FALLBACK_SOLVES,  # noqa: E402
+                                jax_hierarchy_leaves, np_of, numpy_inputs,
                                 rel_err, t_of, weights_bar)
 
 import tpu_multigrid as mg  # noqa: E402
+import tpu_multigrid.solver.hierarchy as jhierarchy  # noqa: E402
 from tpu_multigrid.ops.nearnull import random_starts as jax_random_starts  # noqa: E402
 import tpu_multigrid_torch as mgt  # noqa: E402
 from tpu_multigrid_torch.solver.cycles import residual_norm_ratio0  # noqa: E402
@@ -253,3 +255,30 @@ def test_solve_with_history_writer_matches_jax(c128_pair, tmp_path):
             # late residual fields carry rounding of ~eps |b| (|b| = 5)
             assert (np.max(np.abs(t - j))
                     <= SLICE_BAR * max(np.max(np.abs(j)), 1e-4))
+
+
+@pytest.mark.parametrize("case", sorted(FALLBACK_SOLVES))
+def test_fallback_solves_hold_jax_counts(monkeypatch, case):
+    """The solves of levels no kernel takes (torch_port_helpers.
+    FALLBACK_SOLVES): JAX's cycle count from numpy_inputs' phases and
+    near-null starts is the recorded one, and the port's from the same
+    inputs equals it. tests/test_torch_cuda.py holds the port to it on the
+    card, where these levels run the plain versions."""
+    kw, width, count = FALLBACK_SOLVES[case]
+    jcfg = mg.MGConfig(**kw)
+    phases, starts = numpy_inputs(jcfg, width)
+    by_shape = {s.shape: s for s in starts}
+    monkeypatch.setattr(jhierarchy, "random_starts",
+                        lambda key, k, nf, L, dtype: by_shape[(k, nf, L, L)])
+    jU = mg.models.gauge.gauge_from_phases(phases, jcfg.cdtype)
+    jhier = mg.build_hierarchy(
+        mg.models.operators.assemble(jcfg.stencil, jU, jcfg.m), jcfg, U=jU)
+    ref = mg.solve(jhier, mg.point_source(jcfg), jcfg, max_iters=300)
+    assert ref.converged and ref.iters == count
+    tcfg = mgt.MGConfig(**kw)
+    tU = mgt.models.gauge.gauge_from_phases(phases, tcfg.cdtype)
+    thier = mgt.build_hierarchy(
+        mgt.models.operators.assemble(tcfg.stencil, tU, tcfg.m), tcfg, U=tU,
+        starts=[torch.from_numpy(s) for s in starts])
+    out = mgt.solve(thier, mgt.point_source(tcfg), tcfg, max_iters=300)
+    assert out.converged and out.iters == count

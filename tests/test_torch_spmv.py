@@ -1,13 +1,13 @@
-"""The SpMV kernels of the port against the JAX package's Pallas TPU
-kernels, run in interpret mode: B7a (dense apply), B7b (x-tiled dense
-apply), B8 (links apply) and B5c (x-tiled links apply), in complex64 at
-2e-5. On CPU tensors the port's wrappers run their plain versions; the
-kernels themselves are held against those on the card
+"""The JAX package's Pallas TPU SpMV kernels, run in interpret mode,
+against the port's dispatched SpMV, which runs the plain versions on CPU
+tensors: B7a (dense apply), B7b (x-tiled dense apply), B8 (links apply)
+and B5c (x-tiled links apply), in complex64 at 2e-5. The port's kernels
+themselves are held against the plain versions on the card
 (tests/test_torch_cuda.py).
 
 Also: adjoint_stencil and apply_D_unrolled against JAX in complex128, the
-SpMV dispatch (apply_mode) at the shapes the card runs, and that
-apply_D / wilson_u_apply_auto route to the wrapper the dispatch names."""
+L2 rule of the SpMV (apply_mode) at the shapes the card runs, and the
+x-tiled wrappers' refusal of a bad tile."""
 import functools
 
 import numpy as np
@@ -28,7 +28,7 @@ from tpu_multigrid.ops import pallas_stencil as ps  # noqa: E402
 from tpu_multigrid.ops import stencil as jst  # noqa: E402
 from tpu_multigrid_torch.models import operators as tops  # noqa: E402
 from tpu_multigrid_torch.ops import cuda_stencil as cs  # noqa: E402
-from tpu_multigrid_torch.ops import gauge_stencil as tgs  # noqa: E402
+from tpu_multigrid_torch.ops import dispatch  # noqa: E402
 from tpu_multigrid_torch.ops import stencil as tst  # noqa: E402
 
 
@@ -59,7 +59,7 @@ def test_dense_apply_vs_pallas_B7a(interpret_pallas, n):
     L = 8
     D, v = _dense(rng, n, L), crandn(rng, (n, L, L), np.complex64)
     want = ps.apply_D_pallas(jnp.asarray(D), jnp.asarray(v))
-    got = cs.dense_apply(t_of(D), t_of(v))
+    got = dispatch.apply_D(t_of(D), t_of(v))
     assert got.dtype == torch.complex64
     assert rel_err(got, want) < C64_BAR
     assert rel_err(tst.apply_D(t_of(D), t_of(v)), want) < C64_BAR
@@ -72,7 +72,7 @@ def test_dense_apply_vs_pallas_tiled_B7b(interpret_pallas, n, L):
     rng = np.random.default_rng(40 + n)
     D, v = _dense(rng, n, L), crandn(rng, (n, L, L), np.complex64)
     want = ps.apply_D_pallas_tiled(jnp.asarray(D), jnp.asarray(v), TX=8)
-    got = cs.dense_apply_tiled(t_of(D), t_of(v), tile=(8, 8))
+    got = dispatch.apply_D(t_of(D), t_of(v))
     assert rel_err(got, want) < C64_BAR
 
 
@@ -81,7 +81,7 @@ def test_links_apply_vs_pallas_B8(interpret_pallas):
     link planes, and as the dense apply of the assembled Wilson stencil."""
     m, jU, v = _links_case(16, 50)
     want = ps.apply_wilson_u_pallas_vmem(jU, m, jnp.asarray(v))
-    got = cs.wilson_u_apply(t_of(jU), m, t_of(v))
+    got = dispatch.links_apply(t_of(jU), m, t_of(v))
     assert rel_err(got, want) < C64_BAR
     dense = jst.apply_D(jops.assemble("wilson", jU, m), jnp.asarray(v))
     assert rel_err(got, dense) < C64_BAR
@@ -91,7 +91,7 @@ def test_links_apply_vs_pallas_tiled_B5c(interpret_pallas):
     """4 x-tiles of 8 rows at L=32, with the wrapped x-1 link row."""
     m, jU, v = _links_case(32, 51)
     want = ps.apply_wilson_u_pallas(jU, m, jnp.asarray(v), TX=8)
-    got = cs.wilson_u_apply_tiled(t_of(jU), m, t_of(v), tile=(8, 8))
+    got = dispatch.links_apply(t_of(jU), m, t_of(v))
     assert rel_err(got, want) < C64_BAR
     U = t_of(jU)
     dense = tst.apply_D(tops.assemble_wilson(U, m), t_of(v))
@@ -140,7 +140,7 @@ def test_apply_D_unrolled_matches_jax(n):
     assert tst.nnz_per_site(n) == jst.nnz_per_site(n)
 
 
-# ---- dispatch and routing
+# ---- the L2 rule and the tiles
 
 
 def test_apply_mode_at_the_card_shapes():
@@ -161,59 +161,16 @@ def test_apply_mode_at_the_card_shapes():
     assert cs.apply_mode(2, 1024, c128, links=True) == "tiled"
 
 
-def _spy(monkeypatch, name):
-    calls = []
-    orig = getattr(cs, name)
-
-    def spy(*a, **k):
-        calls.append(name)
-        return orig(*a, **k)
-
-    monkeypatch.setattr(cs, name, spy)
-    return calls
-
-
-@pytest.mark.parametrize("mode", ["global", "tiled"])
-def test_apply_routes_by_apply_mode(monkeypatch, mode):
-    rng = np.random.default_rng(56)
-    L = 8
-    D, v = t_of(_dense(rng, 2, L, np.complex128)), t_of(crandn(rng, (2, L, L)))
-    U = t_of(np.exp(1j * phases(rng, L)))
-    monkeypatch.setattr(cs, "apply_mode", lambda n, L, dtype, links=False:
-                        mode)
-    spies = {k: _spy(monkeypatch, k) for k in (
-        "dense_apply", "dense_apply_tiled", "wilson_u_apply",
-        "wilson_u_apply_tiled")}
-    cs.apply_D(D, v)
-    cs.wilson_u_apply_auto(U, 0.1, v)
-    got = [k for k, calls in spies.items() for _ in calls]
-    want = {"global": ["dense_apply", "wilson_u_apply"],
-            "tiled": ["dense_apply_tiled", "wilson_u_apply_tiled"]}[mode]
-    assert got == want
-
-
-def test_cpu_tensors_take_the_plain_versions():
-    """On CPU tensors the four wrappers and the two dispatchers return the
-    plain versions exactly, with any batch axes, and count no launch."""
+def test_tiled_apply_wrappers_refuse_a_bad_tile():
+    """A tile outside 1..16 x 1..32 is refused before the wrapper looks at
+    its operands (CPU tensors here)."""
     rng = np.random.default_rng(57)
     L, m = 8, 0.1
     U = t_of(np.exp(1j * phases(rng, L)))
     v = t_of(crandn(rng, (2, L, L)))
     D = t_of(_dense(rng, 2, L, np.complex128))
-    Db = t_of(_dense(rng, 2, L, np.complex128, lead=(3,)))
-    vb = t_of(crandn(rng, (3, 2, L, L)))
-    before = dict(cs.launches)
-    for DD, vv in ((D, v), (Db, v), (D, vb), (Db, vb)):
-        want = tst.apply_D(DD, vv)
-        for fn in (cs.dense_apply, cs.dense_apply_tiled, cs.apply_D):
-            assert torch.equal(fn(DD, vv), want)
-    want = tgs.apply_wilson_u(U, m, v)
-    for fn in (cs.wilson_u_apply, cs.wilson_u_apply_tiled,
-               cs.wilson_u_apply_auto):
-        assert torch.equal(fn(U, m, v), want)
-    assert cs.launches == before
     for tile in ((0, 32), (17, 32), (16, 33)):
-        with pytest.raises(ValueError):
+        with pytest.raises(ValueError, match="tile"):
             cs.dense_apply_tiled(D, v, tile=tile)
-        with pytest.raises(ValueError):
+        with pytest.raises(ValueError, match="tile"):
             cs.wilson_u_apply_tiled(U, m, v, tile=tile)

@@ -1,15 +1,15 @@
-"""The x-tiled kernels of the port against the JAX package's x-tiled Pallas
-TPU kernels, run in interpret mode: B5a (links smoother), B5b (links
-residual) and B6 (dense smoother), in complex64 at 2e-5, with explicit
-tiles so several tiles and the wrapped halo rows are exercised. On CPU
-tensors the port's wrappers run their plain versions; the kernels
-themselves are held against those on the card (tests/test_torch_cuda.py).
+"""The JAX package's x-tiled Pallas TPU kernels, run in interpret mode with
+explicit tiles so several tiles and the wrapped halo rows are exercised,
+against the port's dispatched calls, which run the plain versions on CPU
+tensors: B5a (links smoother), B5b (links residual) and B6 (dense
+smoother), in complex64 at 2e-5. The port's kernels themselves are held
+against the plain versions on the card (tests/test_torch_cuda.py).
 
-Also: the global/tiled dispatch at the level sizes of the large flagship
-(Wilson L=2048, 6 levels), and that the solver routes each level to the
-wrapper the dispatch names; a torch mirror of the fused red-black pass of
-the CUDA kernels (its tiles, two-site halo and ring) against the plain
-sweeps; the wrappers' sweep schedule and their out-of-place rule."""
+Also: the L2 rule (u_mode, smoother_mode) at the level sizes of the large
+flagship (Wilson L=2048, 6 levels); the tiles; a torch mirror of the
+fused red-black pass of the CUDA kernels (its tiles, two-site halo and
+ring) against the plain sweeps; the wrappers' sweep schedule and their
+out-of-place rule."""
 import functools
 
 import numpy as np
@@ -26,11 +26,10 @@ from torch_port_helpers import C64_BAR, crandn, phases, rel_err, t_of  # noqa: E
 from tpu_multigrid.models import gauge as jgauge  # noqa: E402
 from tpu_multigrid.ops import pallas_stencil as ps  # noqa: E402
 from tpu_multigrid.ops import stencil as jst  # noqa: E402
-import tpu_multigrid_torch as mgt  # noqa: E402
 from tpu_multigrid_torch.ops import cuda_stencil as cs  # noqa: E402
+from tpu_multigrid_torch.ops import dispatch  # noqa: E402
 from tpu_multigrid_torch.ops import gauge_stencil as tgs  # noqa: E402
 from tpu_multigrid_torch.ops import smoothers as tsm, stencil as tst  # noqa: E402
-from tpu_multigrid_torch.solver import cycles as tcy  # noqa: E402
 
 
 @pytest.fixture
@@ -55,8 +54,7 @@ def test_links_smoother_vs_pallas_tiled_B5a(interpret_pallas, kind):
     m, jU, v, r = _links_case()
     want = ps.wilson_u_smooth_pallas_tiled(jU, m, jnp.asarray(v),
                                            jnp.asarray(r), 2, kind, TX=8)
-    got = cs.wilson_u_smooth_tiled(t_of(jU), m, t_of(v), t_of(r), 2, kind,
-                                   tile=(8, 8))
+    got = dispatch.links_smooth(t_of(jU), m, t_of(v), t_of(r), 2, kind)
     assert got.dtype == torch.complex64
     assert rel_err(got, want) < C64_BAR
 
@@ -65,8 +63,7 @@ def test_links_residual_vs_pallas_tiled_B5b(interpret_pallas):
     m, jU, v, r = _links_case(seed=22)
     want = ps.wilson_u_residual_pallas(jU, m, jnp.asarray(v), jnp.asarray(r),
                                        "tiled", TX=8)
-    got = cs.wilson_u_residual_tiled(t_of(jU), m, t_of(v), t_of(r),
-                                     tile=(8, 8))
+    got = dispatch.links_residual(t_of(jU), m, t_of(v), t_of(r))
     assert rel_err(got, want) < C64_BAR
 
 
@@ -85,8 +82,7 @@ def test_dense_smoother_vs_pallas_tiled_B6(interpret_pallas, kind):
     want = ps.smooth_pallas_tiled(jnp.asarray(D), jnp.asarray(Dinv),
                                   jnp.asarray(phi), jnp.asarray(r), 1, kind,
                                   TX=8)
-    got = cs.dense_smooth_tiled(t_of(D), t_of(Dinv), t_of(phi), t_of(r), 1,
-                                kind, tile=(8, 8))
+    got = dispatch.smooth(t_of(D), t_of(Dinv), t_of(phi), t_of(r), 1, kind)
     assert rel_err(got, want) < C64_BAR
 
 
@@ -142,8 +138,8 @@ def test_rb_tile_fits_the_shared_memory(n, itemsize):
 
 def test_dense_red_black_tile_past_the_shared_memory_is_refused():
     """n=4 complex128 on 16 x 32 tiles would need 390 KB of shared memory
-    a block: refused for red-black, taken for Jacobi (no staged operands),
-    on CPU tensors as on the card."""
+    a block: refused for red-black before any launch, on CPU tensors as on
+    the card, and taken for Jacobi (no staged operands)."""
     rng = np.random.default_rng(27)
     n, L = 4, 8
     D = 0.25 * t_of(crandn(rng, (5, n, n, L, L)))
@@ -152,98 +148,22 @@ def test_dense_red_black_tile_past_the_shared_memory_is_refused():
     phi, r = t_of(crandn(rng, (n, L, L))), t_of(crandn(rng, (n, L, L)))
     with pytest.raises(ValueError, match="shared memory"):
         cs.dense_smooth_tiled(D, Dinv, phi, r, 1, "rbgs", tile=(16, 32))
-    assert torch.equal(
-        cs.dense_smooth_tiled(D, Dinv, phi, r, 1, "jacobi", tile=(16, 32)),
-        tsm.smooth_plain(D, Dinv, phi, r, 1, "jacobi"))
+    assert cs._tile((16, 32), L, 0, 16) == (16, 32)
 
 
-# ---- CPU tensors
+# ---- the tiles the wrappers take
 
 
-def test_cpu_tensors_take_the_plain_versions():
-    """On CPU tensors the tiled wrappers run their plain versions, equal to
-    them exactly, and count no launch; a bad tile is refused."""
+def test_tiled_wrappers_refuse_a_bad_tile():
+    """A tile outside 1..16 x 1..32 is refused before the wrapper looks at
+    its operands (CPU tensors here)."""
     rng = np.random.default_rng(24)
     L, m = 8, 0.1
     U = t_of(np.exp(1j * phases(rng, L)))
     phi, r = t_of(crandn(rng, (2, L, L))), t_of(crandn(rng, (2, L, L)))
-    D = 0.25 * t_of(crandn(rng, (2, 5, 2, 2, L, L)))
-    D[:, 0] += 4.0 * torch.eye(2, dtype=D.dtype)[:, :, None, None]
-    Dinv = tst.site_inverse(D[:, 0])
-    before = dict(cs.launches)
-    for kind in ("rbgs", "jacobi"):
-        assert torch.equal(
-            cs.wilson_u_smooth_tiled(U, m, phi, r, 2, kind, 0.9, tile=(3, 5)),
-            tgs.smooth_u("wilson", U, m, phi, r, 2, kind, 0.9))
-        batch = phi[None].expand(2, -1, -1, -1).contiguous()
-        assert torch.equal(
-            cs.dense_smooth_tiled(D, Dinv, batch, r, 2, kind),
-            tsm.smooth_plain(D, Dinv, batch, r, 2, kind))
-    assert torch.equal(cs.wilson_u_residual_tiled(U, m, phi, r),
-                       tgs.residual_u("wilson", U, m, phi, r))
-    assert cs.launches == before
     for tile in ((0, 32), (17, 32), (16, 33)):
-        with pytest.raises(ValueError):
+        with pytest.raises(ValueError, match="tile"):
             cs.wilson_u_residual_tiled(U, m, phi, r, tile=tile)
-
-
-# ---- routing
-
-
-def _spy(monkeypatch, name):
-    """Replace cs.<name> by a recorder that runs the original."""
-    calls = []
-    orig = getattr(cs, name)
-
-    def spy(*a, **k):
-        calls.append(name)
-        return orig(*a, **k)
-
-    monkeypatch.setattr(cs, name, spy)
-    return calls
-
-
-@pytest.mark.parametrize("mode", ["global", "tiled"])
-def test_smooth_routes_by_smoother_mode(monkeypatch, mode):
-    rng = np.random.default_rng(25)
-    n, L = 4, 8
-    D = 0.25 * t_of(crandn(rng, (5, n, n, L, L)))
-    D[0] += 4.0 * torch.eye(n, dtype=D.dtype)[:, :, None, None]
-    phi, r = t_of(crandn(rng, (n, L, L))), t_of(crandn(rng, (n, L, L)))
-    monkeypatch.setattr(cs, "smoother_mode", lambda n, L, dtype: mode)
-    tiled = _spy(monkeypatch, "dense_smooth_tiled")
-    plain = _spy(monkeypatch, "dense_smooth")
-    tsm.smooth(D, tst.site_inverse(D[0]), phi, r, 1, "rbgs")
-    assert (tiled if mode == "tiled" else plain) == [
-        "dense_smooth_tiled" if mode == "tiled" else "dense_smooth"]
-    assert (plain if mode == "tiled" else tiled) == []
-    tsm.smooth(D, tst.site_inverse(D[0]), phi, r, 1, "rbgs", pallas="off")
-    assert len(tiled) + len(plain) == 1
-
-
-@pytest.mark.parametrize("mode", ["global", "tiled"])
-def test_level0_routes_by_u_mode(monkeypatch, mode):
-    """_relax / _residual0 at level 0 with the links active take the tiled
-    or the global links wrappers as u_mode says; pallas='off' neither."""
-    rng = np.random.default_rng(26)
-    L = 8
-    cfg = mgt.MGConfig(L=L, stencil="wilson", m=-0.005, nlevels=1,
-                       num_iters=2, dtype="complex64")
-    U = t_of(np.exp(1j * phases(rng, L))).to(torch.complex64)
-    phi = t_of(crandn(rng, (2, L, L), np.complex64))
-    r = t_of(crandn(rng, (2, L, L), np.complex64))
-    monkeypatch.setattr(cs, "u_mode", lambda L, dtype: mode)
-    names = {"global": ("wilson_u_smooth", "wilson_u_residual"),
-             "tiled": ("wilson_u_smooth_tiled", "wilson_u_residual_tiled")}
-    spies = {k: _spy(monkeypatch, k) for pair in names.values() for k in pair}
-    tcy._relax(None, phi, r, cfg, 0, U)
-    tcy._residual0(None, phi, r, cfg, 0, U)
-    got = [k for k, calls in spies.items() for _ in calls]
-    assert got == list(names[mode])
-    off = cfg.replace(pallas="off")
-    tcy._relax(None, phi, r, off, 0, U)
-    tcy._residual0(None, phi, r, off, 0, U)
-    assert sum(len(c) for c in spies.values()) == 2
 
 
 # ---- the sweep schedule of the tiled wrappers

@@ -18,6 +18,7 @@ from tpu_multigrid.ops import stencil as jst, transfer as jtr  # noqa: E402
 from tpu_multigrid.solver import cycles as jcy  # noqa: E402
 import tpu_multigrid_torch as mgt  # noqa: E402
 from tpu_multigrid_torch.ops import galerkin as tgal, nearnull as tnn  # noqa: E402
+from tpu_multigrid_torch.ops import dispatch  # noqa: E402
 from tpu_multigrid_torch.ops import stencil as tst, transfer as ttr  # noqa: E402
 from tpu_multigrid_torch.solver import cycles as tcy  # noqa: E402
 
@@ -35,9 +36,9 @@ def test_restrict_prolong_ortho(quad):
     pn = crandn(rng, (NC, NF, L, L))
     vf = crandn(rng, (NF, L, L))
     vc = crandn(rng, (NC, L // B, L // B))
-    assert rel_err(ttr.restrict(t_of(pn), t_of(vf), quad, B, B),
+    assert rel_err(dispatch.restrict(t_of(pn), t_of(vf), quad, B, B),
                    jtr.restrict(pn, vf, quad, B, B)) < C128_BAR
-    assert rel_err(ttr.prolong(t_of(pn), t_of(vc), quad, B, B),
+    assert rel_err(dispatch.prolong(t_of(pn), t_of(vc), quad, B, B),
                    jtr.prolong(pn, vc, quad, B, B)) < C128_BAR
     assert rel_err(ttr.block_norms(t_of(vf), quad, B, B),
                    jtr.block_norms(vf, quad, B, B)) < C128_BAR
@@ -51,7 +52,8 @@ def test_restrict_prolong_ortho(quad):
     assert float(ttr.check_ortho(tp, quad, B, B)) < C128_BAR
     # restriction then prolongation with orthonormal rows is the identity
     # on the coarse space (reference self-test 1)
-    back = ttr.restrict(tp, ttr.prolong(tp, t_of(vc), quad, B, B), quad, B, B)
+    back = dispatch.restrict(tp, dispatch.prolong(tp, t_of(vc), quad, B, B),
+                             quad, B, B)
     assert rel_err(back, vc) < C128_BAR
 
 
@@ -177,11 +179,11 @@ def test_transfer_index_map_matches_the_einsum(quad, bx, by, nf, dtype):
     base = t_of(crandn(rng, (nf, L, L))).to(dt)
     bar = _BARS[dtype]
     assert rel_err(_mirror_restrict(pn, vf, quad, bx, by),
-                   ttr.restrict(pn, vf, quad, bx, by)) < bar
+                   dispatch.restrict(pn, vf, quad, bx, by)) < bar
     assert rel_err(_mirror_prolong(pn, vc, quad, bx, by),
-                   ttr.prolong(pn, vc, quad, bx, by)) < bar
+                   dispatch.prolong(pn, vc, quad, bx, by)) < bar
     assert rel_err(_mirror_prolong(pn, vc, quad, bx, by, base),
-                   ttr.prolong(pn, vc, quad, bx, by, base=base)) < bar
+                   dispatch.prolong(pn, vc, quad, bx, by, base=base)) < bar
 
 
 def _forms(rng, form, nq=4, nf=NF):
@@ -221,15 +223,15 @@ def test_transfer_batch_forms(form):
     pn, vf, vc, quad = _forms(rng, form)
     if quad is None:
         nq = pn.shape[-5]
-        rq = ttr.restrict_copies(pn, vf, B, B)
-        pq = ttr.prolong_copies(pn, vc, B, B)
+        rq = dispatch.restrict(pn, vf, None, B, B)
+        pq = dispatch.prolong(pn, vc, None, B, B)
         for q in range(nq):
             p_q = pn[..., q, :, :, :, :]
             assert torch.equal(rq[..., q, :, :, :],
-                               ttr.restrict(p_q, vf, q + 1, B, B))
+                               dispatch.restrict(p_q, vf, q + 1, B, B))
             assert torch.equal(pq[..., q, :, :, :],
-                               ttr.prolong(p_q, vc[..., q, :, :, :], q + 1,
-                                           B, B))
+                               dispatch.prolong(p_q, vc[..., q, :, :, :],
+                                                q + 1, B, B))
             assert rel_err(rq[..., q, :, :, :],
                            _mirror_restrict(p_q, vf, q + 1, B, B)) < C128_BAR
             assert rel_err(pq[..., q, :, :, :],
@@ -239,8 +241,8 @@ def test_transfer_batch_forms(form):
         assert tuple(rq.shape) == lead + (nq, NC, L // B, L // B)
         assert tuple(pq.shape) == lead + (nq, NF, L, L)
         return
-    got_r = ttr.restrict(pn, vf, quad, B, B)
-    got_p = ttr.prolong(pn, vc, quad, B, B)
+    got_r = dispatch.restrict(pn, vf, quad, B, B)
+    got_p = dispatch.prolong(pn, vc, quad, B, B)
     assert rel_err(got_r, _mirror_restrict(pn, vf, quad, B, B)) < C128_BAR
     assert rel_err(got_p, _mirror_prolong(pn, vc, quad, B, B)) < C128_BAR
     assert got_r.shape[0] == got_p.shape[0] == 3
@@ -255,42 +257,15 @@ def test_prolong_onto_base_is_base_plus_prolong(quad):
         pn, vc = t_of(crandn(rng, (4, NC, NF, L, L))), t_of(
             crandn(rng, (4, NC, L // B, L // B)))
         base = t_of(crandn(rng, (4, NF, L, L)))
-        want = base + ttr.prolong_copies(pn, vc, B, B)
+        want = base + dispatch.prolong(pn, vc, None, B, B)
         assert torch.equal(ttr.prolong_plain(pn, vc, None, B, B, base),
                            want)
         return
     pn, vc = t_of(crandn(rng, (NC, NF, L, L))), t_of(
         crandn(rng, (NC, L // B, L // B)))
     base = t_of(crandn(rng, (NF, L, L)))
-    assert torch.equal(ttr.prolong(pn, vc, quad, B, B, base=base),
-                       base + ttr.prolong(pn, vc, quad, B, B))
-
-
-@pytest.mark.parametrize("pallas", ["auto", "off"])
-def test_transfers_of_cpu_tensors_take_the_plain_path(pallas):
-    """CPU tensors run the einsum (bit for bit restrict_plain /
-    prolong_plain) through transfer.* and the cuda_stencil wrappers, and
-    count no launch."""
-    rng = np.random.default_rng(81)
-    pn, vf = t_of(crandn(rng, (4, NC, NF, L, L))), t_of(
-        crandn(rng, (NF, L, L)))
-    vc = t_of(crandn(rng, (4, NC, L // B, L // B)))
-    before = dict(tcs.launches)
-    for got, want in [
-            (ttr.restrict(pn[1], vf, 2, B, B, pallas=pallas),
-             ttr.restrict_plain(pn[1], vf, 2, B, B)),
-            (tcs.transfer_restrict(pn[1], vf, 2, B, B),
-             ttr.restrict_plain(pn[1], vf, 2, B, B)),
-            (ttr.prolong(pn[2], vc[2], 3, B, B, base=vf, pallas=pallas),
-             ttr.prolong_plain(pn[2], vc[2], 3, B, B, vf)),
-            (tcs.transfer_prolong(pn[2], vc[2], 3, B, B, vf),
-             ttr.prolong_plain(pn[2], vc[2], 3, B, B, vf)),
-            (ttr.restrict_copies(pn, vf, B, B, pallas=pallas),
-             ttr.restrict_plain(pn, vf, None, B, B)),
-            (ttr.prolong_copies(pn, vc, B, B, pallas=pallas),
-             ttr.prolong_plain(pn, vc, None, B, B))]:
-        assert torch.equal(got, want)
-    assert tcs.launches == before
+    assert torch.equal(dispatch.prolong(pn, vc, quad, B, B, base=base),
+                       base + dispatch.prolong(pn, vc, quad, B, B))
 
 
 def _refusal(case):

@@ -81,3 +81,60 @@ def read_results(path):
                                           float(v.partition("+i")[2]))
                                   for v in vals]))
     return its, rows
+
+
+def spy_dispatch(monkeypatch, *names):
+    """Replace each ops.dispatch.<name> by a recorder that runs the
+    original; returns the list of (name, pallas) of the calls in order,
+    pallas as the call passed it ("auto" where it did not). The package
+    calls the dispatchers through the module, so a dispatcher's calls of
+    another dispatcher are recorded too."""
+    import inspect
+
+    from tpu_multigrid_torch.ops import dispatch
+    calls = []
+    for name in names:
+        orig = getattr(dispatch, name)
+
+        def rec(*a, _orig=orig, _name=name, _sig=inspect.signature(orig),
+                **k):
+            calls.append((_name, _sig.bind(*a, **k).arguments.get(
+                "pallas", "auto")))
+            return _orig(*a, **k)
+
+        monkeypatch.setattr(dispatch, name, rec)
+    return calls
+
+
+# Solves with levels that no kernel takes, which the plain versions run on
+# the card as JAX's _relax runs them on plain XLA: a Laplace level 1 of n = 3
+# (the case of the JAX package's tests/test_solve.py
+# test_configurable_coarse_dof) and a 3 x 3 coarsest level smoothed
+# red-black (L=48, 2 x 2 blocks, 4 levels). Each: its MGConfig fields, the
+# width of its gauge phases (0: the identity gauge) and the JAX package's
+# cycle count from the same hierarchy inputs (phases and near-null starts
+# from numpy_inputs), which tests/test_torch_solve.py holds.
+FALLBACK_SOLVES = {
+    "ndof_coarse3": (dict(L=16, stencil="laplace", m=0.3, nlevels=2,
+                          num_iters=8, null_iters=80, res_threshold=1e-9,
+                          ndof_coarse=3), 0.0, 3),
+    "coarsest_3x3": (dict(L=48, stencil="wilson", m=0.1, nlevels=4,
+                          num_iters=4, null_iters=40, res_threshold=1e-9,
+                          smoother="rbgs"), 0.2, 8),
+}
+
+
+def numpy_inputs(cfg, width):
+    """(gauge phases [2, L, L], near-null starts [k, nf, S, S] a level) from
+    np.random.default_rng(cfg.seed): phases width N(0, 1), starts uniform
+    in (-pi, pi) as the packages' random_starts draw them, in cfg's
+    dtype."""
+    rng = np.random.default_rng(cfg.seed)
+    phases = width * rng.normal(size=(2, cfg.L, cfg.L))
+    starts = []
+    for lvl in range(cfg.nlevels):
+        nc, nf, S = cfg.n_dof[lvl + 1], cfg.n_dof[lvl], cfg.sizes[lvl]
+        k = nc // 2 if cfg.stencil == "wilson" else nc
+        u = rng.random(size=(k, nf, S, S))
+        starts.append(((2.0 * u - 1.0) * np.pi).astype(cfg.dtype))
+    return phases, starts

@@ -1,2 +1,2 @@
-from . import (cuda_stencil, galerkin, gauge_stencil, nearnull, norms,  # noqa: F401
-               smoothers, stencil, transfer)
+from . import (cuda_stencil, dispatch, galerkin, gauge_stencil,  # noqa: F401
+               nearnull, norms, smoothers, stencil, transfer)

@@ -1,5 +1,5 @@
 """Hand-written CUDA kernels of the smoother and SpMV paths, their
-wrappers, launch counters, their dispatch and the build-and-load code
+wrappers, launch counters, the L2 rule and the build-and-load code
 (counterpart of tpu_multigrid/ops/pallas_stencil.py).
 
 Kernels, each with its plain torch version. Global kernels
@@ -11,7 +11,7 @@ Kernels, each with its plain torch version. Global kernels
   `wilson_u_residual`. Plain version: gauge_stencil.residual_u.
 - links_residual_restrict <- the same, fused with the restriction of its
   output, via `wilson_u_residual_restrict`. Plain version:
-  transfer.restrict of gauge_stencil.residual_u.
+  transfer.restrict_plain of gauge_stencil.residual_u.
 - links_residual_norm <- the same, with the two norms of the level-0
   convergence check, via `wilson_u_residual_norm`. Plain version:
   gauge_stencil.residual_norm_ratio_u.
@@ -44,18 +44,15 @@ stages a tile of phi and its halo in shared memory:
 The cycle's transfers (csrc/transfer.cu), which replace no TPU kernel
 (the JAX package leaves them to XLA):
 
-- restrict <- transfer.restrict (an einsum there), via `transfer_restrict`.
-  Plain version: transfer.restrict_plain.
+- restrict <- the JAX package's transfer.restrict (an einsum), via
+  `transfer_restrict`. Plain version: transfer.restrict_plain.
 - prolong  <- transfer.prolong, with the correction's sum in the same
   launch, via `transfer_prolong`. Plain version: transfer.prolong_plain.
 
-`u_mode` / `smoother_mode` / `apply_mode` choose between the two from the
-bytes a level streams per sweep or apply against the H100's L2;
-`apply_D`, `residual` and `wilson_u_apply_auto` (counterpart of
-pallas_stencil.apply_D_pallas_auto) dispatch the SpMV and the dense
-residual by `apply_mode`; the dense ones also send an odd lattice or an
-operand off a 16-byte line, which the global kernel does not take, to the
-x-tiled kernel.
+`u_mode` / `smoother_mode` / `apply_mode` give the bytes a level streams
+per sweep or apply against the H100's L2, from which the route functions
+of ops/dispatch.py, the one module that chooses an implementation, pick
+the global or the x-tiled kernel.
 
 What bounds them on the H100 is bytes, not flops: 8 complex words a site
 per links smooth and 5n^2 + 3n per dense smooth (92 at n=4), each word
@@ -90,9 +87,8 @@ by a warp shuffle. In the tiled ones a thread owns two
 sites of a tile whose phi sits in shared memory. An SpMV moves 5n^2 + 2n
 words a site (dense) or 6 (links), once each.
 
-A CUDA tensor always goes to its kernel, or the wrapper raises; the plain
-version runs only for CPU tensors (or when the caller passes
-MGConfig.pallas='off' and calls the plain function itself).
+The wrappers are kernel-only: a tensor that is not on a CUDA device is
+refused like any other input the kernel does not take (a ValueError).
 
 The library is built at first use from the package's csrc/ sources into
 tpu_multigrid_torch/_build/, keyed by a hash of the sources and flags:
@@ -115,13 +111,14 @@ from typing import Callable
 
 import torch
 
-from . import gauge_stencil, smoothers, stencil, transfer
+from .transfer import QUAD_OFFSETS
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+KERNEL_KINDS = ("jacobi", "rbgs")        # the smoother kinds with a kernel
 
 # Launch counts per kernel: each wrapper adds one where it launches.
 launches = {"links_update": 0, "links_residual": 0,
@@ -273,6 +270,7 @@ def _launch(name: str, dtype: torch.dtype, device, *args) -> None:
 
 
 def _check(name: str, t: torch.Tensor, like: torch.Tensor, shape) -> None:
+    _on_card(name, t)
     if t.device != like.device:
         raise ValueError(f"{name} on {t.device}, expected {like.device}")
     if t.dtype != like.dtype:
@@ -284,8 +282,13 @@ def _check(name: str, t: torch.Tensor, like: torch.Tensor, shape) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _on_card(name: str, t: torch.Tensor) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"{name} is on {t.device}, not on a CUDA device")
+
+
 def _check_lattice(L: int, kind: str) -> None:
-    if kind not in smoothers.KERNEL_KINDS:
+    if kind not in KERNEL_KINDS:
         raise NotImplementedError(f"no kernel for smoother {kind!r}")
     if kind == "rbgs" and L % 2:
         raise ValueError(f"red-black sweeps need an even lattice, got L={L}")
@@ -318,7 +321,7 @@ def _check_out_of_place(src, dst) -> None:
 
 
 # --------------------------------------------------------------------------
-# dispatch: global kernels while a level's sweep fits the L2, else x-tiled
+# the L2 rule: global kernels while a level's sweep fits the L2, else x-tiled
 # --------------------------------------------------------------------------
 
 # The H100's L2 holds 50 MB. While a level's sweep streams less than that,
@@ -560,13 +563,17 @@ def _apply_operands(U, v) -> int:
     return L
 
 
+def aligned(*operands) -> bool:
+    """Whether every operand (None: absent) starts on a 16-byte line (a fresh
+    tensor does; a view may not), as 16-byte loads of two sites need."""
+    return all(t is None or t.data_ptr() % 16 == 0 for t in operands)
+
+
 def _links_paired(*operands) -> bool:
     """Whether the links SpMV and residual read a pair of sites in 16-byte
-    loads (PAIRED): an even lattice and every operand on a 16-byte line (a
-    fresh tensor is; a view may not be). Else they read a word a load, at
-    any L."""
-    return operands[0].shape[-1] % 2 == 0 and all(
-        t.data_ptr() % 16 == 0 for t in operands)
+    loads (PAIRED): an even lattice and every operand aligned. Else they
+    read a word a load, at any L."""
+    return operands[0].shape[-1] % 2 == 0 and aligned(*operands)
 
 
 def wilson_u_residual(U, m: float, phi, r):
@@ -578,8 +585,6 @@ def wilson_u_residual(U, m: float, phi, r):
     (via wilson_u_residual_pallas). Bound by bytes: U once, phi and r read
     once, out written once (8 complex words per site, 2 + 6 B in a
     batch)."""
-    if not phi.is_cuda:
-        return gauge_stencil.residual_u("wilson", U, m, phi, r)
     B, L, r_bs = _links_operands(U, phi, r)
     out = torch.empty_like(phi)
     _launch("links_residual", phi.dtype, phi.device, U.data_ptr(),
@@ -613,8 +618,6 @@ def wilson_u_residual_norm(U, m: float, phi, b):
     solver/cycles.residual_norm_ratio0. Bound by bytes: U 2, phi 2 and b 2
     complex words a site. Plain version: gauge_stencil.residual_norm_ratio_u
     (the links residual, then the two float64 norms)."""
-    if not phi.is_cuda:
-        return gauge_stencil.residual_norm_ratio_u("wilson", U, m, phi, b)
     B, L, b_bs = _links_operands(U, phi, b)
     out = torch.empty((B,) if phi.dim() == 4 else (), dtype=b.real.dtype,
                       device=phi.device)
@@ -634,22 +637,18 @@ def links_restrict_fits(nc: int, bx: int, by: int) -> bool:
 
 def wilson_u_residual_restrict(U, m: float, phi, r, phi_null, quad: int,
                                bx: int, by: int):
-    """transfer.restrict(phi_null, r - D_U phi, quad, bx, by) in one launch:
-    the level-0 residual of wilson_u_residual, restricted in registers, the
-    fine residual never written. phi and r [B?, 2, L, L] (r shared or
-    batched), U [2, L, L] and phi_null [nc, 2, L, L] shared by the batch;
-    out [B?, nc, L / bx, L / by]. nc in {1, 2, 4}, bx and by in {2, 4}
-    (links_restrict_fits); anything else raises.
+    """transfer.restrict_plain(phi_null, r - D_U phi, quad, bx, by) in one
+    launch: the level-0 residual of wilson_u_residual, restricted in
+    registers, the fine residual never written. phi and r [B?, 2, L, L] (r
+    shared or batched), U [2, L, L] and phi_null [nc, 2, L, L] shared by
+    the batch; out [B?, nc, L / bx, L / by]. nc in {1, 2, 4}, bx and by in
+    {2, 4} (links_restrict_fits); anything else raises.
 
     Replaces tpu_multigrid/ops/pallas_stencil.py _u_resid_vmem_kernel (via
     wilson_u_residual_pallas) together with the restriction of its output.
     Bound by bytes: U 2, phi 2, r 2, phi_null 2 nc and out nc / (bx by)
     complex words a fine site (15 at nc=4, 2 x 2). Plain version: the
-    composition of transfer.restrict and gauge_stencil.residual_u."""
-    if not phi.is_cuda:
-        return transfer.restrict(
-            phi_null, gauge_stencil.residual_u("wilson", U, m, phi, r), quad,
-            bx, by)
+    composition of transfer.restrict_plain and gauge_stencil.residual_u."""
     B, L, r_bs = _links_operands(U, phi, r)
     nc = phi_null.shape[0] if phi_null.dim() == 4 else 0
     if not links_restrict_fits(nc, bx, by) or L % bx or L % by:
@@ -659,7 +658,7 @@ def wilson_u_residual_restrict(U, m: float, phi, r, phi_null, quad: int,
     _check("phi_null", phi_null, phi, (nc, 2, L, L))
     _check_aligned("wilson_u_residual_restrict", U=U, phi=phi, r=r,
                    phi_null=phi_null)
-    ox, oy = transfer.QUAD_OFFSETS[quad]
+    ox, oy = QUAD_OFFSETS[quad]
     lead = (B,) if phi.dim() == 4 else ()
     out = torch.empty(lead + (nc, L // bx, L // by), dtype=phi.dtype,
                       device=phi.device)
@@ -676,10 +675,7 @@ def wilson_u_residual_tiled(U, m: float, phi, r, tile=None):
     Replaces tpu_multigrid/ops/pallas_stencil.py _u_resid_tile_kernel (via
     wilson_u_residual_pallas(mode='tiled')). Same bytes as
     wilson_u_residual, each word read once per pass from HBM."""
-    L = phi.shape[-1]
-    TX, TY = _tile(tile, L)
-    if not phi.is_cuda:
-        return gauge_stencil.residual_u("wilson", U, m, phi, r)
+    TX, TY = _tile(tile, phi.shape[-1])
     B, L, r_bs = _links_operands(U, phi, r)
     out = torch.empty_like(phi)
     _launch("links_residual_tiled", phi.dtype, phi.device, U.data_ptr(),
@@ -700,9 +696,6 @@ def wilson_u_smooth(U, m: float, phi, r, n_sweeps: int, kind: str = "rbgs",
     (plan_band over B L rows). Bound by bytes: U, r, phi in and out, 8
     complex words per site once per smooth (U once for the batch). The
     result is a new tensor; phi is left as it was."""
-    if not phi.is_cuda:
-        return gauge_stencil.smooth_u("wilson", U, m, phi, r, n_sweeps, kind,
-                                      omega)
     B, L, r_bs = _links_operands(U, phi, r)
     _check_lattice(L, kind)
     band = _band("links_update", phi.dtype, 2, B, L, phi.device)
@@ -727,9 +720,6 @@ def wilson_u_smooth_tiled(U, m: float, phi, r, n_sweeps: int,
     words per site once per sweep). The result is a new tensor; phi is
     left as it was."""
     TX, TY = _tile(tile, phi.shape[-1])
-    if not phi.is_cuda:
-        return gauge_stencil.smooth_u("wilson", U, m, phi, r, n_sweeps, kind,
-                                      omega)
     _links_operands(U, phi, r)
     _check_lattice(phi.shape[-1], kind)
     return _sweeps(functools.partial(_links_sweep, U, m, r, omega, TX, TY),
@@ -756,8 +746,6 @@ def wilson_u_apply(U, m: float, v):
     Replaces tpu_multigrid/ops/pallas_stencil.py _u_apply_vmem_kernel (via
     apply_wilson_u_pallas_vmem). Bound by bytes: U, v in and out, 6
     complex words per site. Plain version: gauge_stencil.apply_wilson_u."""
-    if not v.is_cuda:
-        return gauge_stencil.apply_wilson_u(U, m, v)
     L = _apply_operands(U, v)
     out = torch.empty_like(v)
     _launch("links_apply", v.dtype, v.device, U.data_ptr(), v.data_ptr(),
@@ -771,24 +759,12 @@ def wilson_u_apply_tiled(U, m: float, v, tile=None):
     Replaces tpu_multigrid/ops/pallas_stencil.py _u_apply_tile_kernel (via
     apply_wilson_u_pallas). Same bytes as wilson_u_apply, each word of v
     read once per pass from HBM (the halo from the staged tile)."""
-    L = v.shape[-1]
-    TX, TY = _tile(tile, L)
-    if not v.is_cuda:
-        return gauge_stencil.apply_wilson_u(U, m, v)
+    TX, TY = _tile(tile, v.shape[-1])
     L = _apply_operands(U, v)
     out = torch.empty_like(v)
     _launch("links_apply_tiled", v.dtype, v.device, U.data_ptr(),
             v.data_ptr(), out.data_ptr(), 1, L, float(m), TX, TY)
     return out
-
-
-def wilson_u_apply_auto(U, m: float, v):
-    """D_U v by the global or the x-tiled links wrapper, as
-    apply_mode(links=True) says (each takes the plain version for a CPU
-    tensor)."""
-    if apply_mode(2, v.shape[-1], v.dtype, links=True) == "tiled":
-        return wilson_u_apply_tiled(U, m, v)
-    return wilson_u_apply(U, m, v)
 
 
 # --------------------------------------------------------------------------
@@ -880,8 +856,6 @@ def dense_smooth(D, D0inv, phi, r, n_sweeps: int, kind: str = "rbgs",
     bytes: D's 4n^2 hop blocks and D0inv's n^2 once a copy, r, phi in and
     out, once per smooth (92 complex words per site at n=4). The result is
     a new tensor; phi is left as it was."""
-    if not phi.is_cuda:
-        return smoothers.smooth_plain(D, D0inv, phi, r, n_sweeps, kind, omega)
     dims = _dense_operands("dense_update", D, D0inv, phi, r, kind)
     band = _band("dense_update", phi.dtype, dims.n, dims.B, dims.L,
                  phi.device, dims.G)
@@ -911,8 +885,6 @@ def dense_smooth_tiled(D, D0inv, phi, r, n_sweeps: int, kind: str = "rbgs",
     was."""
     TX, TY = _tile(tile, phi.shape[-1],
                    phi.shape[-3] if kind == "rbgs" else 0, phi.element_size())
-    if not phi.is_cuda:
-        return smoothers.smooth_plain(D, D0inv, phi, r, n_sweeps, kind, omega)
     dims = _dense_operands("dense_update_tiled", D, D0inv, phi, r, kind)
     return _sweeps(functools.partial(_dense_sweep, D, D0inv, r, dims, omega,
                                      TX, TY), phi, n_sweeps, kind)
@@ -976,25 +948,9 @@ def dense_groups(name: str, D, v, r=None) -> Groups:
                   n * L * L if Bv else 0, r_bs)
 
 
-def grouped_apply(D, v):
-    """The plain SpMV (stencil.apply_D) of a call that dense_groups takes:
-    E copies of D against B = E G entries of v as [E, 1, ...] against [E, G,
-    ...], the result [B, n, L, L]."""
-    g = dense_groups("apply_D", D, v)
-    if D.dim() == 6 and v.dim() == 4 and g.G > 1:
-        out = stencil.apply_D(D.unsqueeze(1),
-                              v.reshape(D.shape[0], g.G, *v.shape[1:]))
-        return out.reshape(v.shape)
-    return stencil.apply_D(D, v)
-
-
 def _dense_call(name, D, v, r, *tile):
     """out = D v (r None) or r - D v by the kernel `name`, the batch in
     groups (dense_groups); out is allocated here and never aliases v."""
-    if not v.is_cuda:
-        dense_groups(name, D, v, r)
-        out = grouped_apply(D, v)
-        return out if r is None else r - out
     n, L = v.shape[-3], v.shape[-1]
     if n not in (1, 2, 4):
         raise ValueError(f"{name} takes n in (1, 2, 4), got {n}")
@@ -1023,7 +979,7 @@ def dense_apply(D, v):
     4}, L even: a D shared by the batch, or E copies each shared by a group
     of B / E entries (dense_groups), v batched or shared. Bound by bytes:
     D's 5 n^2 words once a group, v in and out (5n^2 + 2n complex words a
-    site unbatched). Plain version: stencil.apply_D (grouped_apply)."""
+    site unbatched). Plain version: stencil.apply_D."""
     return _dense_call("dense_apply", D, v, None)
 
 
@@ -1051,37 +1007,6 @@ def dense_residual_tiled(D, phi, r, tile=None):
     residual epilogue."""
     return _dense_call("dense_residual_tiled", D, phi, r,
                        *_tile(tile, phi.shape[-1]))
-
-
-def _dense_route(v, *operands) -> str:
-    """'tiled' where apply_mode says so, or where the global kernel, which
-    reads pairs of sites in 16-byte loads, cannot take the call: an odd
-    lattice (a coarsest level of L / block^nlevels may be odd) or an
-    operand off a 16-byte line; else 'global'."""
-    L = v.shape[-1]
-    if apply_mode(v.shape[-3], L, v.dtype) == "tiled" or L % 2 or any(
-            t is not None and t.data_ptr() % 16 for t in (v,) + operands):
-        return "tiled"
-    return "global"
-
-
-def apply_D(D, v):
-    """D v by dense_apply or dense_apply_tiled, as _dense_route says
-    (counterpart of pallas_stencil.apply_D_pallas_auto, which takes any
-    L): the plain stencil.apply_D for a CPU tensor; on a CUDA tensor the
-    kernel runs or the wrapper raises."""
-    if _dense_route(v, D) == "tiled":
-        return dense_apply_tiled(D, v)
-    return dense_apply(D, v)
-
-
-def residual(D, phi, r):
-    """r - D phi by dense_residual or dense_residual_tiled, as _dense_route
-    says: the plain stencil.residual for a CPU tensor; on a CUDA tensor the
-    kernel runs or the wrapper raises."""
-    if _dense_route(phi, D, r) == "tiled":
-        return dense_residual_tiled(D, phi, r)
-    return dense_residual(D, phi, r)
 
 
 # --------------------------------------------------------------------------
@@ -1142,7 +1067,7 @@ def _transfer_call(phi_null, field, quad, bx: int, by: int,
         quads = (quad,)
     ox_mask = oy_mask = 0
     for q, qd in enumerate(quads):
-        ox, oy = transfer.QUAD_OFFSETS[qd]
+        ox, oy = QUAD_OFFSETS[qd]
         ox_mask |= (ox == -1) << q
         oy_mask |= (oy == -1) << q
     Ep, p_so, p_sq = _transfer_operand("phi_null", phi_null, 4, nq)
@@ -1172,8 +1097,7 @@ def transfer_restrict(phi_null, vf, quad, bx: int, by: int):
     a field and the result nc / (bx by) an entry, each once; the einsum it
     replaces copied phi_null into the block frame each call and ran a
     batched gemv. Plain version: transfer.restrict_plain."""
-    if not vf.is_cuda:
-        return transfer.restrict_plain(phi_null, vf, quad, bx, by)
+    _on_card("vf", vf)
     lead, nq, args = _transfer_call(phi_null, vf, quad, bx, by, False)
     E, NQ, nc, nf, Lx, Ly = args[:6]
     if tuple(vf.shape[-3:]) != (nf, Lx, Ly):
@@ -1203,8 +1127,7 @@ def transfer_prolong(phi_null, vc, quad, bx: int, by: int, base=None):
     site a copy, vc nc / (bx by), base nf and the result nf an entry, each
     once; conj(phi_null) is formed in registers. Plain version:
     transfer.prolong_plain."""
-    if not vc.is_cuda:
-        return transfer.prolong_plain(phi_null, vc, quad, bx, by, base)
+    _on_card("vc", vc)
     lead, nq, args = _transfer_call(phi_null, vc, quad, bx, by, True)
     E, NQ, nc, nf, Lx, Ly = args[:6]
     if tuple(vc.shape[-3:]) != (nc, Lx // bx, Ly // by):

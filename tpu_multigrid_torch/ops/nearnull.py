@@ -3,8 +3,8 @@ tpu_multigrid/ops/nearnull.py; reference Level::f_near_null,
 level.h:177-249).
 
 The k candidates relax D x = 0 from random starts as ONE batch through
-`smooth` (the dense_update kernel on CUDA tensors, D shared by the
-batch), renormalized each globally every `iters_per_norm` sweeps, or,
+`dispatch.smooth` (the dense_update kernel on CUDA tensors, D shared by
+the batch), renormalized each globally every `iters_per_norm` sweeps, or,
 with joint_qr, orthonormalized together. Wilson candidates are split
 chirally into upper/lower rows (level.h:223-248).
 
@@ -19,7 +19,7 @@ import math
 
 import torch
 
-from .smoothers import smooth
+from . import dispatch
 
 
 def relax_null_vectors(D, D0inv, starts, null_iters: int,
@@ -42,8 +42,8 @@ def relax_null_vectors(D, D0inv, starts, null_iters: int,
     renorm = _mgs if joint_qr else _normalize_each
     v = _mgs(starts) if joint_qr else starts
     for _ in range(max(null_iters // iters_per_norm, 1)):
-        v = renorm(smooth(D, D0inv, v, zero_r, iters_per_norm, smoother,
-                          omega, pallas=pallas))
+        v = renorm(dispatch.smooth(D, D0inv, v, zero_r, iters_per_norm,
+                                   smoother, omega, pallas=pallas))
     return v
 
 

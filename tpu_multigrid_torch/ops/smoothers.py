@@ -9,14 +9,11 @@ Update rule (reference Level::f_relax, level.h:100-128):
 shared by the batch or batched with it. Fields [C, k, n, L, L] with
 operators [C, ...] are C groups of k fields, each group on its own
 operator (an ensemble's near-null candidates: k a configuration); the
-plain sweeps broadcast each operator over its group. The Jacobi and
-red-black sweeps here are the plain torch versions of the dense_update
-and dense_update_tiled kernels (ops/cuda_stencil.py), which `smooth` runs
-for CUDA tensors. `gs_lex` has no kernel, here as in the JAX package (which
-runs it on plain XLA): `smooth` runs its plain sweeps on any device.
-`chebyshev` has no kernel of its own either: each step's operator apply
-goes through cuda_stencil.apply_D (the dense SpMV kernels) on CUDA
-tensors, its site matvec and axpys are plain torch.
+plain sweeps broadcast each operator over its group. These are the plain
+versions of the dense_update kernels (ops/dispatch.smooth chooses).
+`gs_lex` has no kernel, as in the JAX package (plain XLA there), nor has
+`chebyshev`: its applies are the ones it is given (dispatch.smooth gives
+the dispatched SpMV), its site matvecs and axpys plain torch.
 """
 from __future__ import annotations
 
@@ -27,7 +24,6 @@ from .gauge_stencil import parity_mask
 from .stencil import apply_D, apply_hop, _site_matvec
 
 KINDS = ("jacobi", "rbgs", "gs_lex", "chebyshev")
-KERNEL_KINDS = ("jacobi", "rbgs")        # the kinds with a CUDA kernel
 
 
 def _local_solve(D0inv, hop, r):
@@ -68,18 +64,8 @@ def gs_lex_sweep(D, D0inv, phi, r, omega: float = 1.0):
     return phi
 
 
-def _apply_full(D, v, pallas: str = "auto"):
-    """D v, the full stencil (JAX smoothers._apply_full): the SpMV kernel
-    (cuda_stencil.apply_D) on CUDA tensors unless pallas='off', else the
-    plain stencil.apply_D."""
-    if v.is_cuda and pallas != "off":
-        from . import cuda_stencil
-        return cuda_stencil.apply_D(D, v)
-    return apply_D(D, v)
-
-
 def chebyshev_smooth(D, D0inv, phi, r, degree: int, lmin: float,
-                     lmax: float, pallas: str = "auto"):
+                     lmax: float, apply=apply_D):
     """Degree-`degree` Chebyshev iteration on A e = f with A = D0^{-1} D,
     f = D0^{-1} r, eigenvalues of A assumed in [lmin, lmax] (positive).
 
@@ -88,14 +74,15 @@ def chebyshev_smooth(D, D0inv, phi, r, degree: int, lmin: float,
     scaled-and-shifted Chebyshev polynomial that is minimal on [lmin, lmax].
     Each step costs one stencil apply, as a Jacobi sweep does. The scalar
     recurrence runs on the host, rounded to the field's real dtype as the
-    JAX package's is."""
+    JAX package's is. apply(D, v) is D v (default: the plain
+    stencil.apply_D)."""
     theta = 0.5 * (lmax + lmin)
     delta = 0.5 * (lmax - lmin)
     sigma1 = theta / delta
     real = np.float64 if phi.dtype == torch.complex128 else np.float32
 
     def A(v):
-        return _site_matvec(D0inv, _apply_full(D, v, pallas))
+        return _site_matvec(D0inv, apply(D, v))
 
     f = _site_matvec(D0inv, r)
     d = (f - A(phi)) / theta
@@ -111,11 +98,6 @@ def chebyshev_smooth(D, D0inv, phi, r, degree: int, lmin: float,
 
 
 _SWEEPS = {"jacobi": jacobi_sweep, "rbgs": rbgs_sweep, "gs_lex": gs_lex_sweep}
-
-
-def _check_kind(kind: str):
-    if kind not in KINDS:
-        raise NotImplementedError(f"no smoother {kind!r} (have {KINDS})")
 
 
 def _over_groups(t: torch.Tensor, site_ndim: int, phi: torch.Tensor):
@@ -134,41 +116,12 @@ def _over_groups(t: torch.Tensor, site_ndim: int, phi: torch.Tensor):
 def smooth_plain(D, D0inv, phi, r, n_sweeps: int, kind: str = "rbgs",
                  omega: float = 1.0):
     """n_sweeps plain torch sweeps on any device (jacobi, rbgs, gs_lex)."""
+    if kind not in KINDS:
+        raise NotImplementedError(f"no smoother {kind!r} (have {KINDS})")
     if kind not in _SWEEPS:
-        _check_kind(kind)
-        raise ValueError(f"{kind} is not a sweep: use smooth")
+        raise ValueError(f"{kind} is not a sweep: use dispatch.smooth")
     sweep = _SWEEPS[kind]
     D, D0inv = _over_groups(D, 5, phi), _over_groups(D0inv, 4, phi)
     for _ in range(n_sweeps):
         phi = sweep(D, D0inv, phi, r, omega)
     return phi
-
-
-def smooth(D, D0inv, phi, r, n_sweeps: int, kind: str = "rbgs",
-           omega: float = 1.0, pallas: str = "auto", cheby_interval=None):
-    """Run n_sweeps smoother sweeps (reference f_relax's num_iter loop).
-
-    pallas='auto' (MGConfig.pallas) runs the CUDA kernels on CUDA tensors:
-    dense_update, or dense_update_tiled where cuda_stencil.smoother_mode
-    says the level is past the L2; 'off' runs the plain torch sweeps
-    everywhere. A kind without a kernel (gs_lex) runs its plain sweeps on
-    any device, as the JAX package runs it on plain XLA.
-
-    kind='chebyshev' runs ONE degree-n_sweeps Chebyshev polynomial (the
-    stencil-apply count of n_sweeps Jacobi sweeps) on its spectral
-    interval `cheby_interval` = (lmin, lmax) (solver.eigs).
-    """
-    _check_kind(kind)
-    if kind == "chebyshev":
-        if cheby_interval is None:
-            raise ValueError("chebyshev smoother needs cheby_interval="
-                             "(lmin, lmax); see solver.eigs")
-        return chebyshev_smooth(D, D0inv, phi, r, n_sweeps, *cheby_interval,
-                                pallas=pallas)
-    if pallas == "off" or kind not in KERNEL_KINDS:
-        return smooth_plain(D, D0inv, phi, r, n_sweeps, kind, omega)
-    from . import cuda_stencil as cs
-    n, L = phi.shape[-3], phi.shape[-1]
-    fn = (cs.dense_smooth_tiled if cs.smoother_mode(n, L, phi.dtype) == "tiled"
-          else cs.dense_smooth)
-    return fn(D, D0inv, phi, r, n_sweeps, kind, omega)

@@ -10,7 +10,7 @@ torch.multiprocessing) holding its own tiles:
   stencil op exchanges a width-1 halo (parallel.halo).
 - Coarse levels below the shardability threshold are replicated: the
   restricted residual is all_gathered once per transition, and every rank
-  runs the same coarse solve through the port's own ops (ops.smoothers.
+  runs the same coarse solve through the port's own ops (ops.dispatch.
   smooth: the dense_update kernel on the card) until prolongation cuts the
   local tile back out.
 - The NTL quadrant copies run at the replicated coarsest level: below
@@ -31,9 +31,8 @@ import torch
 import torch.distributed as dist
 
 from ..config import MGConfig, XP, XM, YP, YM
-from ..ops import cuda_stencil, transfer
-from ..ops.smoothers import smooth
-from ..ops.stencil import norm_ratio, residual
+from ..ops import dispatch, transfer
+from ..ops.stencil import norm_ratio
 from ..solver.cycles import min_res_weights
 from ..solver.hierarchy import Hierarchy, LevelOps, NTLOps
 from .halo import (all_gather, apply_D_sharded, psum,
@@ -266,16 +265,8 @@ def _relax(lev, phi, r, cfg: MGConfig, sharded: bool, lvl: int, mesh: Mesh):
         return smooth_sharded(lev.D, lev.D0inv, phi, r, cfg.num_iters, kind,
                               mesh, cfg.omega, cheby_interval=ci,
                               overlap=cfg.halo_overlap)
-    return smooth(lev.D, lev.D0inv, phi, r, cfg.num_iters, kind, cfg.omega,
-                  pallas=cfg.pallas, cheby_interval=ci)
-
-
-def _residual(D, phi, r, cfg: MGConfig):
-    """A replicated level's residual: the dense residual kernel on the
-    card unless cfg.pallas == 'off' (its plain version on the CPU)."""
-    if cfg.pallas == "off":
-        return residual(D, phi, r)
-    return cuda_stencil.residual(D, phi, r)
+    return dispatch.smooth(lev.D, lev.D0inv, phi, r, cfg.num_iters, kind,
+                           cfg.omega, cfg.pallas, ci)
 
 
 def _min_res_weights_sharded(D_f, r_f, xs_list, cfg: MGConfig, mesh: Mesh):
@@ -307,12 +298,12 @@ def _ntl_coarse_solves_submesh(ntl, r_q, phi_shape, cfg: MGConfig,
     n_copies ranks each rank relaxes one copy instead of n_copies."""
     nq = cfg.n_copies
     my_copy = mesh.rank % nq
-    phi_me = smooth(ntl.D[my_copy], ntl.D0inv[my_copy],
-                    torch.zeros(phi_shape, dtype=r_q[my_copy].dtype,
-                                device=mesh.device),
-                    r_q[my_copy], cfg.num_iters, effective_smoother(cfg),
-                    cfg.omega, pallas=cfg.pallas,
-                    cheby_interval=_cheby_interval(cfg, cfg.nlevels))
+    phi_me = dispatch.smooth(ntl.D[my_copy], ntl.D0inv[my_copy],
+                             torch.zeros(phi_shape, dtype=r_q[my_copy].dtype,
+                                         device=mesh.device),
+                             r_q[my_copy], cfg.num_iters,
+                             effective_smoother(cfg), cfg.omega, cfg.pallas,
+                             _cheby_interval(cfg, cfg.nlevels))
     counts = torch.tensor([max(1, len([d for d in range(mesh.size)
                                        if d % nq == q])) for q in range(nq)],
                           dtype=phi_me.dtype, device=mesh.device)
@@ -337,7 +328,7 @@ def make_sharded_cycle(cfg: MGConfig, mesh: Mesh):
 
     def residual_of(lev, phi, r, l):
         return (residual_sharded(lev.D, phi, r, mesh, ov) if sh[l]
-                else _residual(lev.D, phi, r, cfg))
+                else dispatch.residual(lev.D, phi, r, cfg.pallas))
 
     def restrict_step(pn, res, quad, l):
         """Level-l residual restricted to level l+1, gathered where level
@@ -345,7 +336,7 @@ def make_sharded_cycle(cfg: MGConfig, mesh: Mesh):
         if sh[l]:
             rc = _restrict_sharded(pn, res, quad, bx, by, mesh)
             return rc if sh[l + 1] else _gather_lattice(rc, mesh)
-        return transfer.restrict(pn, res, quad, bx, by)
+        return dispatch.restrict(pn, res, quad, bx, by)
 
     def prolong_step(pn, vc, quad, l):
         """Level-(l+1) correction prolonged to level l."""
@@ -353,7 +344,7 @@ def make_sharded_cycle(cfg: MGConfig, mesh: Mesh):
             if not sh[l + 1]:
                 vc = _my_tile(vc, mesh)
             return _prolong_sharded(pn, vc, quad, bx, by, mesh)
-        return transfer.prolong(pn, vc, quad, bx, by)
+        return dispatch.prolong(pn, vc, quad, bx, by)
 
     def cycle_fn(hier: Hierarchy, phis, b):
         L = hier.levels
@@ -382,11 +373,11 @@ def make_sharded_cycle(cfg: MGConfig, mesh: Mesh):
             else:
                 # every copy on every rank, smoothed as one batch
                 r_q = torch.stack(r_q)
-                phi_q = smooth(hier.ntl.D[:nq], hier.ntl.D0inv[:nq],
-                               torch.zeros_like(r_q), r_q, cfg.num_iters,
-                               effective_smoother(cfg), cfg.omega,
-                               pallas=cfg.pallas,
-                               cheby_interval=_cheby_interval(cfg, n))
+                phi_q = dispatch.smooth(hier.ntl.D[:nq], hier.ntl.D0inv[:nq],
+                                        torch.zeros_like(r_q), r_q,
+                                        cfg.num_iters, effective_smoother(cfg),
+                                        cfg.omega, cfg.pallas,
+                                        _cheby_interval(cfg, n))
             combine = cfg.ntl_combine
             if combine == "auto":
                 combine = "minres" if cfg.min_res else "avg_prolong"
@@ -424,7 +415,8 @@ def make_sharded_cycle(cfg: MGConfig, mesh: Mesh):
         if sh[0]:
             resmag = residual_norm_ratio_sharded(L[0].D, phis[0], b, mesh, ov)
         else:
-            resmag = norm_ratio(_residual(L[0].D, phis[0], b, cfg), b)
+            resmag = norm_ratio(dispatch.residual(L[0].D, phis[0], b,
+                                                  cfg.pallas), b)
         return tuple(phis), resmag
 
     return cycle_fn

@@ -42,6 +42,7 @@ from typing import Callable, Dict, NamedTuple, Optional
 import torch
 
 from .config import MGConfig
+from .ops import cuda_stencil as cs, dispatch
 
 # Peak HBM bandwidth (bytes/s) by card, from NVIDIA's data sheets; the
 # first entry whose every word is in torch.cuda.get_device_name() wins.
@@ -209,10 +210,9 @@ class RooflineRow:
 def roofline_table(cfg: MGConfig, D, v, r=None, reps: int = 100) -> Dict:
     """Time the hot operations of one level and set them against the HBM
     roofline: the plain versions (rows apply_D, jacobi_sweep, rbgs_sweep)
-    and, for CUDA tensors, the kernels that apply_mode / smoother_mode
-    pick (apply_D_cuda or apply_D_cuda_tiled, jacobi_cuda or
-    jacobi_cuda_tiled)."""
-    from .ops import cuda_stencil as cs
+    and the kernels the route functions of ops/dispatch.py name for this
+    level (apply_D_cuda or apply_D_cuda_tiled, jacobi_cuda or
+    jacobi_cuda_tiled), as the solver runs it."""
     from .ops.stencil import apply_D, site_inverse
     from .ops.smoothers import jacobi_sweep, rbgs_sweep
 
@@ -233,16 +233,20 @@ def roofline_table(cfg: MGConfig, D, v, r=None, reps: int = 100) -> Dict:
                     time_op(lambda D, x: rbgs_sweep(D, Dinv, x, r), D, v,
                             reps=reps), 2 * sweep_bytes),
     ]
-    if v.is_cuda:
-        tiled = cs.apply_mode(n, L, v.dtype) == "tiled"
+    seen = {"device": v.device.type, "pallas": cfg.pallas}
+    route = dispatch.spmv_route(n, L, v.dtype, cs.aligned(D, v), **seen)
+    if route != "plain":
+        tiled = route == "tiled"
         rows.append(RooflineRow(
-            "apply_D_cuda_tiled" if tiled else "apply_D_cuda",
+            "apply_D_cuda" + "_tiled" * tiled,
             time_op(cs.dense_apply_tiled if tiled else cs.dense_apply, D, v,
                     reps=reps), stencil_bytes(n, L, dbytes)))
-        tiled = cs.smoother_mode(n, L, v.dtype) == "tiled"
+    route = dispatch.smooth_route("jacobi", n, L, v.dtype, 0, **seen)
+    if route != "plain":
+        tiled = route == "tiled"
         smooth = cs.dense_smooth_tiled if tiled else cs.dense_smooth
         rows.append(RooflineRow(
-            "jacobi_cuda_tiled" if tiled else "jacobi_cuda",
+            "jacobi_cuda" + "_tiled" * tiled,
             time_op(lambda D, x: smooth(D, Dinv, x, r, 1, "jacobi"), D, v,
                     reps=reps), sweep_bytes))
     return {"device": (torch.cuda.get_device_name(v.device) if v.is_cuda

@@ -23,11 +23,8 @@ from typing import Optional
 import torch
 
 from ..config import MGConfig
-from ..ops import cuda_stencil, gauge_stencil
-from ..ops.stencil import apply_D, norm_ratio, residual
-from ..ops.smoothers import KERNEL_KINDS, smooth
-from ..ops.transfer import (prolong, prolong_copies, restrict,
-                             restrict_copies)
+from ..ops import dispatch
+from ..ops.stencil import norm_ratio
 from .hierarchy import Hierarchy
 
 
@@ -44,76 +41,43 @@ def links_active(cfg: MGConfig, gauge, lvl: int) -> bool:
     return cfg.dtype == "complex64"
 
 
-def _tiled0(phi) -> bool:
-    """Whether level 0's links kernels are the x-tiled ones (u_mode)."""
-    return cuda_stencil.u_mode(phi.shape[-1], phi.dtype) == "tiled"
-
-
 def _relax(lev, phi, r, cfg: MGConfig, lvl: int = 0, gauge=None):
-    """num_iters sweeps at one level: the Chebyshev polynomial on the
-    level's interval, the links smoother at a links-active level 0 for the
-    kinds it has (jacobi, rbgs), else `smooth` on the level's dense stencil
-    (gs_lex there runs its plain sweeps), as the JAX package's _relax
-    dispatches."""
-    if cfg.smoother == "chebyshev":
-        return smooth(lev.D, lev.D0inv, phi, r, cfg.num_iters, "chebyshev",
-                      pallas=cfg.pallas,
-                      cheby_interval=cfg.cheby_intervals[lvl])
-    if links_active(cfg, gauge, lvl) and cfg.smoother in KERNEL_KINDS:
-        if cfg.pallas == "off":
-            return gauge_stencil.smooth_u(cfg.stencil, gauge, cfg.m, phi, r,
-                                          cfg.num_iters, cfg.smoother,
-                                          cfg.omega)
-        fn = (cuda_stencil.wilson_u_smooth_tiled if _tiled0(phi)
-              else cuda_stencil.wilson_u_smooth)
-        return fn(gauge, cfg.m, phi, r, cfg.num_iters, cfg.smoother,
-                  cfg.omega)
-    return smooth(lev.D, lev.D0inv, phi, r, cfg.num_iters, cfg.smoother,
-                  cfg.omega, pallas=cfg.pallas)
+    """num_iters sweeps at one level: the links form at a links-active level
+    0 for the sweeps it has, else the dense stencil, as JAX's _relax."""
+    if links_active(cfg, gauge, lvl) and cfg.smoother in ("jacobi", "rbgs"):
+        return dispatch.links_smooth(gauge, cfg.m, phi, r, cfg.num_iters,
+                                     cfg.smoother, cfg.omega, cfg.pallas)
+    return dispatch.smooth(
+        lev.D, lev.D0inv, phi, r, cfg.num_iters, cfg.smoother, cfg.omega,
+        cfg.pallas, cfg.cheby_intervals[lvl]
+        if cfg.smoother == "chebyshev" else None)
 
 
 def _residual0(lev, phi, r, cfg: MGConfig, lvl: int = 0, gauge=None):
-    """Level residual with the links-only path at level 0; the dense
-    residual kernel (cuda_stencil.residual) elsewhere unless
-    cfg.pallas == 'off'."""
+    """Level residual with the links-only form at a links-active level 0."""
     if links_active(cfg, gauge, lvl):
-        if cfg.pallas == "off":
-            return gauge_stencil.residual_u(cfg.stencil, gauge, cfg.m, phi, r)
-        fn = (cuda_stencil.wilson_u_residual_tiled if _tiled0(phi)
-              else cuda_stencil.wilson_u_residual)
-        return fn(gauge, cfg.m, phi, r)
-    if cfg.pallas == "off":
-        return residual(lev.D, phi, r)
-    return cuda_stencil.residual(lev.D, phi, r)
+        return dispatch.links_residual(gauge, cfg.m, phi, r, cfg.pallas)
+    return dispatch.residual(lev.D, phi, r, cfg.pallas)
 
 
 def _restricted_residual(lev, phi, r, cfg: MGConfig, lvl: int = 0,
                          gauge=None):
-    """restrict(lev.phi_null, the level residual, cfg.quad): at a links-active
-    level 0 on the global kernels, one launch of the fused
-    residual-restriction (cuda_stencil.wilson_u_residual_restrict) where it
-    takes the shapes; else the residual (_residual0), then restrict."""
+    """restrict(lev.phi_null, the level residual, cfg.quad)."""
     bx, by = cfg.block_x, cfg.block_y
-    pn = lev.phi_null
-    if (links_active(cfg, gauge, lvl) and cfg.pallas != "off"
-            and not _tiled0(phi) and pn.dim() == 4
-            and cuda_stencil.links_restrict_fits(pn.shape[0], bx, by)):
-        return cuda_stencil.wilson_u_residual_restrict(
-            gauge, cfg.m, phi, r, pn, cfg.quad, bx, by)
-    return restrict(pn, _residual0(lev, phi, r, cfg, lvl, gauge), cfg.quad,
-                    bx, by, pallas=cfg.pallas)
+    if links_active(cfg, gauge, lvl):
+        return dispatch.links_residual_restrict(
+            gauge, cfg.m, phi, r, lev.phi_null, cfg.quad, bx, by, cfg.pallas)
+    return dispatch.restrict(lev.phi_null, _residual0(lev, phi, r, cfg),
+                             cfg.quad, bx, by, cfg.pallas)
 
 
 def residual_norm_ratio0(hier: Hierarchy, phi, b, cfg: MGConfig):
-    """||b - D phi|| / ||b|| at level 0, via the links-only residual when
+    """||b - D phi|| / ||b|| at level 0, via the links-only form when
     active (reference f_get_residue_mag, level.h:79-98); one per batch
-    entry for a batch of fields. At a links-active level 0 one launch
-    computes it at any L (cuda_stencil.wilson_u_residual_norm; the plain
-    composition with cfg.pallas == 'off'); else the level residual
-    (_residual0), then the two float64 norms."""
+    entry for a batch of fields."""
     g = hier.gauge
-    if links_active(cfg, g, 0) and cfg.pallas != "off":
-        return cuda_stencil.wilson_u_residual_norm(g, cfg.m, phi, b)
+    if links_active(cfg, g, 0):
+        return dispatch.links_residual_norm(g, cfg.m, phi, b, cfg.pallas)
     return norm_ratio(_residual0(hier.levels[0], phi, b, cfg, 0, g), b)
 
 
@@ -138,8 +102,9 @@ def v_cycle(hier: Hierarchy, phis, b: torch.Tensor, cfg: MGConfig):
     for l in range(n, -1, -1):
         phis[l] = _relax(L[l], phis[l], rs[l], cfg, l, g)
         if l > 0:
-            phis[l - 1] = prolong(L[l - 1].phi_null, phis[l], cfg.quad, bx,
-                                  by, base=phis[l - 1], pallas=cfg.pallas)
+            phis[l - 1] = dispatch.prolong(L[l - 1].phi_null, phis[l],
+                                           cfg.quad, bx, by, phis[l - 1],
+                                           cfg.pallas)
             phis[l] = torch.zeros_like(phis[l])
     return tuple(phis)
 
@@ -163,8 +128,8 @@ def gamma_cycle(hier: Hierarchy, phis, b: torch.Tensor, cfg: MGConfig):
         phis[l + 1] = torch.zeros_like(phis[l + 1])
         for _ in range(gamma if l + 1 < n else 1):
             at(l + 1, rc)
-        phis[l] = prolong(L[l].phi_null, phis[l + 1], cfg.quad, bx, by,
-                          base=phis[l], pallas=cfg.pallas)
+        phis[l] = dispatch.prolong(L[l].phi_null, phis[l + 1], cfg.quad, bx,
+                                   by, phis[l], cfg.pallas)
         phis[l + 1] = torch.zeros_like(phis[l + 1])
         phis[l] = _relax(L[l], phis[l], rhs, cfg, l, g)
 
@@ -183,16 +148,12 @@ def min_res_weights(D_f, r_f, xs: torch.Tensor, cfg: MGConfig):
     the source is <x_p, r> (laplace) or <r, D x_p> (wilson) — the
     reference's deliberate asymmetry (modules_main.h:336-340 vs :358-366),
     selectable via cfg.minres_src. Solves the n_copies x n_copies system,
-    one per batch entry in one call. D x runs on the SpMV kernel
-    (cuda_stencil.apply_D; its plain version with cfg.pallas == 'off') on
-    the copies flattened to one batch axis, each copy of D_f shared by the
-    n_copies entries of its field.
+    one per batch entry in one call. D x is dispatch.apply_D on the copies
+    flattened to one batch axis, each copy of D_f shared by the n_copies
+    entries of its field.
     """
-    if cfg.pallas == "off":
-        Dx = apply_D(D_f.unsqueeze(-6), xs)
-    else:
-        Dx = cuda_stencil.apply_D(
-            D_f, xs.reshape(-1, *xs.shape[-3:])).reshape(xs.shape)
+    Dx = dispatch.apply_D(D_f, xs.reshape(-1, *xs.shape[-3:]),
+                          cfg.pallas).reshape(xs.shape)
     if xs.dim() == 4:
         A = torch.einsum("pnxy,qnxy->pq", torch.conj(xs), Dx)
     else:
@@ -259,15 +220,14 @@ def ntl_cycle(hier: Hierarchy, phis, b: torch.Tensor, cfg: MGConfig):
     # q + 1; their restrictions [B?, nq, nc, Sc, Sc] (one launch on the
     # card), smoothed as one batch
     null_q = ntl.phi_null[..., :nq, :, :, :, :]
-    r_q = restrict_copies(null_q, res, bx, by, pallas=cfg.pallas)
+    r_q = dispatch.restrict(null_q, res, None, bx, by, cfg.pallas)
     D_q, Dinv_q = _copy_operators(ntl, nq, lead)
     cheby_n = (cfg.cheby_intervals[n] if cfg.smoother == "chebyshev"
                else None)
     flat = (-1,) + tuple(r_q.shape[-3:])
-    phi_q = smooth(D_q, Dinv_q, torch.zeros_like(r_q).reshape(flat),
-                   r_q.reshape(flat), cfg.num_iters, cfg.smoother, cfg.omega,
-                   pallas=cfg.pallas,
-                   cheby_interval=cheby_n).reshape(r_q.shape)
+    phi_q = dispatch.smooth(D_q, Dinv_q, torch.zeros_like(r_q).reshape(flat),
+                            r_q.reshape(flat), cfg.num_iters, cfg.smoother,
+                            cfg.omega, cfg.pallas, cheby_n).reshape(r_q.shape)
 
     combine = cfg.ntl_combine
     if combine == "auto":
@@ -275,11 +235,11 @@ def ntl_cycle(hier: Hierarchy, phis, b: torch.Tensor, cfg: MGConfig):
     if combine == "avg_coarse":
         a = torch.full(lead + (nq,), 1.0 / nq, dtype=phi_q.dtype,
                        device=phi_q.device)
-        phis[l] = prolong(ntl.phi_null[..., cfg.quad - 1, :, :, :, :],
-                          phi_q.mean(dim=-4), cfg.quad, bx, by,
-                          base=phis[l], pallas=cfg.pallas)
+        phis[l] = dispatch.prolong(ntl.phi_null[..., cfg.quad - 1, :, :, :, :],
+                                   phi_q.mean(dim=-4), cfg.quad, bx, by,
+                                   phis[l], cfg.pallas)
     else:
-        xs = prolong_copies(null_q, phi_q, bx, by, pallas=cfg.pallas)
+        xs = dispatch.prolong(null_q, phi_q, None, bx, by, pallas=cfg.pallas)
         if combine == "minres":
             a = min_res_weights(L[l].D, rs[l], xs, cfg)
         else:
@@ -291,8 +251,9 @@ def ntl_cycle(hier: Hierarchy, phis, b: torch.Tensor, cfg: MGConfig):
     for l in range(n - 1, -1, -1):
         phis[l] = _relax(L[l], phis[l], rs[l], cfg, l, g)
         if l > 0:
-            phis[l - 1] = prolong(L[l - 1].phi_null, phis[l], cfg.quad, bx,
-                                  by, base=phis[l - 1], pallas=cfg.pallas)
+            phis[l - 1] = dispatch.prolong(L[l - 1].phi_null, phis[l],
+                                           cfg.quad, bx, by, phis[l - 1],
+                                           cfg.pallas)
             phis[l] = torch.zeros_like(phis[l])
     return tuple(phis), a
 
@@ -318,16 +279,16 @@ def fmg_init(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
 
     bs = [b]
     for l in range(n):
-        bs.append(restrict(L[l].phi_null, bs[l], cfg.quad, bx, by,
-                           pallas=cfg.pallas))
+        bs.append(dispatch.restrict(L[l].phi_null, bs[l], cfg.quad, bx, by,
+                                    cfg.pallas))
     cheby_n = (cfg.cheby_intervals[n] if cfg.smoother == "chebyshev"
                else None)
-    phi = smooth(L[n].D, L[n].D0inv, torch.zeros_like(bs[n]), bs[n],
-                 coarsest_iters or 4 * cfg.num_iters, cfg.smoother,
-                 cfg.omega, pallas=cfg.pallas, cheby_interval=cheby_n)
+    phi = dispatch.smooth(L[n].D, L[n].D0inv, torch.zeros_like(bs[n]), bs[n],
+                          coarsest_iters or 4 * cfg.num_iters, cfg.smoother,
+                          cfg.omega, cfg.pallas, cheby_n)
     for l in range(n - 1, -1, -1):
-        phi = prolong(L[l].phi_null, phi, cfg.quad, bx, by,
-                      pallas=cfg.pallas)
+        phi = dispatch.prolong(L[l].phi_null, phi, cfg.quad, bx, by,
+                               pallas=cfg.pallas)
         sub_h = Hierarchy(levels=L[l:], ntl=None,
                           gauge=hier.gauge if l == 0 else None)
         sub_c = cfg.replace(

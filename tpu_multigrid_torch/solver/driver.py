@@ -30,8 +30,7 @@ import torch
 
 from .. import profiling
 from ..config import MGConfig
-from ..ops import cuda_stencil
-from ..ops.stencil import residual
+from ..ops import dispatch
 from ..utils.compile import REUSE, CapturedChunk, run_steps
 from .cycles import cycle, fmg_init, residual_norm_ratio0
 from .hierarchy import Hierarchy, cast_hierarchy, zero_fields
@@ -204,8 +203,6 @@ def _kept_program(hier: Hierarchy, held: tuple, key: tuple, make):
 def _ir_step(hier_in: Hierarchy, D_outer, cfg: MGConfig, cfg_in: MGConfig,
              inner_cycles: int):
     """The body of one outer step of solve_ir on (phi, r, b, |b|)."""
-    outer_residual = residual if cfg.pallas == "off" else cuda_stencil.residual
-
     def step(phi, r, b, bn):
         rn = torch.sqrt(torch.sum(r.abs() ** 2))
         safe = torch.where(rn > 0, rn, torch.ones_like(rn))
@@ -214,7 +211,7 @@ def _ir_step(hier_in: Hierarchy, D_outer, cfg: MGConfig, cfg_in: MGConfig,
         for _ in range(inner_cycles):
             es, _ = cycle(hier_in, es, r_in, cfg_in)
         phi = phi + safe * es[0].to(phi.dtype)
-        r = outer_residual(D_outer, phi, b)
+        r = dispatch.residual(D_outer, phi, b, cfg.pallas)
         return (phi, r, b, bn), torch.sqrt(torch.sum(r.abs() ** 2)) / bn
     return step
 
@@ -235,9 +232,8 @@ def solve_ir(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
     The hierarchy may be built in cfg.dtype (its inner view is a cast) or
     directly in `inner_dtype`, with the exact level-0 operator passed as
     `D_outer` (converted to cfg.dtype on b's device; default: the
-    hierarchy's level-0 D). The outer residual runs on the dense residual
-    kernels (cuda_stencil.residual; its plain version with cfg.pallas ==
-    'off'). One program is one outer step (its cycles, the update, the
+    hierarchy's level-0 D). The outer residual is dispatch.residual. One
+    program is one outer step (its cycles, the update, the
     outer residual and its norm); the host reads the residual back every
     `outer_chunk` outer steps; history holds one entry per read-back, with
     history_stride = inner_cycles * outer_chunk.
@@ -368,11 +364,11 @@ def mr_solve(D, b, tol: float = 1e-8, max_iters: int = 100000,
     x_{k+1} = x_k + alpha r_k with alpha = <D r, r> / <D r, D r>, alpha
     and the norm in the field's dtype. `chunk` steps run between host
     convergence checks, so the count keeps the JAX package's chunk
-    granularity. D r is cuda_stencil.apply_D: the SpMV kernel on CUDA
+    granularity. D r is dispatch.apply_D: the SpMV kernel on CUDA
     tensors, the plain version on CPU ones. Returns (x, iters, relres),
     x a tensor on b's device.
     """
-    return mr_iterate(lambda v: cuda_stencil.apply_D(D, v), b, b, tol,
+    return mr_iterate(lambda v: dispatch.apply_D(D, v), b, b, tol,
                       max_iters, chunk)
 
 

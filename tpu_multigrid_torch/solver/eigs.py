@@ -9,7 +9,7 @@
 - `chebyshev_config` / `jacobi_operator_lmax`: the Chebyshev smoother's
   interval, lambda_max of D0^{-1} D on every level.
 
-Every operator apply is cuda_stencil.apply_D (the dense SpMV kernels on
+Every operator apply is dispatch.apply_D (the dense SpMV kernels on
 CUDA tensors, the plain stencil.apply_D on CPU ones); the iterations run
 on the tensors' device and only the k x k tridiagonal eigenproblem runs on
 the host. The random starts come from np.random.default_rng(seed), as in
@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ..models.operators import gamma5
-from ..ops import cuda_stencil
+from ..ops import dispatch
 from ..ops.stencil import _site_matvec
 
 
@@ -83,10 +83,10 @@ def hermitian_form(D: torch.Tensor, stencil: str) -> Callable:
     """Matvec of the Hermitian form: D (laplace) or gamma5 D (wilson)."""
     n = D.shape[1]
     if stencil == "laplace":
-        return lambda v: cuda_stencil.apply_D(D, v)
+        return lambda v: dispatch.apply_D(D, v)
     g5 = torch.from_numpy(gamma5(n)).to(device=D.device, dtype=D.dtype)
     return lambda v: torch.einsum("ij,jxy->ixy", g5,
-                                  cuda_stencil.apply_D(D, v))
+                                  dispatch.apply_D(D, v))
 
 
 def _start(D: torch.Tensor, seed: int) -> torch.Tensor:
@@ -128,6 +128,6 @@ def jacobi_operator_lmax(D: torch.Tensor, D0inv: torch.Tensor,
     """Largest |lambda| of the Jacobi-preconditioned operator
     A = D0^{-1} D: the upper end of the Chebyshev smoother's interval."""
     lam, _ = power_extreme(
-        lambda v: _site_matvec(D0inv, cuda_stencil.apply_D(D, v)),
+        lambda v: _site_matvec(D0inv, dispatch.apply_D(D, v)),
         _start(D, seed), iters)
     return float(lam)

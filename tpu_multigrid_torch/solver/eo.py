@@ -13,7 +13,7 @@ Fields stay full [n, L, L] tensors with parity support: apply_hop maps an
 even-supported field to an odd-supported one, so the iteration needs no
 masking. The Schur application is plain torch (apply_hop and the site
 matvecs, as in the JAX package); the full-system residual goes through
-cuda_stencil.apply_D.
+dispatch.apply_D.
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ import torch
 
 from .. import profiling
 from ..config import SAME
-from ..ops import cuda_stencil, gauge_stencil
+from ..ops import dispatch, gauge_stencil
 from ..ops.stencil import apply_hop, _site_matvec, site_inverse
 from .driver import mr_iterate
 
@@ -67,7 +67,7 @@ def eo_mr_solve(D: torch.Tensor, b: torch.Tensor, tol: float = 1e-8,
     checks. With x_o back-substituted exactly the odd rows of b - D x
     vanish and the even rows equal the Schur residual, so the iteration
     stops on the Schur residual over ||b||; the returned residual is the
-    full system's ||b - D x|| / ||b||, D x by cuda_stencil.apply_D.
+    full system's ||b - D x|| / ||b||, D x by dispatch.apply_D.
     Returns (x, schur_iters, full_relres), x a tensor on b's device.
     """
     D0inv = site_inverse(D[SAME])
@@ -75,6 +75,6 @@ def eo_mr_solve(D: torch.Tensor, b: torch.Tensor, tol: float = 1e-8,
     xe, it, _ = mr_iterate(lambda v: schur_apply(D, D0inv, v), be_hat, b,
                            tol, max_iters, chunk)
     x = eo_reconstruct(D, D0inv, xe, bo)
-    res = b - cuda_stencil.apply_D(D, x)
+    res = b - dispatch.apply_D(D, x)
     rel = torch.sqrt(torch.sum(res.abs() ** 2) / torch.sum(b.abs() ** 2))
     return x, it, float(rel)

@@ -6,7 +6,7 @@ For near-critical or indefinite Wilson systems the stationary MG cycle
 can stagnate or diverge; FGMRES wraps the cycle as a right preconditioner,
 and CGNR (CG on D^H D, Hermitian positive definite for any invertible D)
 converges where every other solver here stalls. Every operator
-application is cuda_stencil.apply_D: the SpMV kernels on CUDA tensors
+application is dispatch.apply_D: the SpMV kernels on CUDA tensors
 (complex64 and complex128), the plain version on CPU ones. As in the JAX
 package, a chunk of CGNR iterations, and FGMRES's preconditioner and its
 operator apply, each run as one device program
@@ -26,7 +26,7 @@ import torch
 
 from .. import profiling
 from ..config import MGConfig
-from ..ops import cuda_stencil
+from ..ops import dispatch
 from ..ops.stencil import adjoint_stencil, _sumsq
 from ..utils.compile import CapturedChunk, run_steps
 from .cycles import cycle
@@ -69,13 +69,13 @@ def fgmres_solve(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
         return (v, _mg_precond(hier, v, cfg, precond_cycles)), None
 
     def apply(v, z):
-        return (v, z), cuda_stencil.apply_D(D, z)
+        return (v, z), dispatch.apply_D(D, z)
 
     x = torch.zeros_like(b)
     total_iters = 0
 
     for _ in range(max_restarts):
-        r = b - cuda_stencil.apply_D(D, x)
+        r = b - dispatch.apply_D(D, x)
         with READ_BACK:
             beta = _norm(r)
         if beta / bnorm < tol:
@@ -115,7 +115,7 @@ def fgmres_solve(hier: Hierarchy, b: torch.Tensor, cfg: MGConfig,
         x = x + sum(complex(y[i]) * Z[i] for i in range(k_done))
 
     prog.close()
-    r = b - cuda_stencil.apply_D(D, x)
+    r = b - dispatch.apply_D(D, x)
     with READ_BACK:
         rel = _norm(r) / bnorm
     return x, total_iters, rel
@@ -146,7 +146,7 @@ def cgnr_solve(D, b, tol: float = 1e-8, max_iters: int = 50000,
     the rest, each ending in the true residual's norm. Returns (x, iters,
     rel), x a tensor on b's device.
     """
-    apply = cuda_stencil.apply_D
+    apply = dispatch.apply_D
     if Ddag is None:
         Ddag = adjoint_stencil(D)
     rdt = b.real.dtype
@@ -221,7 +221,7 @@ def cgnr_solve_ir(D64, D_host, b_host, tol: float = 1e-8,
                               chunk=chunk, Ddag=Ddag64)
         total_inner += it
         phi = phi + rn * e.to(torch.complex128)
-        r = b - cuda_stencil.apply_D(D128, phi)
+        r = b - dispatch.apply_D(D128, phi)
         with READ_BACK:
             rel = math.sqrt(float(_sumsq(r))) / bn
         if rel < tol or not math.isfinite(rel):

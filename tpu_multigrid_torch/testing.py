@@ -21,7 +21,7 @@ import torch
 from .config import MGConfig
 from .models.operators import gamma5
 from .ops.stencil import apply_D, shift
-from .ops.transfer import restrict, prolong
+from .ops.dispatch import restrict, prolong
 from .solver.hierarchy import Hierarchy, _pin_setup_precision
 
 EPSILON = 1.0e-12       # reference tests.h tolerance (double precision)

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..ops.stencil import residual
-from ..ops.transfer import restrict
+from ..ops.dispatch import restrict
 
 
 def host(x) -> np.ndarray:
