@@ -88,7 +88,10 @@ restriction, the two coarse residuals on the dense residual kernel, the
 min-res apply on the SpMV kernel, every other restriction and
 prolongation on the transfer kernels, the NTL copies' in one launch each
 way, no x-tiled kernel) and one large-flagship cycle exactly LARGE_CYCLE
-(the x-tiled smoothers once per sweep, the coarse residuals x-tiled past
+(the links x-tiled smoother once per sweep, the dense one in the launches
+of rb_plan: two sweeps a column-march pass at levels 1-2, counted in
+rb_sweeps as LARGE_RB_SWEEPS, one a launch at level 3; the coarse
+residuals x-tiled past
 the L2 and global within it, six restrictions and six prolongations),
 that neither runs cuBLAS's batched gemv (the einsum transfers' kernel),
 that a batched or ensemble cycle launches as an unbatched one does, that
@@ -244,17 +247,23 @@ FLAGSHIP_CYCLE = {"links_update": 2, "dense_update": 5,
                   "links_residual_restrict": 1, "links_residual": 0,
                   "dense_residual": 2, "dense_apply": 1,
                   "restrict": 2, "prolong": 3}
-# One large-flagship cycle: one fused red-black launch a sweep (rbgs x4 at
-# level 0, 2 calls, and at levels 1-3, 2 calls each); level 0's residual on
+# One large-flagship cycle: rbgs x4, 2 calls a level, at level 0 one fused
+# red-black launch a sweep, at levels 1-2 (L=1024, 512) two sweeps a
+# launch (the column march, rb_plan) and at level 3 (L=256, whose operands
+# fit the L2) one a launch; level 0's residual on
 # B5b (then the plain restriction); the dense residuals of levels 1-2
 # (L=1024, 512) x-tiled, of levels 3-5 (L=256, 128, 64) global
 # (apply_mode); the min-res apply at level 5; the restrictions of levels
 # 0-4 and of the copies at level 5, the copies' prolongation and levels
 # 5-1's.
-LARGE_CYCLE = {"links_update_tiled": 8, "dense_update_tiled": 24,
+LARGE_CYCLE = {"links_update_tiled": 8, "dense_update_tiled": 16,
                "links_residual_tiled": 1, "links_residual_restrict": 0,
                "dense_residual_tiled": 2, "dense_residual": 3,
                "dense_apply": 1, "restrict": 6, "prolong": 6}
+# The red-black sweeps of a large cycle's dense_update_tiled launches, by
+# the launch that ran them (cuda_stencil.rb_sweeps): 16 in march passes,
+# 8 in one-pass launches.
+LARGE_RB_SWEEPS = {"multi": 16, "one": 8}
 # The counts each phase takes (cycles; solve_ir's cycles to 1e-8 and to
 # 1e-13; Krylov iterations): the JAX package's and every earlier smoke's.
 COUNTS = {"flagship": 10, "flagship solve_ir": (14, 24), "large": 8,
@@ -1098,7 +1107,8 @@ def run_kernel_cases(torch, mgt, dev):
 
 
 def cycle_launches(torch, mgt, dev, cfg, hier, ms_per_cycle, want, tag,
-                   first_design_ops=None, b=None, no_gemv=False):
+                   first_design_ops=None, b=None, no_gemv=False,
+                   want_rb=None):
     """One cycle with the launch counters set to 0 just before it and read
     just after: exactly want[k] launches of each kernel k of `want`. The
     profiler gives the cycle's device ops and device time; the idle share
@@ -1106,7 +1116,8 @@ def cycle_launches(torch, mgt, dev, cfg, hier, ms_per_cycle, want, tag,
     (default the point source), [B, n, L, L] for a batched cycle. no_gemv:
     no device op of the cycle is cuBLAS's batched gemv (gemvx), which the
     einsum transfers ran before the transfer kernels (the ops whose names
-    hold "gemv" are listed under gemv_ops: the min-res 4 x 4 solve's)."""
+    hold "gemv" are listed under gemv_ops: the min-res 4 x 4 solve's).
+    want_rb: exactly these red-black sweeps by launch kind (rb_sweeps)."""
     from torch.profiler import ProfilerActivity, profile
     cs = mgt.ops.cuda_stencil
     if b is None:
@@ -1122,18 +1133,21 @@ def cycle_launches(torch, mgt, dev, cfg, hier, ms_per_cycle, want, tag,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     counts = {k: v for k, v in cs.launches.items() if v}
+    rb = dict(cs.rb_sweeps)
     events = device_ops_of(p)
     busy_us = sum(getattr(e, "device_time_total", None)
                   or getattr(e, "cuda_time_total", 0.0) for e in events)
     top = device_time_by_name(p).most_common(8)
-    out = {"port_launches": counts, "device_ops": len(events),
+    out = {"port_launches": counts, "rb_sweeps": rb,
+           "device_ops": len(events),
            "device_ms": busy_us / 1e3,
            "wall_ms_profiled": wall * 1e3,
            "idle_share": 1 - busy_us / 1e3 / ms_per_cycle,
            "top_device_us": [[name[:80], us] for name, us in top]}
     if first_design_ops is not None:
         out["first_design_device_ops"] = first_design_ops
-    print(f"  one {tag} cycle: kernel launches {counts}; profiler "
+    print(f"  one {tag} cycle: kernel launches {counts}; red-black sweeps "
+          f"by launch {rb}; profiler "
           f"{len(events)} device ops"
           + ("" if first_design_ops is None else
              f" (first design, on record: {first_design_ops})")
@@ -1143,6 +1157,9 @@ def cycle_launches(torch, mgt, dev, cfg, hier, ms_per_cycle, want, tag,
         print(f"    {us:9.1f} us  {name[:80]}")
     check(all(counts.get(k, 0) == n for k, n in want.items()),
           f"a {tag} cycle launched {counts}: want {want}")
+    if want_rb is not None:
+        check(rb == want_rb, f"a {tag} cycle's red-black sweeps by launch "
+              f"{rb}: want {want_rb}")
     out["gemv_ops"] = sorted({e.name[:80] for e in events
                               if "gemv" in e.name.lower()})
     if no_gemv:
@@ -1771,13 +1788,14 @@ def graph_vs_eager(torch, mgt, tag, run, count_of, field_of,
 
 
 def replayed_cycle(torch, mgt, dev, cfg, hier, b, n_cyc, reps, tag,
-                   want=None):
+                   want=None, want_rb=None):
     """One cycle captured as the drivers capture their chunks
     (CapturedChunk) and replayed: its capture seconds; ms a cycle replayed
     and eager (n_cyc cycles a run, CUDA events, median of `reps` runs, in
     turns eager, graph, graph, eager); one replay profiled (device ops,
     device ms, idle share against the replayed ms) with the launch
-    counters set to 0 just before it: exactly `want` where given. b [B, n,
+    counters set to 0 just before it: exactly `want` (and `want_rb`, the
+    red-black sweeps by launch kind) where given. b [B, n,
     L, L] for a batched cycle. The first replay, from zero fields, must
     give the eager cycle's fields bit for bit. Returns the summary."""
     from torch.profiler import ProfilerActivity, profile
@@ -1822,10 +1840,12 @@ def replayed_cycle(torch, mgt, dev, cfg, hier, b, n_cyc, reps, tag,
         chunk("cycle", body)
         torch.cuda.synchronize()
     counts = {k: v for k, v in cs.launches.items() if v}
+    rb = dict(cs.rb_sweeps)
     events = device_ops_of(p)
     busy_ms = sum(getattr(e, "device_time_total", None)
                   or getattr(e, "cuda_time_total", 0.0) for e in events) / 1e3
     out = {"capture_s": cap.seconds, "same_bits_as_eager": same_bits,
+           "rb_sweeps": rb,
            "ms_graph": ms_graph, "ms_eager": ms_eager, "ms_turns": ms,
            "speedup": ms_eager / ms_graph, "device_ops": len(events),
            "device_ms": busy_ms,
@@ -1838,10 +1858,13 @@ def replayed_cycle(torch, mgt, dev, cfg, hier, b, n_cyc, reps, tag,
           + (f"{len(events)} device ops, {busy_ms:.4f} ms of device time, "
              f"idle {out['idle_share']:.3f}" if events else
              "the profiler saw no device event (not measured)")
-          + f"; launches {counts}")
+          + f"; launches {counts}; red-black sweeps by launch {rb}")
     if want is not None:
         check(all(counts.get(k, 0) == n for k, n in want.items()),
               f"a replayed {tag} cycle launched {counts}: want {want}")
+    if want_rb is not None:
+        check(rb == want_rb, f"a replayed {tag} cycle's red-black sweeps by "
+              f"launch {rb}: want {want_rb}")
     return out
 
 
@@ -2721,10 +2744,10 @@ def main():
           "in the warm-up")
     large["cycle"] = cycle_launches(
         torch, mgt, dev, cfg, hier, large["ms_per_cycle"], LARGE_CYCLE,
-        "large flagship", no_gemv=True)
+        "large flagship", no_gemv=True, want_rb=LARGE_RB_SWEEPS)
     large["replayed"] = replayed_cycle(
         torch, mgt, dev, cfg, hier, mgt.point_source(cfg, device=dev), 4, 3,
-        "large flagship", LARGE_CYCLE)
+        "large flagship", LARGE_CYCLE, LARGE_RB_SWEEPS)
     large["check"] = check_phase(torch, mgt, dev, cfg, hier, reps=10)
     large["solve_ir"] = ir_phase(torch, mgt, dev, cfg, phases0, hier,
                                  COUNTS["large solve_ir"])

@@ -21,12 +21,16 @@ the large flagship's x-tiled shapes (links rbgs x4 at L=2048; dense rbgs
 x4 at n=4 L=1024, 512 and 256, and setup at n=2 L=2048 with k=2 sharing
 D), it times one wrapper call of each design in the same turns (21 calls a
 turn, each between CUDA events), profiles ten calls of each for the device
-time a call, and reports the largest difference between their results.
+time a call, and reports the largest difference between their results,
+the launches of a call and, where a package counts them
+(cuda_stencil.rb_sweeps), the dense red-black sweeps by the launch that
+ran them (two a column-march pass, one a launch).
 
 Then the large flagship (the same config at L=2048, 6 levels): on one
 hierarchy built by this checkout, runs of 4 cycles of each design's cycle
 code in three rounds of turns (5 runs a turn), one profiled cycle of
-each, and the warm setup seconds of each design's build_hierarchy on a
+each (its launches, B6's among them, and red-black sweeps by launch),
+and the warm setup seconds of each design's build_hierarchy on a
 second gauge (after one unmeasured build each), in one round of turns.
 Where both designs take a batch of right-hand sides (solve_batched), a
 batched cycle of each on the same hierarchy, 8 right-hand sides at L=256
@@ -135,15 +139,23 @@ def profiled(torch, fn, reps=1):
     return len(events), busy, wall
 
 
+def rb_sweeps(cs) -> dict:
+    """The dense x-tiled red-black sweeps by the launch that ran them
+    (cuda_stencil.rb_sweeps: two a column-march pass, or one a launch),
+    where the package counts them."""
+    return dict(getattr(cs, "rb_sweeps", {}))
+
+
 def profile_cycle(torch, cs, cycle, ms_per_cycle):
     """One cycle under the profiler (cycle() resets the launch counters
     first): device ops, device time and the idle share of the unprofiled
-    ms_per_cycle."""
+    ms_per_cycle, the kernel launches and the red-black sweeps by launch."""
     ops, busy, wall = profiled(torch, cycle)
     return {"device_ops": ops, "device_ms": busy * 1e3,
             "busy_share_profiled": busy / wall, "wall_ms_profiled": wall * 1e3,
             "idle_share": 1 - busy * 1e3 / ms_per_cycle,
-            "launches": {k: v for k, v in cs.launches.items() if v}}
+            "launches": {k: v for k, v in cs.launches.items() if v},
+            "rb_sweeps": rb_sweeps(cs)}
 
 
 def device_us_in_turns(torch, other, this, calls=10, rounds=3):
@@ -360,17 +372,22 @@ def main():
         fn(this)
         n_o = sum(other.ops.cuda_stencil.launches.values())
         n_t = sum(this.ops.cuda_stencil.launches.values())
+        rb_o = rb_sweeps(other.ops.cuda_stencil)
+        rb_t = rb_sweeps(this.ops.cuda_stencil)
         ms_o, ms_t, turns = in_turns(torch, lambda: fn(other),
                                      lambda: fn(this), reps=21)
         dev_o = profiled(torch, lambda: fn(other), 10)[1] * 1e5
         dev_t = profiled(torch, lambda: fn(this), 10)[1] * 1e5
         rows.append({"case": tag, "other_ms": ms_o, "this_ms": ms_t,
                      "turns_ms": turns, "other_launches": n_o,
-                     "this_launches": n_t, "other_device_us": dev_o,
+                     "this_launches": n_t, "other_rb_sweeps": rb_o,
+                     "this_rb_sweeps": rb_t, "other_device_us": dev_o,
                      "this_device_us": dev_t, "rel_diff": diff})
         print(f"{tag:44s} other {ms_o:.4f} ms ({n_o} launches, device "
               f"{dev_o:.1f} us)  this {ms_t:.4f} ms ({n_t}, device "
-              f"{dev_t:.1f} us)  rel diff {diff:.2e}", flush=True)
+              f"{dev_t:.1f} us)  rel diff {diff:.2e}"
+              + (f"  red-black sweeps by launch {rb_o} / {rb_t}"
+                 if rb_o or rb_t else ""), flush=True)
 
     del cases, ops, Ul, phil, rl
     large = large_flagship(torch, this, other, dev)
@@ -614,7 +631,9 @@ def large_flagship(torch, this, other, dev):
         pr = out[f"{k}_profile"]
         print(f"  {k}: {pr['device_ops']} device ops, {pr['device_ms']:.4f} "
               f"ms of device time a cycle, idle {pr['idle_share']:.3f}; "
-              f"launches {pr['launches']}")
+              f"launches {pr['launches']} (B6: "
+              f"{pr['launches'].get('dense_update_tiled', 0)}); red-black "
+              f"sweeps by launch {pr['rb_sweeps']}")
     out["batched"] = batched_cycles(torch, this, other, cfgs, hier, 2, 4, 3,
                                     dev)
     del hier

@@ -294,6 +294,7 @@ def _wrapper_calls(x):
     cs.launches["dense_apply"] += 1
     cs.band_launches["dense_update"]["streamed"] += 3
     cs.group_launches["dense_update"] += 1
+    cs.rb_sweeps["multi"] += 4
     return (x + 1,), x.sum()
 
 
@@ -310,7 +311,7 @@ def test_counters_count_each_replay_once(counters):
     assert got == {("launches", "links_update"): 10,
                    ("launches", "dense_apply"): 5,
                    ("band", "dense_update", "streamed"): 15,
-                   ("group", "dense_update"): 5}
+                   ("group", "dense_update"): 5, ("rb", "multi"): 20}
     assert [g.replays for g in chunk.graphs] == [5, 1]
     assert chunk.warm_ups == 2
 

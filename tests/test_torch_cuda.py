@@ -53,6 +53,17 @@ def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
+def _tiled_launches(D, Dinv, phi, r, n_sweeps, kind="rbgs", tile=None):
+    """dense_update_tiled launches of a dense_smooth_tiled call: rb_plan's
+    passes for red-black on the default tile, else a launch a sweep."""
+    if kind != "rbgs" or tile is not None:
+        return n_sweeps
+    dims = cs._dense_operands("x", D, Dinv, phi, r, kind)
+    return len(cs.rb_plan(n_sweeps, dims.n, dims.L, dims.B, dims.G,
+                          phi.element_size(), cs._sm_count(phi.device),
+                          cs.aligned(D, Dinv, phi, r)).passes)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("L", [8, 10, 256, 512])
 def test_links_residual(dev, dtype, L):
@@ -441,7 +452,8 @@ def test_dense_smooth_tiled(dev, dtype, kind, omega, n, B, L, shared, tile):
     keep = phi.clone()
     n0 = cs.launches["dense_update_tiled"]
     got = cs.dense_smooth_tiled(D, Dinv, phi, r, 4, kind, omega, tile=tile)
-    assert cs.launches["dense_update_tiled"] == n0 + 4
+    assert cs.launches["dense_update_tiled"] == n0 + _tiled_launches(
+        D, Dinv, phi, r, 4, kind, tile)
     assert torch.equal(phi, keep)
     want = sm.smooth_plain(D, Dinv, phi, r, 4, kind, omega)
     assert _rel(got, want) < BARS[dtype]
@@ -621,7 +633,9 @@ def test_fused_red_black_sweep(dev, dtype, form, L, tile):
     keep = phi.clone()
     n0 = cs.launches[name]
     got = smooth(phi, 3)
-    assert cs.launches[name] == n0 + 3
+    assert cs.launches[name] == n0 + (
+        3 if form == "links" else _tiled_launches(D, Dinv, phi, r, 3,
+                                                  tile=tile))
     assert _rel(got, _sweep_by_sweep(smooth, phi, 3)) < BARS[dtype]
     out = torch.empty_like(phi)
     sweep(phi, out)
@@ -637,6 +651,114 @@ def test_fused_red_black_sweep(dev, dtype, form, L, tile):
     assert raw(phi, phi) != 0                  # refused by the C entry
     torch.cuda.synchronize()
     assert torch.equal(phi, keep)
+
+
+# ---- the column march: two red-black sweeps a launch (rb_plan)
+
+
+@pytest.mark.parametrize("n,L,B,shared_r", [
+    (4, 1024, None, True),                   # level 1 of the large flagship
+    (4, 512, None, True),                    # level 2
+    (4, 1000, 2, False),                     # ragged strips and segments
+    (4, 512, 2, True),                       # batched phi, r shared
+    (2, 1024, None, True),
+    (1, 2048, None, True),
+])
+def test_dense_march_equals_one_pass_launches(dev, n, L, B, shared_r):
+    """dense_smooth_tiled where rb_plan takes the call (complex64, operands
+    past the L2): 1 to 5 sweeps in n_sweeps // 2 march passes and
+    n_sweeps % 2 one-pass launches, counted in rb_sweeps; the same bits as
+    as many calls of one sweep (one-pass launches), omega 1 and 0.8; the
+    caller's phi untouched; the plain version's result to the c64 bar."""
+    rng = np.random.default_rng(33)
+    dtype = torch.complex64
+    D, Dinv = _dense(rng, 1, n, L, dtype, dev)
+    D, Dinv = D[0], Dinv[0]
+    lead = () if B is None else (B,)
+    phi = _c(rng, lead + (n, L, L), dtype, dev)
+    r = _c(rng, (n, L, L) if shared_r else lead + (n, L, L), dtype, dev)
+    keep = phi.clone()
+    assert cs.rb_plan(4, n, L, B or 1, 1, 8, cs._sm_count(dev)).passes == (
+        2, 2)
+    for k, omega in ((1, 0.8), (2, 1.0), (3, 0.8), (4, 1.0), (5, 0.8)):
+        def smooth(p, s):
+            return cs.dense_smooth_tiled(D, Dinv, p, r, s, "rbgs", omega)
+
+        cs.reset_launches()
+        got = smooth(phi, k)
+        assert cs.launches["dense_update_tiled"] == k // 2 + k % 2
+        assert cs.rb_sweeps == {"multi": 2 * (k // 2), "one": k % 2}
+        assert torch.equal(phi, keep)
+        assert torch.equal(got, _sweep_by_sweep(smooth, phi, k))
+    want = sm.smooth_plain(D, Dinv, phi, r, 4, "rbgs", 0.8)
+    got = cs.dense_smooth_tiled(D, Dinv, phi, r, 4, "rbgs", 0.8)
+    assert _rel(got, want) < BARS[dtype]
+
+
+@pytest.mark.parametrize("n,L,rows,cols", [
+    (4, 256, 16, 24),                        # level 3's lattice
+    (4, 36, 10, 14), (4, 20, 7, 6), (2, 24, 2, 24), (1, 40, 13, 18),
+    (4, 8, 1, 2),                            # a window wider than the lattice
+])
+@pytest.mark.parametrize("batched", [False, True])
+def test_dense_march_pass_at_any_geometry(dev, n, L, rows, cols, batched):
+    """One march pass (rb=2) on strips of `cols` columns and segments of
+    `rows` rows, ragged and wrapping, equals two one-pass launches bit for
+    bit, one field or a batch of 2 with D, D0inv and r each its own; src
+    is left as it was."""
+    rng = np.random.default_rng(34)
+    dtype = torch.complex64
+    B = 2 if batched else None
+    D, Dinv = _dense(rng, B or 1, n, L, dtype, dev)
+    if not batched:
+        D, Dinv = D[0], Dinv[0]
+    lead = () if B is None else (B,)
+    phi = _c(rng, lead + (n, L, L), dtype, dev)
+    r = _c(rng, lead + (n, L, L), dtype, dev)
+    keep = phi.clone()
+    dims = cs._dense_operands("x", D, Dinv, phi, r, "rbgs")
+    for omega in (1.0, 0.8):
+        two = torch.empty_like(phi)
+        cs._dense_sweep(D, Dinv, r, dims, omega, rows, cols, phi, two, 2)
+        a, b = torch.empty_like(phi), torch.empty_like(phi)
+        tile = cs.rb_tile(L, n, 8)
+        cs._dense_sweep(D, Dinv, r, dims, omega, *tile, phi, a, 1)
+        cs._dense_sweep(D, Dinv, r, dims, omega, *tile, a, b, 1)
+        torch.cuda.synchronize()
+        assert torch.equal(phi, keep)
+        assert torch.equal(two, b)
+
+
+def test_dense_march_refuses_what_it_does_not_take(dev):
+    """The C entry refuses a march pass (rb=2) in complex128, with G > 1,
+    on an odd strip width or past the lattice, and on an operand off a
+    16-byte line: an error, nothing written."""
+    rng = np.random.default_rng(35)
+    n, L = 4, 16
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def entry(dtype, D, Dinv, phi, r, out, G, TX, TY):
+        B = phi.numel() // (n * L * L)
+        return cs._entry("dense_update_tiled", dtype)(
+            D.data_ptr(), Dinv.data_ptr(), phi.data_ptr(), r.data_ptr(),
+            out.data_ptr(), B, n, L, G, 0, 0, 0, 2, 1.0, TX, TY, stream)
+
+    for dtype in DTYPES:
+        D, Dinv = _dense(rng, 1, n, L, dtype, dev)
+        phi = _c(rng, (2, n, L, L), dtype, dev)
+        out = torch.full_like(phi, float("nan"))
+        ops = (D[0], Dinv[0], phi, phi[0].clone(), out)
+        if dtype == torch.complex128:
+            assert entry(dtype, *ops, 1, 4, 8) != 0
+            continue
+        assert entry(dtype, *ops, 2, 4, 8) != 0          # G > 1
+        assert entry(dtype, *ops, 1, 4, 7) != 0          # odd strip
+        assert entry(dtype, *ops, 1, 4, L + 2) != 0      # past the lattice
+        buf = _c(rng, (n * L * L + 1,), dtype, dev)
+        off = buf[1:].view(n, L, L)
+        assert entry(dtype, D[0], Dinv[0], off, off, out[0], 1, 4, 8) != 0
+        torch.cuda.synchronize()
+        assert bool(out.isnan().all())
 
 
 def test_tiled_wrappers_refuse_what_the_kernels_do_not_take(dev):

@@ -196,10 +196,12 @@ def test_kernel_work_counts_sweeps_and_batches():
 
 def test_reset_launches_clears_the_band_counts():
     cs.band_launches["dense_update"]["staged"] += 3
+    cs.rb_sweeps["multi"] += 2
     cs.reset_launches()
     assert all(v == 0 for modes in cs.band_launches.values()
                for v in modes.values())
     assert all(v == 0 for v in cs.launches.values())
+    assert cs.rb_sweeps == {"multi": 0, "one": 0}
 
 
 # ---- the route functions of ops/dispatch.py: which implementation runs

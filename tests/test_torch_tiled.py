@@ -322,3 +322,236 @@ def test_fused_red_black_pass_matches_the_plain_sweeps(L, tile, form, omega):
     got = _fused_rb_sweep(relax, _fused_rb_sweep(relax, phi, *tile), *tile)
     assert torch.equal(phi, keep)
     assert rel_err(got, want) < 1e-12
+
+
+# ---- the column march: two red-black sweeps a launch (rb_plan)
+
+
+def _march_pass(relax_row, src, S, W):
+    """Two red-black sweeps as dense_rb_tiled_kernel<..., 2> (csrc/
+    stencil_tiled.cu dense_rb_march) computes them, out of place: a block a
+    strip of W columns and a segment of S rows (the last of each ragged),
+    its window the strip and 4 columns either side; at march step t, for t
+    from 3 rows before the segment to 6 after it, four stages run together
+    on the values the step starts from: sweep 1's reds on row t (window
+    columns 1 .. C - 2), its blacks on t - 2 (2 .. C - 3), sweep 2's reds on
+    t - 4 (3 .. C - 4), its blacks on t - 6 (the strip), each where its row
+    lies within the segment and 3 - k rows of it. relax_row(win, i, x, js,
+    cols) is the update of the sites at lattice row x and window columns js
+    from the window rows i - 1 .. i + 1 of win [..., rows, n, C]."""
+    L = src.shape[-1]
+    dst = torch.full_like(src, float("nan"))
+    for y0 in range(0, L, W):
+        w = min(W, L - y0)
+        C = w + 8
+        cols = (torch.arange(C) + y0 - 4) % L
+        for xa in range(0, L, S):
+            xb = min(xa + S, L)
+            rows = torch.arange(xa - 4, xb + 4) % L   # march rows
+            win = src[..., rows[:, None], cols[None, :]].movedim(-3, -2)
+            win = win.clone()
+            for t in range(xa - 3, xb + 6):
+                start = win.clone()                   # the step's values
+                for k in range(4):
+                    row = t - 2 * k
+                    if not xa - 3 + k <= row < xb + 3 - k:
+                        continue
+                    i = row - (xa - 4)
+                    x = int(rows[i])
+                    js = torch.arange(k + 1, C - 1 - k)
+                    js = js[(x + y0 - 4 + js) % 2 == k % 2]
+                    win.select(-3, i)[..., js] = relax_row(start, i, x, js,
+                                                           cols)
+            out = win[..., 4:4 + xb - xa, :, 4:4 + w].movedim(-2, -3)
+            dst[..., xa:xb, y0:y0 + w] = out
+    return dst
+
+
+def _dense_relax_row(D, Dinv, r, omega):
+    """dense_relax at the window columns js of window row i (lattice row x,
+    window column j at lattice column cols[j]): -D0inv (sum_{mu != 0} D_mu
+    phi(x + mu) - r), relaxed by omega."""
+    def relax(win, i, x, js, cols):
+        Y = cols[js]
+        row = win.select(-3, i)
+        nbrs = (win.select(-3, i + 1)[..., js],                  # +x
+                win.select(-3, i - 1)[..., js],                  # -x
+                row[..., js + 1], row[..., js - 1])              # +y, -y
+        a = -r[..., x, Y]
+        for d, v in enumerate(nbrs, start=1):
+            Dd = D.select(-5, d)[..., x, Y]
+            a = a + (Dd * v.unsqueeze(-3)).sum(-2)
+        upd = -(Dinv[..., x, Y] * a.unsqueeze(-3)).sum(-2)
+        return _relaxed(row[..., js], upd, omega)
+    return relax
+
+
+@pytest.mark.parametrize("omega", [1.0, 0.8])
+@pytest.mark.parametrize("form", ["n=1", "n=2 batch 2", "n=4",
+                                  "n=4 batch 2 shared r"])
+@pytest.mark.parametrize("L,S,W", [(8, 1, 2), (12, 5, 4), (12, 12, 12),
+                                   (20, 7, 6), (16, 3, 10)])
+def test_column_march_matches_two_plain_sweeps(L, S, W, form, omega):
+    """The torch mirror of the column march equals two plain red-black
+    sweeps (smoothers.smooth_plain) in complex128 to 1e-12: ragged strips
+    and segments, a window wider than the lattice (its columns wrap onto
+    the strip's own), a segment of one row, batched fields with shared or
+    batched operands."""
+    rng = np.random.default_rng(31)
+    n = int(form[2])
+    B = 2 if "batch" in form else None
+    lead = () if B is None else (B,)
+    D = 0.25 * t_of(crandn(rng, lead + (5, n, n, L, L)))
+    D[..., 0, :, :, :, :] += 4.0 * torch.eye(n, dtype=D.dtype)[:, :, None,
+                                                               None]
+    Dinv = tst.site_inverse(D[..., 0, :, :, :, :])
+    phi = t_of(crandn(rng, lead + (n, L, L)))
+    r = t_of(crandn(rng, ((n, L, L) if "shared" in form or B is None
+                          else lead + (n, L, L))))
+    relax = _dense_relax_row(D, Dinv, r, omega)
+    keep = phi.clone()
+    got = _march_pass(relax, phi, S, W)
+    assert torch.equal(phi, keep)
+    want = tsm.smooth_plain(D, Dinv, phi, r, 2, "rbgs", omega)
+    assert rel_err(got, want) < 1e-12
+
+
+def _rb_plan(n_sweeps, n=4, L=1024, B=1, G=1, itemsize=8, sms=132,
+             aligned=True):
+    return cs.rb_plan(n_sweeps, n, L, B, G, itemsize, sms, aligned)
+
+
+@pytest.mark.parametrize("n_sweeps,passes", [
+    (0, ()), (1, (1,)), (2, (2,)), (3, (2, 1)), (4, (2, 2)),
+    (5, (2, 2, 1)), (8, (2, 2, 2, 2))])
+def test_rb_plan_pairs_the_sweeps(n_sweeps, passes):
+    """A march pass a pair of sweeps; an odd count ends with one launch of
+    the one-pass kernel."""
+    plan = _rb_plan(n_sweeps)
+    assert plan.passes == passes and sum(plan.passes) == n_sweeps
+    if 2 in passes:
+        assert (plan.rows, plan.cols) == (342, 24)
+
+
+@pytest.mark.parametrize("why,kw", [
+    ("complex128", {"itemsize": 16}), ("groups of candidates", {"G": 2}),
+    ("an unaligned operand", {"aligned": False}), ("odd L", {"L": 1023}),
+    ("n=3", {"n": 3}), ("operands within the L2", {"L": 256}),
+    ("n=2 operands within the L2", {"n": 2, "L": 512})])
+def test_rb_plan_keeps_the_one_pass_kernel(why, kw):
+    """Shapes the march does not take run a launch a sweep: complex128,
+    G > 1 (the setup's candidates sharing D), an operand off a 16-byte
+    line, an odd lattice, n outside {1, 2, 4}, and a lattice whose sweep
+    operands (5n^2 + n words a site) fit the L2."""
+    for n_sweeps in (1, 2, 3, 4):
+        plan = _rb_plan(n_sweeps, **kw)
+        assert plan.passes == (1,) * n_sweeps, why
+        assert plan.rows == plan.cols == plan.smem_bytes == 0
+
+
+def test_rb_plan_at_the_large_flagships_levels():
+    """Levels 1-3 of the large flagship (n=4 complex64 at 1024, 512, 256):
+    strips of 24 columns whose grid fills the card's 132 SMs at 1024 and
+    512, one block an SM (over 114 KB of shared memory); 256, whose
+    operands fit the L2, keeps the one-pass kernel."""
+    for L, rows, cols in ((1024, 342, 24), (512, 86, 24)):
+        plan = _rb_plan(4, L=L)
+        assert (plan.rows, plan.cols) == (rows, cols)
+        blocks = -(-L // cols) * -(-L // rows)
+        assert 129 <= blocks <= 132 and plan.smem_bytes > 114 * 1024
+    assert _rb_plan(4, L=256).passes == (1, 1, 1, 1)
+    assert cs.march_pitch(4, 24) == 34
+    assert cs.march_smem_bytes(4, 24, 8) == 223040
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+@pytest.mark.parametrize("sms", [132, 114, 7, 1])
+def test_rb_plan_fits_and_covers_the_lattice(monkeypatch, n, sms):
+    """Every plan's block fits the shared memory of a block and a thread's
+    copies a step, its pitch keeps the word planes of a site's components
+    on different bank halves, and its strips and segments cover each site
+    once; the grid is one wave wherever a strip a block does not outnumber
+    the SMs. (The L2 is taken as empty, so that small lattices plan a
+    march.)"""
+    monkeypatch.setattr(cs, "L2_BYTES", 0)
+    cs.rb_plan.cache_clear()
+    try:
+        for L in (2, 8, 20, 256, 512, 1000, 1024, 2048):
+            for B in (1, 2, 3):
+                plan = _rb_plan(4, n=n, L=L, B=B, sms=sms)
+                assert plan.passes == (2, 2)
+                assert plan.smem_bytes == cs.march_smem_bytes(n, plan.cols, 8)
+                assert plan.smem_bytes <= cs.SMEM_BLOCK_MAX
+                assert (5 * n * n + 2 * n) * (plan.cols // 2 + 4) <= (
+                    cs.MARCH_COPIES * cs.MARCH_THREADS)
+                pitch = cs.march_pitch(n, plan.cols)
+                assert pitch >= plan.cols + 8 and pitch % 2 == 0
+                assert n == 1 or (n * pitch) % 16 == 8
+                assert plan.cols % 2 == 0 and 2 <= plan.cols <= L
+                assert 1 <= plan.rows <= L
+                hits = torch.zeros(L, L, dtype=torch.int64)
+                for y0 in range(0, L, plan.cols):
+                    for x0 in range(0, L, plan.rows):
+                        hits[x0:x0 + plan.rows, y0:y0 + plan.cols] += 1
+                assert bool((hits == 1).all())
+                blocks = -(-L // plan.cols) * -(-L // plan.rows) * B
+                if -(-L // plan.cols) * B <= sms:
+                    assert blocks <= sms, (L, B, plan)
+    finally:
+        cs.rb_plan.cache_clear()
+
+
+def test_the_march_counts_its_sweeps(monkeypatch):
+    """dense_smooth_tiled on a mocked launch (the L2 taken as empty): 5
+    red-black sweeps make two march passes (rb=2, the plan's segment rows
+    and strip columns) and one one-pass launch (rb=1, rb_tile), ping-pong
+    out of place, counted in rb_sweeps as 4 multi and 1 one; an explicit
+    tile, Jacobi and G > 1 make a launch a sweep; reset_launches clears
+    the counts."""
+    calls = []
+
+    def launch(name, dtype, device, D, Dinv, src, r, dst, *args):
+        calls.append((src, dst) + args[-4:-3] + args[-2:])
+        cs.launches[name] += 1
+
+    monkeypatch.setattr(cs, "_launch", launch)
+    monkeypatch.setattr(cs, "_on_card", lambda name, t: None)
+    monkeypatch.setattr(cs, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(cs, "L2_BYTES", 0)
+    cs.rb_plan.cache_clear()
+    rng = np.random.default_rng(32)
+    n, L = 4, 32
+    D = t_of(crandn(rng, (5, n, n, L, L))).to(torch.complex64)
+    Dinv = D[0].clone()
+    phi = t_of(crandn(rng, (n, L, L))).to(torch.complex64)
+    try:
+        cs.reset_launches()
+        cs.dense_smooth_tiled(D, Dinv, phi, phi.clone(), 5)
+        plan = cs.rb_plan(5, n, L, 1, 1, 8, 132)
+        assert plan.rows and plan.cols
+        assert [c[2:] for c in calls] == [
+            (2, plan.rows, plan.cols), (2, plan.rows, plan.cols),
+            (1,) + cs.rb_tile(L, n, 8)]
+        assert calls[0][0] == phi.data_ptr()
+        assert calls[1][0] == calls[0][1] and calls[2][0] == calls[1][1]
+        assert cs.rb_sweeps == {"multi": 4, "one": 1}
+        assert cs.launches["dense_update_tiled"] == 3
+        for kw in ({"tile": (12, 32)}, {"kind": "jacobi"}):
+            calls.clear()
+            cs.reset_launches()
+            cs.dense_smooth_tiled(D, Dinv, phi, phi.clone(), 4, **kw)
+            assert len(calls) == 4
+            assert cs.rb_sweeps == ({"multi": 0, "one": 4} if "tile" in kw
+                                    else {"multi": 0, "one": 0})
+        calls.clear()
+        cs.reset_launches()
+        grouped = phi.expand(3, 2, n, L, L).contiguous()
+        cs.dense_smooth_tiled(D.expand(3, *D.shape).contiguous(),
+                              Dinv.expand(3, *Dinv.shape).contiguous(),
+                              grouped, phi.clone(), 4)
+        assert [c[2] for c in calls] == [1] * 4
+        assert cs.rb_sweeps == {"multi": 0, "one": 4}
+        cs.reset_launches()
+        assert cs.rb_sweeps == {"multi": 0, "one": 0}
+    finally:
+        cs.rb_plan.cache_clear()

@@ -77,6 +77,14 @@ __device__ __forceinline__ void cp_async(cplx<T>* smem, const cplx<T>* gmem) {
                "l"(gmem), "n"((int)sizeof(cplx<T>)));
 }
 
+// 16 bytes, global -> shared, asynchronously and past L1 (cp.async.cg); both
+// addresses 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
                    : "memory");

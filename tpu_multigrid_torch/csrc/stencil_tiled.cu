@@ -48,10 +48,12 @@
 //
 // Red-black (links_rb_tiled_kernel, dense_rb_tiled_kernel): one launch is
 // one whole sweep, red then black, in one pass over the operands; see the
-// note above links_rb_tiled_kernel.
+// note above links_rb_tiled_kernel. dense_rb_tiled_kernel<..., 2> runs two
+// whole sweeps in one pass (temporal blocking by a column march; the note
+// above dense_rb_march), so a smooth call reads the dense operands once
+// every two sweeps; the links sweep still makes one pass a sweep.
 //
-// Kept simple on purpose: no TMA, no persistent blocks and no fusing of
-// sweeps.
+// Kept simple on purpose: no TMA and no persistent blocks.
 
 #include "cplx.cuh"
 
@@ -437,6 +439,10 @@ __global__ void __launch_bounds__(kThreads)
 // :711) and dense_rb_tiled_kernel _tiled_update_kernel (:358) for
 // red-black: the TPU kernels take one colour a call, a shape that suited
 // VMEM; here one launch is one whole sweep, red ((x + y) even) then black.
+// (The dense one also runs two sweeps a launch, by the column march below,
+// where ops/cuda_stencil.rb_plan takes the call: the pass described here
+// then runs only an odd count's last sweep. The links sweep has no such
+// pass yet.)
 //
 // What bounds them: bytes. The operators do not fit on chip (n=4 at L=1024:
 // D's hop planes, D0inv and r are ~0.7 GB c64, 13x the L2), so each launch
@@ -611,8 +617,266 @@ __global__ void __launch_bounds__(kRbThreads)
   }
 }
 
+// ---- two red-black sweeps a pass: the column march -------------------------
+//
+// dense_rb_tiled_kernel<T, N, false, 2> runs two whole red-black sweeps of
+// the dense smoother in one launch (temporal blocking). A sweep of the
+// one-pass kernel streams a site's 5N^2 + N operand words from HBM (84 at
+// n=4: D's 64 hop words, D0inv's 16, r's 4) to move 2N words of phi, and the
+// operands are the same in every sweep: a pass that runs both sweeps on an
+// operand row while it sits in shared memory reads them half as often.
+//
+// A block owns a strip of W lattice columns, y0 .. y0 + W - 1, over a
+// segment of S x rows, xa .. xb - 1 (grid (strips, segments, batch)), and
+// marches along x. Its window is the strip and kMarchHalo columns on either
+// side, C = W + 8 columns (window column j is lattice column y0 - 4 + j,
+// wrapped). At step t it runs four stages, each in place:
+//   sweep 1, red sites   of row t      window columns 1 .. C - 2
+//   sweep 1, black sites of row t - 2                 2 .. C - 3
+//   sweep 2, red sites   of row t - 4                 3 .. C - 4
+//   sweep 2, black sites of row t - 6                 4 .. C - 5 (the strip)
+// A stage reads the other colour's sites in its row and the rows either
+// side, and the site's own old value. Two rows apart, no stage of a step
+// reads what another of the same step writes, so the four run together,
+// with one barrier a step; and each reads values that the stage before it
+// finished in an earlier step and that the stage after it has not yet
+// overwritten. So every site takes, in order, the values that two launches
+// of the one-pass kernel give it, bit for bit (dense_relax's arithmetic; the
+// N components of a site are N lanes, march_relax). Each stage's columns
+// are those whose inputs the window holds: the first sweep's reds reach 3
+// columns past the strip and read phi 4 past it. The march starts 3 rows
+// before the segment and its first sweep ends 3 after it: it reads the
+// operands of S + 6 rows, in S + 9 steps, and writes row t - 7 at step t.
+//
+// Shared memory: the operand words of rows t - 6 .. t + P,
+// [7 + P][5N^2 + N][pitch], and phi's rows t - 7 .. t + P + 1 in a ring of
+// [16][N][pitch]; rows t + 1 .. t + P are in flight during step t (P =
+// kMarchAhead), by cp.async, 16 bytes a copy. The pitch pads C so that the
+// word planes of a site's N components fall on different bank halves
+// (march_pitch). Out of place like the one-pass kernel; G = 1 and complex64
+// only (ops/cuda_stencil.rb_plan chooses the pass from the call's shapes).
+//
+// Measured (H100 80GB HBM3, 700 W; rbgs x4 n=4 complex64, device time a
+// call, the one-pass kernel -> this; scripts/torch_smoother_ab.py): L=1024
+// 1361 -> 919 us, L=512 366 -> 248. At L=256, whose operands stay in the
+// L2 from one sweep to the next, two one-pass sweeps take 38 us against 44
+// for a pass, so rb_plan keeps the one-pass kernel there. A step takes
+// ~1.4 us at 24 to 34 window columns, most of it a fixed cost: copies 2 or
+// 3 rows ahead, TMA bulk copies of each word plane's row, segments started
+// at rows skewed from strip to strip, and rows split by column parity (no
+// bank conflicts, twice the copies) were as fast or slower. A first version
+// whose copies recomputed their addresses (~240 instructions a 16-byte
+// copy) took 4.2 us a step; one whose stages ran one after another on rows
+// one apart, a barrier between, 2.9 us.
+constexpr int kMarchHalo = 4;
+constexpr int kMarchLag = 7;       // rows from a first-sweep red to its store
+constexpr int kMarchAhead = 2;     // rows of copies in flight
+constexpr int kMarchPhiRows = 16;
+constexpr int kMarchOpsRows = kMarchLag + kMarchAhead;
+// The most 16-byte copies one of a block's threads makes a step: a row's
+// (5N^2 + N + N) C / 2 over kRbThreads threads.
+constexpr int kMarchCopies = 12;
+
+// The pitch, in complex words, of a march block's rows of C = W + 8 window
+// columns: C padded so that N * pitch = 8 mod 16 (n > 1).
+__host__ __device__ __forceinline__ int march_pitch(int N, int W) {
+  int pitch = W + 2 * kMarchHalo;
+  while (N > 1 && (N * pitch) % 16 != 8) pitch += 2;
+  return pitch;
+}
+
+// Shared memory of a march block: operand rows and phi rows.
+template <typename T, int N>
+__host__ __device__ __forceinline__ size_t march_smem(int W) {
+  return sizeof(cplx<T>) * march_pitch(N, W) *
+         ((size_t)kMarchOpsRows * (5 * N * N + N) + kMarchPhiRows * N);
+}
+
+// Component p of dense_relax at one site: o its operand words (word w at
+// o[w * ws]), c its phi in its row and xm / xp the same column in the rows
+// x - 1 / x + 1 (component q at q * vpl). The site's N components are N
+// consecutive lanes (p = lane % N), which exchange their sums
+// sum_{mu != 0} D_mu phi(x + mu) - r before the D0inv product; every lane of
+// the warp calls it (act: whether this lane has a site), in the order and
+// with the operations of dense_relax.
+template <typename T, int N>
+__device__ __forceinline__ cplx<T> march_relax(const cplx<T>* o, int ws,
+                                               const cplx<T>* xm,
+                                               const cplx<T>* c,
+                                               const cplx<T>* xp, int vpl,
+                                               int p, bool act, T omega) {
+  cplx<T> a = mk<T>(T(0), T(0));
+  if (act) {
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {  // +x, -x, +y, -y
+      const cplx<T>* nb = d == 0 ? xp : d == 1 ? xm : d == 2 ? c + 1 : c - 1;
+#pragma unroll
+      for (int q = 0; q < N; ++q)
+        a = a + o[((d * N + p) * N + q) * ws] * nb[q * vpl];
+    }
+    a = a - o[(5 * N * N + p) * ws];
+  }
+  cplx<T> s[N];
+#pragma unroll
+  for (int q = 0; q < N; ++q)
+    s[q] = mk<T>(__shfl_sync(0xffffffffu, a.re, q, N),
+                 __shfl_sync(0xffffffffu, a.im, q, N));
+  if (!act) return a;
+  cplx<T> acc = mk<T>(T(0), T(0));
+#pragma unroll
+  for (int q = 0; q < N; ++q)
+    acc = acc + o[(4 * N * N + p * N + q) * ws] * s[q];
+  cplx<T> upd = mk<T>(-acc.re, -acc.im);
+  const cplx<T> old = c[p * vpl];
+  if (omega != T(1)) upd = old + scale(omega, upd - old);
+  return upd;
+}
+
+// Periodic index of any i.
+__device__ __forceinline__ int wrap_any(int i, int L) {
+  while (i < 0) i += L;
+  while (i >= L) i -= L;
+  return i;
+}
+
+// One march block (see above): two red-black sweeps of batch entry
+// blockIdx.z, src -> dst, on the strip blockIdx.x (W columns) of the
+// segment blockIdx.y (S rows).
+template <typename T, int N>
+__device__ __forceinline__ void dense_rb_march(
+    unsigned char* smem, const cplx<T>* __restrict__ D,
+    const cplx<T>* __restrict__ Dinv, const cplx<T>* __restrict__ src,
+    const cplx<T>* __restrict__ r, cplx<T>* __restrict__ dst, int L,
+    long long d_bstride, long long dinv_bstride, long long r_bstride,
+    T omega, int S, int W) {
+  constexpr int kW = 5 * N * N + N;
+  const size_t LL = (size_t)L * L;
+  const size_t b = blockIdx.z;
+  const cplx<T>* Db = D + b * (size_t)d_bstride;
+  const cplx<T>* Dib = Dinv + b * (size_t)dinv_bstride;
+  const cplx<T>* rb = r + b * (size_t)r_bstride;
+  const cplx<T>* sb = src + b * (N * LL);
+  cplx<T>* ob = dst + b * (N * LL);
+  const int y0 = blockIdx.x * W;
+  const int w = min(W, L - y0);          // this strip's columns
+  const int C = w + 2 * kMarchHalo;      // its window's
+  const int half = C / 2;
+  const int pitch = march_pitch(N, W);
+  const int xa = blockIdx.y * S;
+  const int xb = min(xa + S, L);
+  const int t0 = xa - 3;                 // the first step, and ops row
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nth = blockDim.x * blockDim.y;
+  cplx<T>* sv = reinterpret_cast<cplx<T>*>(smem);
+  cplx<T>* so = sv + kMarchPhiRows * N * pitch;
+  auto phi_row = [&](int t) {
+    return sv + ((t - t0 + 1) & (kMarchPhiRows - 1)) * (N * pitch);
+  };
+  auto ops_row = [&](int t) {
+    return so + ((t - t0) % kMarchOpsRows) * (kW * pitch);
+  };
+
+  // A step's copies are the operands' kW word planes and phi's N planes of
+  // one row each, window columns 0 .. C - 1 in pairs: (kW + N) * half
+  // copies of 16 bytes, the same every step but for the row. This thread's
+  // (tid, tid + nth, ...; at most kMarchCopies): the source without the
+  // row's offset, the place in its row of shared memory; operands first.
+  const cplx<T>* from[kMarchCopies];
+  int to[kMarchCopies];
+  int nops = 0, ncopy = 0;
+#pragma unroll
+  for (int m = 0; m < kMarchCopies; ++m) {
+    const int i = tid + m * nth;
+    if (i < (kW + N) * half) {
+      const int k = i / half;
+      const int j = 2 * (i - k * half);
+      const int y = wrap_any(y0 - kMarchHalo + j, L);
+      from[m] = k < kW ? word<T, N>(dense_site<T, N>(Db, Dib, rb, LL, y), k)
+                       : sb + (k - kW) * LL + y;
+      to[m] = (k < kW ? k : k - kW) * pitch + j;
+      nops += k < kW;
+      ++ncopy;
+    }
+  }
+  // Copies of phi's row t (phi) or of step t's group, the operands of row
+  // t and phi's row t + 1 (none past the last row); one commit group.
+  auto fetch = [&](int t, bool phi) {
+    if (t < xb + 3) {
+      const size_t xo = (size_t)wrap_any(t, L) * L;
+      const size_t xp = (size_t)wrap_any(t + 1 - phi, L) * L;
+      cplx<T>* ro = ops_row(t);
+      cplx<T>* rp = phi_row(t + 1 - phi);
+#pragma unroll
+      for (int m = 0; m < kMarchCopies; ++m) {
+        if (m < ncopy && (m >= nops || !phi)) {
+          const bool ops = m < nops;
+          tmg::cp_async16((ops ? ro : rp) + to[m], from[m] + (ops ? xo : xp));
+        }
+      }
+    }
+    tmg::cp_async_commit();
+  };
+  // Row t's finished strip, window columns 4 .. 4 + w - 1, to dst.
+  auto store = [&](int t) {
+    const cplx<T>* f = phi_row(t) + kMarchHalo;
+    cplx<T>* o = ob + (size_t)wrap_any(t, L) * L + y0;
+#pragma unroll
+    for (int q = 0; q < N; ++q)
+      for (int j = tid; j < w; j += nth) o[q * LL + j] = f[q * pitch + j];
+  };
+
+  fetch(t0 - 1, true);  // phi's rows t0 - 1 and t0
+  fetch(t0, true);
+  for (int g = 0; g < kMarchAhead; ++g) fetch(t0 + g, false);
+  for (int t = t0; t < xb + 6; ++t) {
+    // operands of row t, phi of row t + 1 (and the rows before them)
+    tmg::cp_async_wait_group<kMarchAhead - 1>();
+    __syncthreads();
+    if (t - kMarchLag >= xa) store(t - kMarchLag);
+    fetch(t + kMarchAhead, false);
+    // The four stages of the step (row, first column, where its items
+    // end), their sites' components one a lane.
+    int row[4], lo[4], end[4];
+    int items = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      row[k] = t - 2 * k;
+      const bool on = k == 0 ? t < xb + 3
+                             : row[k] >= xa - 3 + k && row[k] < xb + 3 - k;
+      // the first column of colour k & 1: (x + y) & 1 = (row + y0 + j) & 1
+      // (L and y0 - 4 are even)
+      const int first = k + 1;
+      lo[k] = first + ((k + row[k] + y0 + first) & 1);
+      const int hi = C - 1 - k;
+      items += on && hi > lo[k] ? (hi - lo[k] + 1) / 2 * N : 0;
+      end[k] = items;
+    }
+    for (int base = 0; base < items; base += nth) {
+      const int u = base + tid;
+      const bool act = u < items;
+      const int k = u < end[0] ? 0 : u < end[1] ? 1 : u < end[2] ? 2 : 3;
+      const int v = u - (k == 0 ? 0 : k == 1 ? end[0] : k == 2 ? end[1]
+                                                                : end[2]);
+      const int rk = k == 0 ? row[0] : k == 1 ? row[1] : k == 2 ? row[2]
+                                                                : row[3];
+      const int j = (k == 0 ? lo[0] : k == 1 ? lo[1] : k == 2 ? lo[2]
+                                                               : lo[3]) +
+                    2 * (v / N);
+      const int p = v % N;
+      cplx<T>* c = phi_row(rk) + j;
+      const cplx<T> upd =
+          march_relax<T, N>(ops_row(rk) + j, pitch, phi_row(rk - 1) + j, c,
+                            phi_row(rk + 1) + j, pitch, p, act, omega);
+      if (act) c[p * pitch] = upd;
+    }
+  }
+  __syncthreads();
+  store(xb - 1);
+}
+
 // One red-black sweep of the dense 5-point block smoother on one tile of
-// batch entry entry_of(G) (see above). Shared memory: src phi
+// batch entry entry_of(G) (see above); SWEEPS = 2: two sweeps, by the
+// column march (dense_rb_march; GROUPED false). Shared memory: src phi
 // [N][TX+4][TY+4], then the black site's operands of every thread,
 // [5N^2 + N][threads] (D's 4N^2 hop blocks, D0inv's N^2, r's N), copied
 // with cp.async at the start, after phi's copies (two commit groups: the
@@ -620,7 +884,7 @@ __global__ void __launch_bounds__(kRbThreads)
 // same 32-byte sectors (into registers before the barrier in complex64),
 // so each sector crosses HBM once and the black phase reads its operands
 // from shared memory; a ring red reads its own from global memory.
-template <typename T, int N, bool GROUPED>
+template <typename T, int N, bool GROUPED, int SWEEPS = 1>
 __global__ void __launch_bounds__(kRbThreads, 1)
     dense_rb_tiled_kernel(const cplx<T>* __restrict__ D,
                           const cplx<T>* __restrict__ Dinv,
@@ -631,6 +895,12 @@ __global__ void __launch_bounds__(kRbThreads, 1)
                           long long r_bstride, T omega, int TX, int TY) {
   constexpr int kW = 5 * N * N + N;
   extern __shared__ __align__(16) unsigned char smem[];
+  if constexpr (SWEEPS == 2) {  // TX: rows a segment, TY: columns a strip
+    static_assert(!GROUPED, "the march takes one copy of D an entry");
+    dense_rb_march<T, N>(smem, D, Dinv, src, r, dst, L, d_bstride,
+                         dinv_bstride, r_bstride, omega, TX, TY);
+    return;
+  }
   if constexpr (!GROUPED) G = 1;  // no division by G at G = 1
   const Tile t = tile_of(TX, TY, L, G);
   const size_t LL = (size_t)L * L;
@@ -852,17 +1122,37 @@ int dense_update_n(const void* D, const void* Dinv, const void* phi,
                    long long d_bs, long long dinv_bs, long long r_bs, int rb,
                    double omega, int TX, int TY, void* stream) {
   if (overlap(phi, out, sizeof(cplx<T>) * (size_t)B * N * L * L) ||
-      (rb && L % 2))
+      (rb && L % 2) || rb < 0 || rb > 2)
     return (int)cudaErrorInvalidValue;
   dim3 grid;
-  const int err = grid_of(L, TX, TY, B, grid, G);
-  if (err) return err;
   const auto run = [&](auto kernel, dim3 block, size_t smem) {
     return launch(kernel, grid, block, smem, stream, (const cplx<T>*)D,
                   (const cplx<T>*)Dinv, (const cplx<T>*)phi,
                   (const cplx<T>*)r, (cplx<T>*)out, L, G, d_bs, dinv_bs,
                   r_bs, T(omega), TX, TY);
   };
+  if (rb == 2) {  // two sweeps a pass: TX rows a segment, TY columns a strip
+    if constexpr (sizeof(T) == 4) {
+      const auto aligned = [](const void* p) {
+        return reinterpret_cast<size_t>(p) % 16 == 0;
+      };
+      if (G != 1 || TX < 1 || TX > L || TY < 2 || TY > L || TY % 2 ||
+          (5 * N * N + 2 * N) * (TY / 2 + kMarchHalo) >
+              kMarchCopies * kRbThreads ||
+          B > 65535 || !aligned(D) || !aligned(Dinv) || !aligned(phi) ||
+          !aligned(r) || !aligned(out))
+        return (int)cudaErrorInvalidValue;
+      grid = dim3((unsigned)((L + TY - 1) / TY), (unsigned)((L + TX - 1) / TX),
+                  (unsigned)B);
+      const size_t smem = march_smem<T, N>(TY);
+      return run(dense_rb_tiled_kernel<T, N, false, 2>,
+                 dim3(kThreadsY, kThreadsX), smem);
+    } else {
+      return (int)cudaErrorInvalidValue;  // complex64 only
+    }
+  }
+  const int err = grid_of(L, TX, TY, B, grid, G);
+  if (err) return err;
   const dim3 block = rb_block(TX);
   const size_t jacobi = sizeof(cplx<T>) * N * (size_t)(TX + 2) * (TY + 2);
   const size_t red_black =
@@ -979,7 +1269,10 @@ int tmg_links_update_tiled_c128(const void* U, const void* phi, const void* r,
 
 // The dense smoother sweep: B entries in groups of G sharing one D and
 // D0inv (copy b / G, at d_bs and dinv_bs a copy; 0: shared), r batched or
-// shared.
+// shared. rb = 0: one Jacobi sweep, 1: one red-black sweep on TX x TY
+// tiles; 2 (complex64, G = 1, every pointer 16-byte aligned): two red-black
+// sweeps in one pass, the column march on strips of TY (even) columns and
+// segments of TX rows.
 int tmg_dense_update_tiled_c64(const void* D, const void* Dinv,
                                const void* phi, const void* r, void* out,
                                int B, int n, int L, int G, long long d_bs,

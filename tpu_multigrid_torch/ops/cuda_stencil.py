@@ -71,9 +71,11 @@ x-tiled grid runs a group's blocks of one tile side by side (counted in
 smoothers make one launch per sweep: a Jacobi sweep, or a whole red-black
 sweep (red, then black) in one pass over the operands, each block updating
 the red sites of its tile and of a one-site ring around it before its
-black sites. They write out of place, into buffers the wrapper allocates
-(`_sweeps`). The links SpMV, residual and check give a thread a pair of
-sites. The SpMV and residual read 16-byte loads where the lattice is
+black sites; the dense red-black smoother, where its operands pass the
+L2, runs two sweeps a launch instead (a column march, `rb_plan`; counted
+in `rb_sweeps`). They write out of place, into buffers the wrapper
+allocates (`_sweeps`). The links SpMV, residual and check give a thread a
+pair of sites. The SpMV and residual read 16-byte loads where the lattice is
 even and the operands aligned (`_links_paired`), and a block of 4 x rows
 stages v over its tile and halo in shared memory for one batch entry;
 the check reads a word a load through L1, sums the residual's and r's
@@ -137,6 +139,11 @@ band_launches = {k: {"staged": 0, "streamed": 0}
 # sharing one operator (an ensemble's near-null candidates; each is also
 # counted in `launches`).
 group_launches = {"dense_update": 0, "dense_update_tiled": 0}
+# The red-black sweeps of dense_update_tiled by the launch that ran them:
+# "multi", two a launch (the column march, rb_plan); "one", a launch a
+# sweep (an odd count's last sweep, and every shape the march does not
+# take). multi / (multi + one) is how often the march engages.
+rb_sweeps = {"multi": 0, "one": 0}
 
 
 def reset_launches() -> None:
@@ -144,6 +151,8 @@ def reset_launches() -> None:
         launches[k] = 0
     for k in group_launches:
         group_launches[k] = 0
+    for k in rb_sweeps:
+        rb_sweeps[k] = 0
     for modes in band_launches.values():
         for k in modes:
             modes[k] = 0
@@ -294,18 +303,21 @@ def _check_lattice(L: int, kind: str) -> None:
         raise ValueError(f"red-black sweeps need an even lattice, got L={L}")
 
 
-def _sweeps(launch, phi, n_sweeps: int, kind: str):
-    """n_sweeps launches of launch(src, dst, rb) for the x-tiled smoothers,
-    one a sweep: rb=1 a whole red-black sweep, rb=0 a Jacobi sweep. Out of
-    place, ping-pong between two buffers allocated here (phi -> A -> B ->
-    A ...): the caller's phi is never written. No sweeps: a copy of phi, no
-    launch."""
+def _sweeps(launch, phi, n_sweeps: int, kind: str, passes=None):
+    """The launches launch(src, dst, rb) of n_sweeps x-tiled smoother
+    sweeps: rb=0 a Jacobi sweep, else rb whole red-black sweeps, one launch
+    a sweep unless `passes` (red-black: the sweeps of each launch, summing
+    to n_sweeps; rb_plan) groups them. Out of place, ping-pong between two
+    buffers allocated here (phi -> A -> B -> A ...): the caller's phi is
+    never written. No sweeps: a copy of phi, no launch."""
     if n_sweeps <= 0:
         return phi.clone()
-    bufs = [torch.empty_like(phi) for _ in range(min(n_sweeps, 2))]
+    if kind != "rbgs" or passes is None:
+        passes = (1,) * n_sweeps
+    bufs = [torch.empty_like(phi) for _ in range(min(len(passes), 2))]
     src = phi
-    for i in range(n_sweeps):
-        launch(src, bufs[i % 2], int(kind == "rbgs"))
+    for i, k in enumerate(passes):
+        launch(src, bufs[i % 2], k if kind == "rbgs" else 0)
         src = bufs[i % 2]
     return src
 
@@ -516,6 +528,103 @@ def rb_tile(L: int, n: int, itemsize: int):
     while rb_smem_bytes(n, TX, 32, itemsize) > SMEM_BLOCK_MAX:
         TX -= 2
     return TX, 32
+
+
+# The column march (dense_rb_tiled_kernel<..., 2>, csrc/stencil_tiled.cu):
+# two red-black sweeps a launch. A block owns a strip of `cols` lattice
+# columns over a segment of `rows` x rows; its window adds MARCH_HALO
+# columns on each side. Its four stages trail each other by 2 rows, so the
+# march runs MARCH_STEPS more steps than the segment has rows, and keeps
+# MARCH_OPS_ROWS rows of the window's 5n^2 + n operand words (MARCH_AHEAD
+# of them in flight) and MARCH_PHI_ROWS of its n components of phi in
+# shared memory. Each of a block's MARCH_THREADS threads makes at most
+# MARCH_COPIES copies a step.
+MARCH_HALO = 4
+MARCH_STEPS = 9
+MARCH_AHEAD = 2
+MARCH_OPS_ROWS = 7 + MARCH_AHEAD
+MARCH_PHI_ROWS = 16
+MARCH_THREADS = 256
+MARCH_COPIES = 12
+# A march step's time, as its window's columns plus a fixed part worth
+# MARCH_STEP_COLS columns (H100 80GB HBM3: ~1.0 us + ~0.012 us a column,
+# n=4 complex64, 22 to 34 columns).
+MARCH_STEP_COLS = 84
+
+
+def march_pitch(n: int, cols: int) -> int:
+    """Complex words a row of a march block's shared memory takes: the
+    window's cols + 8 columns, padded so that n * pitch = 8 mod 16 (n > 1;
+    the word planes of a site's n components on different bank halves);
+    csrc/stencil_tiled.cu march_pitch."""
+    pitch = cols + 2 * MARCH_HALO
+    while n > 1 and (n * pitch) % 16 != 8:
+        pitch += 2
+    return pitch
+
+
+def march_smem_bytes(n: int, cols: int, itemsize: int) -> int:
+    """Shared memory of a march block whose strip has `cols` columns."""
+    return itemsize * march_pitch(n, cols) * (
+        MARCH_OPS_ROWS * (5 * n * n + n) + MARCH_PHI_ROWS * n)
+
+
+@dataclasses.dataclass(frozen=True)
+class RbPlan:
+    """The launches of a dense x-tiled red-black smooth call: `passes`, the
+    sweeps of each launch in order (2: a pass of the column march on
+    strips of `cols` columns and segments of `rows` rows, `smem_bytes` a
+    block; 1: a launch of the one-pass kernel)."""
+    passes: tuple
+    rows: int = 0
+    cols: int = 0
+    smem_bytes: int = 0
+
+
+@functools.lru_cache(maxsize=None)
+def rb_plan(n_sweeps: int, n: int, L: int, B: int, G: int, itemsize: int,
+            sm_count: int, aligned: bool = True) -> RbPlan:
+    """The launches of n_sweeps dense red-black sweeps of B entries in
+    groups of G on L x L, from the call's shapes: a march pass for each
+    pair of sweeps and one launch of the one-pass kernel for an odd count's
+    last, where the march takes the call; else a launch a sweep. The march
+    takes complex64, G = 1, n in {1, 2, 4}, even L and 16-byte aligned
+    operands, where a sweep's operand words, 5n^2 + n a site, pass the L2
+    (below it the one-pass kernel finds them there from one sweep to the
+    next, and is faster: n=4 at L=256, 19 us a sweep against 44 a pass).
+    Strip and segment: the even strip width whose block fits the shared
+    memory and the segment rows that fill the grid's `sm_count` blocks (one
+    an SM) at the least time, waves * (rows + 9) * (cols + 8 + 84)."""
+    one = RbPlan((1,) * max(n_sweeps, 0))
+    if (n_sweeps < 2 or G != 1 or itemsize != 8 or n not in (1, 2, 4)
+            or L % 2 or not aligned
+            or (5 * n * n + n) * L * L * itemsize <= L2_BYTES):
+        return one
+
+    def ceil_div(a, b):
+        return -(-a // b)
+
+    best = None
+    for cols in range(2, L + 1, 2):
+        smem = march_smem_bytes(n, cols, itemsize)
+        if (smem > SMEM_BLOCK_MAX or (5 * n * n + 2 * n) * (
+                cols // 2 + MARCH_HALO) > MARCH_COPIES * MARCH_THREADS):
+            break
+        strips = ceil_div(L, cols)
+        rows = ceil_div(L, max(1, min(L, sm_count // (strips * B))))
+        waves = ceil_div(strips * ceil_div(L, rows) * B, sm_count)
+        cost = (waves * (rows + MARCH_STEPS)
+                * (cols + 2 * MARCH_HALO + MARCH_STEP_COLS))
+        if best is None or cost < best[0]:
+            best = (cost, rows, cols, smem)
+    if best is None:
+        return one
+    return RbPlan((2,) * (n_sweeps // 2) + (1,) * (n_sweeps % 2), *best[1:])
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _tile(tile, L: int, rb_n: int = 0, itemsize: int = 8):
@@ -879,28 +988,43 @@ def dense_smooth_tiled(D, D0inv, phi, r, n_sweeps: int, kind: str = "rbgs",
     side, so HBM gives the group's operators once.
 
     Replaces tpu_multigrid/ops/pallas_stencil.py _tiled_update_kernel (via
-    _tiled_update_call / smooth_pallas_tiled): one launch per sweep, a
-    red-black sweep in one pass (D's 4n^2 hop blocks, D0inv, r, phi in and
-    out once per sweep). The result is a new tensor; phi is left as it
-    was."""
+    _tiled_update_call / smooth_pallas_tiled): a Jacobi sweep a launch; a
+    red-black call by rb_plan, two sweeps a pass of the column march where
+    it takes the call (D's 4n^2 hop blocks, D0inv and r once every two
+    sweeps, phi in and out once a pass), else a sweep a launch in one pass
+    (all of it once a sweep). An explicit `tile` is the one-pass kernel's,
+    a launch a sweep. The result is a new tensor, the same bits whichever
+    launches ran; phi is left as it was."""
     TX, TY = _tile(tile, phi.shape[-1],
                    phi.shape[-3] if kind == "rbgs" else 0, phi.element_size())
     dims = _dense_operands("dense_update_tiled", D, D0inv, phi, r, kind)
-    return _sweeps(functools.partial(_dense_sweep, D, D0inv, r, dims, omega,
-                                     TX, TY), phi, n_sweeps, kind)
+    one = functools.partial(_dense_sweep, D, D0inv, r, dims, omega, TX, TY)
+    if kind != "rbgs" or tile is not None:
+        return _sweeps(one, phi, n_sweeps, kind)
+    plan = rb_plan(n_sweeps, dims.n, dims.L, dims.B, dims.G,
+                   phi.element_size(), _sm_count(phi.device),
+                   aligned(D, D0inv, phi, r))
+    two = functools.partial(_dense_sweep, D, D0inv, r, dims, omega,
+                            plan.rows, plan.cols)
+    return _sweeps(lambda src, dst, rb: (two if rb == 2 else one)(src, dst,
+                                                                   rb),
+                   phi, n_sweeps, kind, plan.passes)
 
 
 def _dense_sweep(D, D0inv, r, dims: DenseDims, omega: float, TX: int,
                  TY: int, src, dst, rb: int) -> None:
-    """One launch of dense_update_tiled, src -> dst: a whole red-black
-    sweep (rb=1) or a Jacobi sweep (rb=0); dims of _dense_operands; dst
-    must not overlap src."""
+    """One launch of dense_update_tiled, src -> dst: a Jacobi sweep (rb=0),
+    a whole red-black sweep on TX x TY tiles (rb=1), or two by the column
+    march on segments of TX rows and strips of TY columns (rb=2); dims of
+    _dense_operands; dst must not overlap src."""
     _check_out_of_place(src, dst)
     _launch("dense_update_tiled", src.dtype, src.device, D.data_ptr(),
             D0inv.data_ptr(), src.data_ptr(), r.data_ptr(), dst.data_ptr(),
             *dims.args(), rb, float(omega), TX, TY)
     if dims.G > 1:
         group_launches["dense_update_tiled"] += 1
+    if rb:
+        rb_sweeps["multi" if rb > 1 else "one"] += rb
 
 
 @dataclasses.dataclass(frozen=True)

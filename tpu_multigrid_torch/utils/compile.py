@@ -65,6 +65,7 @@ def _counts() -> dict:
     out.update({("band", k, m): v
                 for k, modes in cuda_stencil.band_launches.items()
                 for m, v in modes.items()})
+    out.update({("rb", k): v for k, v in cuda_stencil.rb_sweeps.items()})
     return out
 
 
@@ -75,6 +76,8 @@ def _add(delta: dict, times: int) -> None:
             cuda_stencil.launches[key[1]] += times * v
         elif key[0] == "group":
             cuda_stencil.group_launches[key[1]] += times * v
+        elif key[0] == "rb":
+            cuda_stencil.rb_sweeps[key[1]] += times * v
         else:
             cuda_stencil.band_launches[key[1]][key[2]] += times * v
 
