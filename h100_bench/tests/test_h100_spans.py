@@ -189,6 +189,13 @@ def card():
 @pytest.mark.parametrize("cell", [w["name"] for w in
                                   harness.manifest()["workloads"]])
 def test_short_traced_run_on_the_card(card, cell):
+    """Since solve_ir keeps its program with the hierarchy, the set-up's
+    warm-up call captures it and every call of the window only replays
+    it: nothing captured or warmed up there, one reuse a solve."""
+    import torch
+    chips = {w["name"]: w["chips"] for w in harness.manifest()["workloads"]}
+    if chips[cell] > torch.cuda.device_count():
+        pytest.skip(f"{cell} needs {chips[cell]} cards")
     res = subprocess.run(
         [sys.executable, "h100_bench/run.py", "--workload", cell, "--seed",
          "2147483671", "--seconds", "3", "--trace", "1"],
@@ -198,8 +205,9 @@ def test_short_traced_run_on_the_card(card, cell):
     want = {m["name"] for m in harness.manifest()["per_layer"]
             if m["name"] in NEW and cell in m["workloads"]}
     assert out["correct"] and want <= set(out["metrics"])
+    m = out["metrics"]
     if cell.endswith("_rhs"):
-        m = out["metrics"]
-        assert m["capture_ms.solve"]["value"] > 0
+        assert m["capture_ms.solve"]["value"] == 0.0
+        assert m["graph_reuse.solve"]["value"] == 1.0
     if cell == "large_rhs":
-        assert m["warmup_stream_ms"]["value"] > 0
+        assert m["warmup_stream_ms"]["value"] == 0.0
